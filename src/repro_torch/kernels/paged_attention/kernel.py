@@ -1,0 +1,62 @@
+"""Launchers of the CUDA paged-attention kernels (``csrc/paged_decode.cu``,
+``csrc/paged_write.cu``).
+
+Imports nothing GPU-only at module import; the library is built and loaded
+at the first launch."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import bind, check_status, count_launch, stream_ptr
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def paged_decode_cuda(q, k_pool, v_pool, k_new, v_new, tables, lengths, *,
+                      W: int, window: int, scale: float):
+    """q: (B, KV, G*W, d) grouped rows (row = g*W + w); pools
+    (P, bs, KV, d), written in place; k_new/v_new (B, W, KV, d); tables
+    (B, nb) and lengths (B,) int32. All contiguous CUDA tensors, checked by
+    the caller. Returns out (B, KV, G*W, d). Too many query rows for one
+    block's shared memory fail the launch, which raises."""
+    B, KV, R, d = q.shape
+    bs = k_pool.shape[1]
+    nb = tables.shape[1]
+    out = torch.empty_like(q)
+    fn = bind("paged_decode_launch", [ctypes.c_void_p] * 8
+              + [ctypes.c_int] * 8
+              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    status = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                k_new.data_ptr(), v_new.data_ptr(), tables.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(), B, KV, R, W, d, bs, nb,
+                int(window), float(scale), _DTYPES[q.dtype],
+                stream_ptr(q.device))
+    check_status("paged_decode", status)
+    count_launch("paged_decode")
+    return out
+
+
+def paged_write_cuda(pool, new, tables, start, active):
+    """pool (P, bs, ...) written in place; new (B, W, ...) of the pool's
+    dtype and trailing shape; tables (B, nb), start (B,), active (B,)
+    int32. All contiguous CUDA tensors, checked by the caller. The kernel
+    copies 16-byte words: rows whose width or start is not a multiple of 16
+    bytes raise."""
+    B, W = new.shape[:2]
+    bs = pool.shape[1]
+    nb = tables.shape[1]
+    row_bytes = pool[0, 0].numel() * pool.element_size()
+    if row_bytes % 16 or pool.data_ptr() % 16 or new.data_ptr() % 16:
+        raise ValueError(f"paged_write: rows of {row_bytes} B at addresses "
+                         f"{pool.data_ptr():#x}, {new.data_ptr():#x}; the "
+                         "kernel wants 16-byte multiples")
+    fn = bind("paged_write_launch", [ctypes.c_void_p] * 5
+              + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    status = fn(pool.data_ptr(), new.data_ptr(), tables.data_ptr(),
+                start.data_ptr(), active.data_ptr(), B, W, nb, bs, row_bytes,
+                stream_ptr(pool.device))
+    check_status("paged_write", status)
+    count_launch("paged_write")
+    return pool

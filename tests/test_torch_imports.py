@@ -1,0 +1,57 @@
+"""Import guard: the port and ``chip_smoke.py`` import neither ``jax`` nor
+the JAX package ``repro`` — by an AST scan of every module, and by
+importing them all in a fresh interpreter and checking ``sys.modules``.
+The card's tests (``test_torch_gpu.py``) run where JAX is not installed,
+so the scan covers them too."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests" / "test_torch_gpu.py"]
+
+
+def _top(name):
+    return name.split(".")[0]
+
+
+def test_ast_scan_finds_no_forbidden_import():
+    bad = []
+    for path in _sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}: {n}" for n in names
+                    if _top(n) in FORBIDDEN]
+    assert len(_sources()) > 20
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = sorted(".".join(p.relative_to(ROOT / "src").with_suffix("")
+                           .parts).removesuffix(".__init__")
+                  for p in PORT.rglob("*.py"))
+    code = (
+        "import importlib, sys\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
