@@ -11,16 +11,25 @@ which fails the script when it fails:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and hold
    each against its plain PyTorch version on the card at the full-width
-   shapes of the serving path (qwen3-1.7b: 8 kv heads of width 128, 2 query
-   heads per kv head, 16-slot blocks, bf16 pools, vocab 151,936), with
-   times of the kernel, the plain version and one library call;
-3. serve ~4 requests through ``ServingEngine`` at full width (28 layers,
-   bf16, random weights from a seed) on the kernel path, with the launch
-   counts of that run;
-4. a shorter run on the gather fallback (``use_attention_kernel=False``),
-   which is the path of the writeback kernel;
+   shapes of the serving paths (qwen3-1.7b: 8 kv heads of width 128, 2
+   query heads per kv head, 16-slot blocks, bf16 pools, vocab 151,936;
+   DeepSeek-V3: 128 heads over one latent of width 512 plus a rope key of
+   64 for the latent kernel, the writeback kernel on both latent pools,
+   the verify kernel at vocab 129,280), with times of the kernel, the
+   plain version and one library call;
+3. serve 4 requests of qwen3-1.7b through ``ServingEngine`` at full width
+   (28 layers, bf16, random weights from a seed) on the kernel path, with
+   the launch counts of that run and a profile of a shorter one;
+4. a shorter qwen run on the gather fallback (``use_attention_kernel=
+   False``), which is the path of the writeback kernel;
 5. token agreement of phase 3's requests with the port's solo sampler under
-   the margin rule.
+   the margin rule;
+6. DeepSeek-V3 at its published widths, cut to its three dense-prefix MLA
+   layers (its MoE layers are not ported): the same 4 requests served on
+   the latent kernel's path with fixed-point forecasts and again with the
+   learned forecast (MTP) heads, a profile, one request on the gather
+   fallback (the writeback kernel on both latent pools), and every request
+   against the solo sampler under the margin rule.
 
 The second line from the end is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. ``--report PATH``
@@ -28,7 +37,9 @@ also writes every number measured to PATH as JSON.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -41,6 +52,8 @@ MEM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12,    # dense tensor-core rate
             "float32": 67e12}      # float32 outside the tensor cores
 KV, G, D, BS, V = 8, 2, 128, 16, 151936
+H_MLA, R_LAT, DR = 128, 512, 64    # DeepSeek-V3's heads, latent, rope key
+V_DS = 129280                      # DeepSeek-V3's vocab
 
 
 def log(*a):
@@ -119,28 +132,31 @@ def check_spec_verify(dev, gen):
     from repro_torch.kernels.spec_verify.ops import spec_verify
     from repro_torch.kernels.spec_verify.ref import spec_verify_ref
     rows = {}
-    for R in (16, 32):                     # B * W at W = 8 and W = 16
-        logits = torch.randn((R, V), generator=gen, device=dev)
-        eps = torch.randn((R, V), generator=gen, device=dev)
+    # B * W at W = 8 and W = 16 over qwen3-1.7b's vocab, and W = 8 over
+    # DeepSeek-V3's, which splits each row into other chunks
+    for R, nv in ((16, V), (32, V), (16, V_DS)):
+        name = f"R{R}_V{nv}"
+        logits = torch.randn((R, nv), generator=gen, device=dev)
+        eps = torch.randn((R, nv), generator=gen, device=dev)
         # exact ties across the split boundaries: the lowest index must win
         top = (logits + eps).max(dim=1).values
-        logits[1, 7] = logits[1, V - 3] = top[1] + 1.0
-        eps[1, 7] = eps[1, V - 3] = 0.0
+        logits[1, 7] = logits[1, nv - 3] = top[1] + 1.0
+        eps[1, 7] = eps[1, nv - 3] = 0.0
         logits[2, :] = -float("inf")
         got = spec_verify(logits, eps)
         want = spec_verify_ref(logits, eps)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             bad = (got != want).nonzero().flatten().tolist()
-            raise AssertionError(f"spec_verify R={R} differs at rows {bad}")
-        nbytes = 2 * R * V * 4 + R * 4
-        b_ms, b_by = bound(nbytes, 2 * R * V, "float32")
-        rows[R] = {
+            raise AssertionError(f"spec_verify {name} differs at rows {bad}")
+        nbytes = 2 * R * nv * 4 + R * 4
+        b_ms, b_by = bound(nbytes, 2 * R * nv, "float32")
+        rows[name] = {
             "max_abs_err": 0, "bound_ms": b_ms, "bound_by": b_by,
             **times(lambda: spec_verify(logits, eps),
                     lambda: spec_verify_ref(logits, eps),
                     lambda: torch.argmax(logits + eps, -1))}
-        log(f"spec_verify R={R} V={V}: bitwise equal; {rows[R]}")
+        log(f"spec_verify R={R} V={nv}: bitwise equal; {rows[name]}")
     return rows
 
 
@@ -243,43 +259,142 @@ def check_paged_decode(dev, gen):
 
 
 def check_paged_write(dev, gen):
+    """The writeback kernel on qwen3-1.7b's K/V pool rows (8 kv heads of
+    128) and on DeepSeek-V3's two latent pools (c_kv rows of 512 and k_rope
+    rows of 64), bf16, at the verify and the prefill-chunk widths."""
     import torch
     from repro_torch.kernels.paged_attention.ops import paged_window_write
     from repro_torch.kernels.paged_attention.ref import write_window_paged
     nb = 17
     rows = {}
-    for name, B, W, lengths, active in (("verify", 2, 8, [100, 37], [1, 1]),
-                                        ("prefill", 1, 64, [16], [1]),
-                                        ("inactive_row", 2, 8, [30, 201],
-                                         [1, 0])):
-        _, k_pool, _, k_new, _, tables, lens = _paged_inputs(
-            dev, gen, B, W, nb, lengths, torch.bfloat16)
+    verify, prefill = (2, 8, [100, 37], [1, 1]), (1, 64, [16], [1])
+    for name, (B, W, lengths, active), row in (
+            ("verify", verify, (KV, D)),
+            ("prefill", prefill, (KV, D)),
+            ("inactive_row", (2, 8, [30, 201], [1, 0]), (KV, D)),
+            ("latent_c_kv_verify", verify, (R_LAT,)),
+            ("latent_c_kv_prefill", prefill, (R_LAT,)),
+            ("latent_k_rope_verify", verify, (DR,)),
+            ("latent_k_rope_prefill", prefill, (DR,))):
+        P = 1 + B * nb + 3
+        pool = torch.randn((P, BS) + row, generator=gen, device=dev).to(
+            torch.bfloat16)
+        perm = torch.randperm(P - 1, generator=gen, device=dev)[:B * nb] + 1
+        tables = perm.reshape(B, nb).to(torch.int32)
+        new = torch.randn((B, W) + row, generator=gen, device=dev).to(
+            torch.bfloat16)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         act = torch.tensor(active, dtype=torch.int32, device=dev)
-        p1, p2 = k_pool.clone(), k_pool.clone()
-        paged_window_write(p1, k_new, tables, lens, act)
-        write_window_paged(p2, k_new, tables, lens, act)
+        p1, p2 = pool.clone(), pool.clone()
+        paged_window_write(p1, new, tables, lens, act)
+        write_window_paged(p2, new, tables, lens, act)
         torch.cuda.synchronize()
         if not torch.equal(p1[1:], p2[1:]):
             raise AssertionError(f"paged_write {name}: pools differ")
-        flat = p2.view(-1, KV, D)
+        flat = p2.view((-1,) + row)
         pos = lens.long()[:, None] + torch.arange(W, device=dev)
         phys = torch.gather(tables.long(), 1, (pos // BS).clamp(max=nb - 1))
         idx = (phys * BS + pos % BS).reshape(-1)
-        src = k_new.reshape(-1, KV, D)
+        src = new.reshape((-1,) + row)
 
         def lib():
             flat[idx] = src
         written = sum(a for a in active) * W
-        nbytes = 2 * written * KV * D * 2 + tables.numel() * 4 + 2 * B * 4
+        nbytes = (2 * written * math.prod(row) * 2 + tables.numel() * 4
+                  + 2 * B * 4)
         b_ms, b_by = bound(nbytes, 0, "bfloat16")
         rows[name] = {
             "max_abs_err": 0, "bound_ms": b_ms, "bound_by": b_by,
-            **times(lambda: paged_window_write(p1, k_new, tables, lens, act),
-                    lambda: write_window_paged(p2, k_new, tables, lens, act),
+            **times(lambda: paged_window_write(p1, new, tables, lens, act),
+                    lambda: write_window_paged(p2, new, tables, lens, act),
                     lib)}
-        log(f"paged_write {name} B={B} W={W}: pools bitwise (block 0 "
-            f"excluded); {rows[name]}")
+        log(f"paged_write {name} B={B} W={W} row {row} ({math.prod(row) * 2} "
+            f"B): pools bitwise (block 0 excluded); {rows[name]}")
     return rows
+
+
+def check_paged_latent(dev, gen):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ops import paged_latent_attention
+    from repro_torch.kernels.paged_attention.ref import (
+        gather_view, paged_latent_fused_ref)
+    nb = 17
+    scale = 1.0 / math.sqrt(128 + DR)      # 1/sqrt(qk_nope + qk_rope)
+    rows, worst = {}, 0.0
+    for name, B, W, lengths in (("verify", 2, 8, [100, 37]),
+                                ("prefill", 1, 64, [16]),
+                                ("decode", 2, 1, [100, 37])):
+        P = 1 + B * nb + 3
+
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+        c_pool, kr_pool = rn(P, BS, R_LAT), rn(P, BS, DR)
+        perm = torch.randperm(P - 1, generator=gen, device=dev)[:B * nb] + 1
+        tables = perm.reshape(B, nb).to(torch.int32)
+        c_new, kr_new = rn(B, W, R_LAT), rn(B, W, DR)
+        q_lat, q_rope = rn(B, W, H_MLA, R_LAT), rn(B, W, H_MLA, DR)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        c1, k1 = c_pool.clone(), kr_pool.clone()
+        c2, k2 = c_pool.clone(), kr_pool.clone()
+        got, c1, k1 = paged_latent_attention(q_lat, q_rope, c1, k1, c_new,
+                                             kr_new, tables, lens,
+                                             scale=scale)
+        want, c2, k2 = paged_latent_fused_ref(q_lat, q_rope, c2, k2, c_new,
+                                              kr_new, tables, lens,
+                                              scale=scale)
+        torch.cuda.synchronize()
+        if not (torch.equal(c1[1:], c2[1:]) and torch.equal(k1[1:], k2[1:])):
+            raise AssertionError(f"paged_latent {name}: pools differ")
+        err = (got.float() - want.float()).abs()
+        # both sides compute in float32 and round the output to bf16 once:
+        # 2 bf16 ulps of the value, 1e-2 absolute floor
+        tol = 1e-2 + 2 * 2.0 ** -8 * want.float().abs()
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"paged_latent {name}: max err "
+                                 f"{float(err.max())} beyond tolerance")
+        worst = max(worst, float(err.max()))
+        # library yardstick: SDPA over the gathered, already written view,
+        # q = [q_lat, q_rope], k = [c_kv, k_rope], v = c_kv, one kv head
+        c = gather_view(c2, tables)                          # (B, S, r)
+        S = c.shape[1]
+        kcat = torch.cat([c, gather_view(k2, tables)], -1)[:, None]
+        qcat = torch.cat([q_lat, q_rope], -1).transpose(1, 2)
+        qp = lens.long()[:, None] + torch.arange(W, device=dev)
+        mask = (torch.arange(S, device=dev)[None, None, :]
+                <= qp[:, :, None])[:, None]                  # (B, 1, W, S)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qcat, kcat, c[:, None], attn_mask=mask, scale=scale,
+            enable_gqa=True)
+        lib_err = float((lib().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        # the least a call must move: the cached latent rows [0, L) of
+        # each sequence read once (the window slots come from the fresh
+        # rows), the fresh rows read once and written once, the queries in,
+        # the output out, the table entries it follows
+        nblk = _visible_blocks(lengths, W, nb, 0)
+        nbytes = (sum(lengths) * (R_LAT + DR) * 2
+                  + (q_lat.numel() + q_rope.numel() + got.numel()) * 2
+                  + 2 * (c_new.numel() + kr_new.numel()) * 2
+                  + nblk * 4 + B * 4)
+        vis = sum(L + w + 1 for L in lengths for w in range(W))
+        nops = H_MLA * vis * (2 * (R_LAT + DR) + 2 * R_LAT)
+        b_ms, b_by = bound(nbytes, nops, "bfloat16")
+        rows[name] = {
+            "max_abs_err": float(err.max()), "library_max_abs_err": lib_err,
+            "bound_ms": b_ms, "bound_by": b_by,
+            **times(lambda: paged_latent_attention(
+                        q_lat, q_rope, c1, k1, c_new, kr_new, tables, lens,
+                        scale=scale),
+                    lambda: paged_latent_fused_ref(
+                        q_lat, q_rope, c2, k2, c_new, kr_new, tables, lens,
+                        scale=scale),
+                    lib)}
+        log(f"paged_latent {name} B={B} W={W} H={H_MLA} r={R_LAT} dr={DR} "
+            f"lengths={lengths}: pools bitwise (block 0 excluded); "
+            f"{rows[name]}")
+    return rows, worst
 
 
 # ---------------------------------------------------------------------------
@@ -352,6 +467,14 @@ def profile_serve(cfg, params, dev):
         kern.append((float(us), evt.count, evt.key))
     kern.sort(reverse=True)
     busy_s = sum(k[0] for k in kern) / 1e6
+    # device time of each of the port's own kernels, by function name
+    # (spec_verify's call runs spec_verify_partial and spec_verify_final)
+    own = {}
+    for name in ("spec_verify", "paged_decode", "paged_latent",
+                 "paged_write"):
+        hits = [(us, n) for us, n, key in kern if name + "_" in key]
+        own[name] = {"us": sum(h[0] for h in hits),
+                     "count": sum(h[1] for h in hits)}
     passes = m["rounds"] + m["prefill_calls"]
     out = {"wall_s": wall, "profiled_wall_s": pwall, "device_busy_s": busy_s,
            "idle_share": (1 - busy_s / wall) if kern else None,
@@ -359,7 +482,7 @@ def profile_serve(cfg, params, dev):
            "rounds": m["rounds"], "prefill_calls": m["prefill_calls"],
            "passes_equal": (pm["rounds"], pm["prefill_calls"])
            == (m["rounds"], m["prefill_calls"]),
-           "tokens": m["tokens_generated"],
+           "tokens": m["tokens_generated"], "port_kernels": own,
            "top_kernels": [{"us": us, "count": n, "name": name[:90]}
                            for us, n, name in kern[:12]]}
     if not kern:
@@ -374,12 +497,20 @@ def profile_serve(cfg, params, dev):
             f"{out['profiled_idle_share']:.4f} against the profiled one")
         for k in out["top_kernels"]:
             log(f"  {k['us'] / 1e3:9.3f} ms  x{k['count']:<6d} {k['name']}")
+        log("  the port's kernels: " + ", ".join(
+            f"{n} {v['us'] / 1e3:.3f} ms x{v['count']}"
+            for n, v in own.items()))
     return out
 
 
-def solo_agreement(cfg, params, dev, done, tol):
+def solo_agreement(cfg, params, dev, done, tol, **kw):
     """Each served request against the port's solo sampler (dense cache,
-    plain attention) on the card, under the margin rule."""
+    plain attention, plain argmax: none of the port's kernels) on the
+    card, under the margin rule; ``kw`` goes to
+    the sampler (``use_forecast_heads``). Where the streams split within
+    the tolerance, the solo sampler starts again from the engine's tokens
+    up to and including that position (the noise depends only on the
+    sequence and the position), so every new token is compared."""
     import torch
     from repro_torch.engine.agreement import (check_token_agreement,
                                               top2_margin)
@@ -388,29 +519,108 @@ def solo_agreement(cfg, params, dev, done, tol):
     eps_fn = make_eps_fn(1, cfg.vocab)
     out = []
     for r in sorted(done, key=lambda r: r.uid):
-        s = PredictiveSampler(cfg, params, window=8, max_len=256, eps_key=1,
-                              use_verify_kernel=True, device=dev)
-        ref, _ = s.generate(torch.as_tensor(r.prompt)[None], r.new_tokens,
-                            seq_ids=torch.tensor([r.seq_id]))
-        ref = ref[0, :len(r.prompt) + r.new_tokens].cpu().numpy()
+        end = len(r.prompt) + r.new_tokens
+        start, splits = len(r.prompt), []
+        while start < end:
+            s = PredictiveSampler(cfg, params, window=8, max_len=256,
+                                  eps_key=1, device=dev, **kw)
+            ref, _ = s.generate(torch.as_tensor(r.result[:start])[None],
+                                end - start, seq_ids=torch.tensor([r.seq_id]))
+            ref = ref[0, :end].cpu().numpy()
 
-        def margin_at(p, ref=ref, sid=r.seq_id):
-            toks = torch.as_tensor(ref[:p], device=dev)[None]
-            cache = TransformerLM.init_cache(cfg, 1, p, device=dev)
-            logits, _, _ = TransformerLM.decode_window(
-                params, cfg, toks, cache, torch.zeros(1, dtype=torch.int64,
-                                                      device=dev))
-            e = eps_fn(torch.tensor([sid], device=dev),
-                       torch.tensor([[p]], device=dev))
-            return top2_margin((logits[0, -1].float() + e[0, 0]).cpu())
-        res = check_token_agreement(ref, r.result, margin_at, tol,
-                                    start=len(r.prompt))
-        out.append({"uid": r.uid, "equal": res is None,
-                    **({} if res is None else res)})
-        log(f"  request {r.uid}: " + ("equal to solo" if res is None else
-            f"first difference at {res['position']}, reference margin "
-            f"{res['margin']:.4g} < {tol}"))
+            def margin_at(p, ref=ref, sid=r.seq_id):
+                toks = torch.as_tensor(ref[:p], device=dev)[None]
+                cache = TransformerLM.init_cache(cfg, 1, p, device=dev)
+                logits, _, _ = TransformerLM.decode_window(
+                    params, cfg, toks, cache,
+                    torch.zeros(1, dtype=torch.int64, device=dev))
+                e = eps_fn(torch.tensor([sid], device=dev),
+                           torch.tensor([[p]], device=dev))
+                return top2_margin((logits[0, -1].float() + e[0, 0]).cpu())
+            res = check_token_agreement(ref, r.result, margin_at, tol,
+                                        start=start)
+            if res is None:
+                break
+            splits.append(res)
+            start = res["position"] + 1
+        out.append({"uid": r.uid, "equal": not splits,
+                    "compared": r.new_tokens, "splits": splits})
+        log(f"  request {r.uid}: {r.new_tokens} new tokens compared, "
+            + ("equal to solo" if not splits else "split within tolerance "
+               "at " + ", ".join(f"{d['position']} (reference margin "
+                                 f"{d['margin']:.4g} < {tol})"
+                                 for d in splits)))
     return out
+
+
+def count_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_params(v) for v in tree)
+    return tree.numel()
+
+
+def serve_deepseek(dev, tol):
+    """Phase 6: DeepSeek-V3 at its published widths, cut in depth to its
+    three dense-prefix MLA layers, served on the latent kernel's path with
+    FPI forecasts and with the learned forecast heads, profiled, once on
+    the gather fallback, and every request held against the solo sampler.
+    Returns the phase's report and the launch counts of the FPI run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=3)
+    t0 = time.perf_counter()
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"{cfg.name} cut to {cfg.n_layers} layers {cfg.layer_specs()}: "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads, latent "
+        f"{cfg.kv_lora_rank} + rope {cfg.qk_rope_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.forecast_horizon} forecast heads, "
+        f"{cfg.dtype}, {count_params(params) / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    serve(cfg, params, dev, make_requests(cfg, (17,), 4),
+          use_forecast_heads=True)                    # warm-up
+    out, fpi_launches = {}, None
+    for label, kw in (("fpi", {}),
+                      ("forecast_heads", {"use_forecast_heads": True})):
+        reqs = make_requests(cfg, PROMPT_LENS, NEW_TOKENS)
+        done, m, wall, launches = serve(cfg, params, dev, reqs, **kw)
+        tok = m["tokens_generated"]
+        log(f"serve deepseek ({label}, latent kernel path): {len(done)} "
+            f"requests, {tok} new tokens, {m['rounds']} verify rounds "
+            f"({m['rounds'] / tok:.4f} rounds per token), "
+            f"{m['prefill_calls']} prefill chunks, arm_calls_vs_ancestral "
+            f"{m['arm_calls_vs_ancestral']:.4f}, wall {wall:.3f} s "
+            f"({wall / tok * 1e3:.2f} ms per token), launches {launches}")
+        if (launches["paged_latent"] <= 0 or launches["spec_verify"] <= 0
+                or launches["paged_decode"] != 0):
+            raise AssertionError(f"latent kernel path not taken: {launches}")
+        log(f"solo agreement, deepseek {label} (margin rule, tolerance "
+            f"{tol}):")
+        out[label] = {"metrics": m, "wall_s": wall, "launches": launches,
+                      "ms_per_token": wall / tok * 1e3,
+                      "agreement": solo_agreement(cfg, params, dev, done,
+                                                  tol, **kw)}
+        fpi_launches = fpi_launches or launches
+    out["profile"] = profile_serve(cfg, params, dev)
+    fb_reqs = make_requests(cfg, PROMPT_LENS[:1], 8)
+    fb_done, fm, fwall, fb_launches = serve(cfg, params, dev, fb_reqs,
+                                            use_attention_kernel=False)
+    log(f"serve deepseek (gather fallback): {len(fb_done)} request, "
+        f"{fm['tokens_generated']} new tokens, {fm['rounds']} verify rounds, "
+        f"wall {fwall:.3f} s, launches {fb_launches}")
+    if fb_launches["paged_write"] <= 0 or fb_launches["paged_latent"] != 0:
+        raise AssertionError(f"fallback path not taken: {fb_launches}")
+    log("solo agreement, deepseek gather fallback:")
+    out["fallback"] = {"metrics": fm, "wall_s": fwall,
+                       "launches": fb_launches,
+                       "agreement": solo_agreement(cfg, params, dev, fb_done,
+                                                   tol)}
+    del params
+    torch.cuda.empty_cache()
+    return out, fpi_launches
 
 
 def main(argv=None) -> int:
@@ -452,8 +662,9 @@ def main(argv=None) -> int:
     sv = check_spec_verify(dev, gen)
     pd, pd_err = check_paged_decode(dev, gen)
     pw = check_paged_write(dev, gen)
+    pl, pl_err = check_paged_latent(dev, gen)
     report["kernels_detail"] = {"spec_verify": sv, "paged_decode": pd,
-                                "paged_write": pw}
+                                "paged_write": pw, "paged_latent": pl}
 
     eps_fn = make_eps_fn(1, V)
     sid = torch.tensor([0, 1], device=dev)
@@ -468,10 +679,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     params = TransformerLM.init(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in params["embed"].values()) + sum(
-        t.numel() for layer in params["layers"] for sub in layer.values()
-        for leaf in sub.values()
-        for t in (leaf.values() if isinstance(leaf, dict) else [leaf]))
+    n_params = count_params(params)
     log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
         f"{cfg.vocab}, {cfg.dtype}, {n_params / 1e9:.3f} B params, "
         f"init {time.perf_counter() - t0:.1f} s")
@@ -509,14 +717,22 @@ def main(argv=None) -> int:
     tol = 0.25
     log(f"solo agreement (margin rule, tolerance {tol}):")
     report["agreement"] = solo_agreement(cfg, params, dev, done, tol)
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: DeepSeek-V3's MLA layers at full width ------------------
+    report["deepseek"], ds_launches = serve_deepseek(dev, tol)
 
     entries = []
     for name, rows, key, n, path, extra in (
-            ("spec_verify", sv, 16, launches["spec_verify"], "serve", 0),
+            ("spec_verify", sv, f"R16_V{V}", launches["spec_verify"],
+             "serve", 0),
             ("paged_decode", pd, "verify", launches["paged_decode"], "serve",
              pd_err),
             ("paged_write", pw, "verify", fb_launches["paged_write"],
-             "serve_gather_fallback", 0)):
+             "serve_gather_fallback", 0),
+            ("paged_latent", pl, "verify", ds_launches["paged_latent"],
+             "serve_deepseek", pl_err)):
         row = rows[key]
         entries.append({
             "name": name, "route": "cuda",
@@ -526,7 +742,9 @@ def main(argv=None) -> int:
                 "paged_decode":
                     "src/repro/kernels/paged_attention/kernel.py:192",
                 "paged_write":
-                    "src/repro/kernels/paged_attention/kernel.py:320"}[name],
+                    "src/repro/kernels/paged_attention/kernel.py:320",
+                "paged_latent":
+                    "src/repro/kernels/paged_attention/kernel.py:248"}[name],
             "launches": n, "path": path,
             "max_abs_err": max(float(r["max_abs_err"]) for r in rows.values())
             if extra == 0 else extra,

@@ -9,7 +9,9 @@ Its ``TransformerLM`` tree keeps homogeneous layers stacked on a leading
 ``n_blocks`` axis under ``params["blocks"]`` (one entry per layer of the
 repeating block) between the ``prefix`` and ``suffix`` lists; the port's
 tree lists one dict per layer under ``params["layers"]``, in layer order.
-``params_from_numpy`` and ``params_to_numpy`` convert between the two.
+``params_from_numpy`` and ``params_to_numpy`` convert between the two;
+every other subtree (the untied ``head``, the forecast heads
+``forecast.heads[t]``) has the same layout in both.
 """
 from __future__ import annotations
 
@@ -86,8 +88,9 @@ def params_from_numpy(tree, cfg, device=None):
     layers += [_map(p, conv) for p in tree.get("suffix", [])]
     out = {"embed": _map(tree["embed"], conv), "layers": layers,
            "final_norm": _map(tree["final_norm"], conv)}
-    if "head" in tree:
-        out["head"] = _map(tree["head"], conv)
+    for key in ("head", "forecast"):
+        if key in tree:
+            out[key] = _map(tree[key], conv)
     return out
 
 
@@ -109,8 +112,9 @@ def params_to_numpy(params, cfg):
             _stack([_map(body[i * per + s], conv)
                     for i in range(cfg.n_blocks)])
             for s in range(per)]
-    if "head" in params:
-        tree["head"] = _map(params["head"], conv)
+    for key in ("head", "forecast"):
+        if key in params:
+            tree[key] = _map(params[key], conv)
     return tree
 
 

@@ -1,7 +1,9 @@
 """Architecture registry: ``get_config(arch_id)`` returns the exact assigned
 config; ``get_config(arch_id, reduced=True)`` the CPU-sized variant of the
-same family. The port serves the dense GQA path first; the other
-architectures of the reference raise until their mixers are ported."""
+same family. The port serves the dense GQA path and DeepSeek-V3's MLA
+layers with dense FFNs; the other architectures of the reference raise
+until their mixers are ported, and a ported config whose layers include
+one not yet ported raises when its model is built."""
 from __future__ import annotations
 
 import importlib
@@ -21,7 +23,8 @@ ARCHS = (
     "dbrx-132b",
 )
 
-PORTED = {"qwen3-1.7b": "repro_torch.configs.qwen3_1_7b"}
+PORTED = {"qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
+          "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b"}
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:

@@ -8,16 +8,18 @@ forecasts). Output slot t is the reparametrized sample for position
 each further slot is valid while the candidate it was conditioned on
 matched, so ``a in [1, W]`` tokens are accepted per round — the tokens of
 ancestral sampling, in fewer model calls. Forecasts are fixed-point
-iteration: the previous round's outputs past the accept point.
+iteration (the previous round's outputs past the accept point), and with
+``use_forecast_heads`` the learned forecast heads fill the window slots
+where those run out (paper §2.4).
 
 Noise is virtual: ``eps[b, p] = Gumbel(fold_in(fold_in(key, seq_id), p))``
 is recomputed on demand with the reference's own threefry bits
 (``core/random.py``), so a position keeps its noise across rounds and the
 port draws the reference's noise from the same key.
 
-Token state is int64 on the port's device. The learned forecast heads,
-fault poisoning and forced-acceptance prefill of the reference are later
-slices (ROADMAP.md §1 items 16, 10 and 11).
+Token state is int64 on the port's device. Fault poisoning and
+forced-acceptance prefill of the reference are later slices (ROADMAP.md
+§1 items 10 and 11).
 """
 from __future__ import annotations
 
@@ -27,9 +29,11 @@ import torch
 
 from repro_torch.core import random as jr
 from repro_torch.core.device import resolve_device
+from repro_torch.core.forecasting import TokenForecast
 from repro_torch.core.reparam import reparam_argmax
 from repro_torch.kernels.spec_verify.ops import spec_verify
-from repro_torch.models.transformer import PagedView, TransformerLM
+from repro_torch.models.transformer import (PagedView, TransformerLM,
+                                            forecast_config)
 
 
 def _key_words(key, device):
@@ -78,8 +82,8 @@ class PredictiveSampler:
     serving test compares with."""
 
     def __init__(self, cfg, params, window: int = 8, max_len: int = 256,
-                 eps_key=0, eps_fn=None, use_verify_kernel: bool = False,
-                 device=None):
+                 eps_key=0, eps_fn=None, use_forecast_heads: bool = False,
+                 use_verify_kernel: bool = False, device=None):
         self.cfg = cfg
         self.params = params
         self.W = window
@@ -87,6 +91,9 @@ class PredictiveSampler:
         self.device = resolve_device(device)
         self.eps_fn = eps_fn if eps_fn is not None else make_eps_fn(
             eps_key, cfg.vocab)
+        self.use_forecast_heads = (use_forecast_heads
+                                   and "forecast" in params
+                                   and cfg.forecast_horizon > 0)
         self.use_verify_kernel = use_verify_kernel
 
     def init_state(self, prompts, batch: int, seq_ids=None) -> GenState:
@@ -130,6 +137,7 @@ class PredictiveSampler:
         while bool(torch.any(state.n < target)):
             state, _ = verify_round(
                 self.params, self.cfg, self.eps_fn, state, target,
+                use_forecast_heads=self.use_forecast_heads,
                 use_verify_kernel=self.use_verify_kernel)
         stats = {
             "rounds": int(state.rounds),
@@ -141,12 +149,33 @@ class PredictiveSampler:
         return state.tokens, stats
 
 
+def _forecast_fill(params, cfg, eps_fn, seq_ids, h, a, n_new, cand,
+                   valid_fpi):
+    """Fill the next window's slots past the FPI forecasts with the learned
+    heads' samples. The anchor slot ``min(a, W - 1)`` reads ``h[a - 1]``,
+    the last fully valid state; its offset-t logits forecast next-window
+    slot t, sampled with that position's own noise."""
+    B, W = cand.shape
+    T = cfg.forecast_horizon
+    fc_logits = TokenForecast.apply(params["forecast"], h,
+                                    forecast_config(cfg))  # (B, W, T, V)
+    anchor = a.clamp(max=W - 1)
+    fc_a = fc_logits[torch.arange(B, device=a.device), anchor]   # (B, T, V)
+    s_idx = torch.arange(W, device=a.device)
+    eps_next = eps_fn(seq_ids, n_new[:, None] - 1 + s_idx[None, :])
+    fc_tok = reparam_argmax(fc_a[:, s_idx.clamp(max=T - 1)], eps_next)
+    use_fc = ~valid_fpi & (s_idx[None, :] < T)
+    return torch.where(use_fc, fc_tok, cand)
+
+
 def verify_round(params, cfg, eps_fn, state: GenState, target_len,
+                 use_forecast_heads: bool = False,
                  use_verify_kernel: bool = False,
                  paged: Optional[PagedView] = None):
     """One verify round over ``state``; W is ``state.cand.shape[1]``, so
     callers may vary the window round to round (candidates gate only
-    acceptance, never token values).
+    acceptance, never token values). ``use_forecast_heads`` fills the
+    window slots past the FPI forecasts from ``params["forecast"]``.
 
     ``state.cache`` is a dense cache, or — with ``paged`` — the paged block
     pools, decoded through the block tables and updated in place.
@@ -197,7 +226,11 @@ def verify_round(params, cfg, eps_fn, state: GenState, target_len,
     # round's outputs past the accept point (paper §2.3)
     idx = (a - 1)[:, None] + ar[None, :]                   # (B, W)
     fpi = torch.gather(out, 1, idx.clamp(0, W - 1))
-    cand = torch.where(idx <= W - 1, fpi, torch.zeros_like(fpi))
+    valid_fpi = idx <= W - 1
+    cand = torch.where(valid_fpi, fpi, torch.zeros_like(fpi))
+    if use_forecast_heads:
+        cand = _forecast_fill(params, cfg, eps_fn, state.seq_ids, h, a,
+                              n_new, cand, valid_fpi)
     last_tok = torch.gather(tokens, 1, (n_new - 1).clamp(min=0)[:, None])
     cand = torch.cat([last_tok, cand[:, 1:]], dim=1)
     cand = torch.where(active[:, None], cand, state.cand)

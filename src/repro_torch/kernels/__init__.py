@@ -30,7 +30,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"spec_verify": 0, "paged_decode": 0, "paged_write": 0}
+LAUNCHES = {"spec_verify": 0, "paged_decode": 0, "paged_write": 0,
+            "paged_latent": 0}
 
 _LIB = None
 _FNS: dict = {}

@@ -1,5 +1,5 @@
 """Launchers of the CUDA paged-attention kernels (``csrc/paged_decode.cu``,
-``csrc/paged_write.cu``).
+``csrc/paged_latent.cu``, ``csrc/paged_write.cu``).
 
 Imports nothing GPU-only at module import; the library is built and loaded
 at the first launch."""
@@ -35,6 +35,40 @@ def paged_decode_cuda(q, k_pool, v_pool, k_new, v_new, tables, lengths, *,
                 stream_ptr(q.device))
     check_status("paged_decode", status)
     count_launch("paged_decode")
+    return out
+
+
+def paged_latent_cuda(q_lat, q_rope, c_pool, kr_pool, c_new, kr_new, tables,
+                      lengths, *, W: int, scale: float):
+    """q_lat: (B, H*W, r) and q_rope: (B, H*W, dr), rows h*W + w; pools
+    (P, bs, r) and (P, bs, dr), written in place; c_new (B, W, r), kr_new
+    (B, W, dr); tables (B, nb) and lengths (B,) int32. All contiguous CUDA
+    tensors of one dtype, checked by the caller. Returns the attention-
+    weighted latent (B, H*W, r). The kernel moves rows in 16-byte words:
+    rows of r or dr values that are not a multiple of 16 bytes, or
+    pointers that are not 16-byte aligned, raise."""
+    B, R, r = q_lat.shape
+    dr = q_rope.shape[-1]
+    bs = c_pool.shape[1]
+    nb = tables.shape[1]
+    size = q_lat.element_size()
+    ptrs = [t.data_ptr() for t in (q_lat, q_rope, c_pool, kr_pool, c_new,
+                                   kr_new)]
+    if (r * size) % 16 or (dr * size) % 16 or any(p % 16 for p in ptrs):
+        raise ValueError(f"paged_latent: rows of {r * size} and {dr * size} "
+                         f"B at addresses {[hex(p) for p in ptrs]}; the "
+                         "kernel wants 16-byte multiples")
+    out = torch.empty_like(q_lat)
+    fn = bind("paged_latent_launch", [ctypes.c_void_p] * 9
+              + [ctypes.c_int] * 7
+              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    status = fn(q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
+                kr_pool.data_ptr(), c_new.data_ptr(), kr_new.data_ptr(),
+                tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, R,
+                W, r, dr, bs, nb, float(scale), _DTYPES[q_lat.dtype],
+                stream_ptr(q_lat.device))
+    check_status("paged_latent", status)
+    count_launch("paged_latent")
     return out
 
 

@@ -1,9 +1,11 @@
-"""Public paged-attention ops: GQA decode through block tables with the
-window writeback fused in, and the writeback alone.
+"""Public paged-attention ops: GQA decode and MLA's absorbed-latent decode
+through block tables, each with the window writeback fused in, and the
+writeback alone.
 
 GQA is handled by grouping the query heads of one kv head into rows
-``g*W + w``, so the pool is never expanded or copied. The pools are
-updated in place on both paths (the reference donates them).
+``g*W + w``, so the pool is never expanded or copied; MLA's single latent
+"kv head" serves all H heads as rows ``h*W + w``. The pools are updated in
+place on every path (the reference donates them).
 
 CPU tensors take the plain versions in ``ref.py``. CUDA tensors launch the
 kernels or raise: there is no fallback.
@@ -13,9 +15,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.paged_attention.kernel import (paged_decode_cuda,
+                                                        paged_latent_cuda,
                                                         paged_write_cuda)
 from repro_torch.kernels.paged_attention.ref import (
-    paged_attention_fused_ref, write_window_paged)
+    paged_attention_fused_ref, paged_latent_fused_ref, write_window_paged)
 
 
 def _all_cpu(*ts) -> bool:
@@ -77,6 +80,50 @@ def paged_attention(q, k_pool, v_pool, k_new, v_new, tables, lengths,
     out = (out.reshape(B, KV, G, W, d).permute(0, 3, 1, 2, 4)
            .reshape(B, W, H, d))
     return out, k_pool, v_pool
+
+
+def paged_latent_attention(q_lat, q_rope, c_pool, kr_pool, c_new, kr_new,
+                           tables, lengths, *, scale: float):
+    """MLA absorbed-latent decode over the latent pools. q_lat:
+    (B, W, H, r); q_rope: (B, W, H, dr); c_pool: (P, bs, r); kr_pool:
+    (P, bs, dr); c_new: (B, W, r); kr_new: (B, W, dr) fresh window latents;
+    tables: (B, nb); lengths: (B,). Returns (ctx (B, W, H, r), c_pool,
+    kr_pool): the attention-weighted latent (the caller applies W_uv and
+    W_o) and both pools with the window committed in place."""
+    B, W, H, r = q_lat.shape
+    dr = q_rope.shape[-1]
+    if _all_cpu(q_lat, q_rope, c_pool, kr_pool, c_new, kr_new, tables,
+                lengths):
+        return paged_latent_fused_ref(q_lat, q_rope, c_pool, kr_pool, c_new,
+                                      kr_new, tables, lengths, scale=scale)
+    if not (q_lat.dtype == q_rope.dtype == c_pool.dtype == kr_pool.dtype
+            == c_new.dtype == kr_new.dtype) or q_lat.dtype not in (
+                torch.float32, torch.bfloat16):
+        raise TypeError("paged_latent_attention wants one dtype, float32 or "
+                        f"bfloat16: {q_lat.dtype}, {q_rope.dtype}, "
+                        f"{c_pool.dtype}, {kr_pool.dtype}, {c_new.dtype}, "
+                        f"{kr_new.dtype}")
+    P, bs = c_pool.shape[:2]
+    if (r > 512 or q_rope.shape != (B, W, H, dr)
+            or c_pool.shape != (P, bs, r) or kr_pool.shape != (P, bs, dr)
+            or c_new.shape != (B, W, r) or kr_new.shape != (B, W, dr)
+            or tables.shape[0] != B or lengths.shape != (B,)):
+        raise ValueError(
+            f"paged_latent_attention: unsupported shapes q_lat "
+            f"{tuple(q_lat.shape)}, q_rope {tuple(q_rope.shape)}, pools "
+            f"{tuple(c_pool.shape)}, {tuple(kr_pool.shape)}, new "
+            f"{tuple(c_new.shape)}, {tuple(kr_new.shape)}, tables "
+            f"{tuple(tables.shape)}, lengths {tuple(lengths.shape)}")
+    # all H heads share the single latent "kv head": rows h*W + w
+    ql = q_lat.transpose(1, 2).reshape(B, H * W, r).contiguous()
+    qr = q_rope.transpose(1, 2).reshape(B, H * W, dr).contiguous()
+    c_new, kr_new = c_new.contiguous(), kr_new.contiguous()
+    _check_cuda("paged_latent_attention", c_pool, kr_pool, c_new, kr_new,
+                tables, lengths, ql, qr)
+    _check_int32("paged_latent_attention", tables, lengths)
+    out = paged_latent_cuda(ql, qr, c_pool, kr_pool, c_new, kr_new, tables,
+                            lengths, W=W, scale=scale)
+    return out.reshape(B, H, W, r).transpose(1, 2), c_pool, kr_pool
 
 
 def paged_window_write(pool, new, tables, start, active=None):

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the paged flash-decode kernel and of the
-window writeback.
+"""Plain PyTorch versions of the paged flash-decode kernels (GQA, and MLA's
+absorbed-latent variant) and of the window writeback.
 
 Each attention ref gathers the dense per-sequence view through the block
 table (the very copy the kernel exists to avoid) and runs the plain-softmax
@@ -79,3 +79,38 @@ def paged_attention_fused_ref(q, k_pool, v_pool, k_new, v_new, tables,
     out = paged_attention_ref(q, k_pool, v_pool, tables, lengths,
                               window=window)
     return out, k_pool, v_pool
+
+
+def paged_latent_ref(q_lat, q_rope, c_pool, kr_pool, tables, lengths, *,
+                     scale: float):
+    """Attend-only plain version of MLA's absorbed-latent decode over pools
+    whose window latents are already written. q_lat: (B, W, H, r); q_rope:
+    (B, W, H, dr); c_pool: (P, bs, r); kr_pool: (P, bs, dr). Returns the
+    attention-weighted latent (B, W, H, r) in q_lat's dtype: the gathered
+    c_kv rows are both the keys' latent half and the values."""
+    W = q_lat.shape[1]
+    c = gather_view(c_pool, tables).float()              # (B, S, r)
+    kr = gather_view(kr_pool, tables).float()            # (B, S, dr)
+    S = c.shape[1]
+    dev = q_lat.device
+    s = (torch.einsum("bwhr,bsr->bhws", q_lat.float(), c)
+         + torch.einsum("bwhd,bsd->bhws", q_rope.float(), kr)) * scale
+    qp = (lengths.long()[:, None, None, None]
+          + torch.arange(W, device=dev)[None, None, :, None])
+    kp = torch.arange(S, device=dev)[None, None, None, :]
+    s = torch.where(kp <= qp, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhws,bsr->bwhr", p, c)
+    return out.to(q_lat.dtype)
+
+
+def paged_latent_fused_ref(q_lat, q_rope, c_pool, kr_pool, c_new, kr_new,
+                           tables, lengths, *, scale: float):
+    """Fused MLA plain version: commit the window latents into both pools
+    with the reference scatter, then attend — returns (out, c_pool,
+    kr_pool) like the kernel, the pools written in place."""
+    c_pool = write_window_paged(c_pool, c_new, tables, lengths)
+    kr_pool = write_window_paged(kr_pool, kr_new, tables, lengths)
+    out = paged_latent_ref(q_lat, q_rope, c_pool, kr_pool, tables, lengths,
+                           scale=scale)
+    return out, c_pool, kr_pool

@@ -1,5 +1,5 @@
-"""GQA/MQA attention (optional qk-norm, sliding window) in verify-window
-mode.
+"""Attention mixers in verify-window mode: GQA/MQA (optional qk-norm,
+sliding window) and MLA (DeepSeek-V3's multi-head latent attention).
 
 ``window`` runs W query tokens against a dense KV cache with per-sequence
 lengths ``cache_len (B,)`` (the solo sampler's path); ``window_paged`` runs
@@ -8,8 +8,11 @@ path). On partial accepts the caller rewinds ``cache_len``: stale slots are
 never read (the mask is ``key_pos <= query_pos``) and are overwritten by
 the next window.
 
-The multi-head latent attention of the reference is a later slice
-(ROADMAP.md §1 item 13).
+MLA caches the compressed latent ``c_kv`` and the decoupled rope key
+instead of per-head K/V, and attends in the absorbed-matrix form, so a
+decode step reads only ``r + rope_dim`` values per cached token. Its
+whole-sequence ``full`` mode (training, prefill of a whole sequence) is
+not on the serving path and is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import math
 import torch
 
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                     paged_latent_attention,
                                                      paged_window_write)
 from repro_torch.kernels.paged_attention.ref import gather_view
 from repro_torch.nn.core import Dense, RMSNorm
@@ -156,3 +160,149 @@ class GQAttention:
             out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(cfg.head_dim))
         y = Dense.apply(p["wo"], out.reshape(B, W, -1))
         return y, {"k": pk, "v": pv}
+
+
+class MLAttention:
+    """Multi-head latent attention (DeepSeek-V3)."""
+
+    @staticmethod
+    def init(gen, cfg, dtype=torch.float32, device=None):
+        D, H = cfg.d_model, cfg.n_heads
+        r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        kw = dict(use_bias=False, dtype=dtype, device=device)
+        return {
+            "wq_a": Dense.init(gen, D, r_q, **kw),
+            "q_norm": RMSNorm.init(r_q, dtype=dtype, device=device),
+            "wq_b": Dense.init(gen, r_q, H * (dn + dr), **kw),
+            "wkv_a": Dense.init(gen, D, r_kv + dr, **kw),
+            "kv_norm": RMSNorm.init(r_kv, dtype=dtype, device=device),
+            "wk_b": Dense.init(gen, r_kv, H * dn, **kw),
+            "wv_b": Dense.init(gen, r_kv, H * dv, **kw),
+            "wo": Dense.init(gen, H * dv, D, **kw),
+        }
+
+    @staticmethod
+    def _q(p, x, cfg, positions):
+        B, T, _ = x.shape
+        H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+        q = Dense.apply(p["wq_b"], RMSNorm.apply(
+            p["q_norm"], Dense.apply(p["wq_a"], x)))
+        q = q.reshape(B, T, H, dn + dr)
+        q_nope, q_rope = q[..., :dn], q[..., dn:]
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        return q_nope, q_rope
+
+    @staticmethod
+    def _latent(p, x, cfg, positions):
+        """Compressed KV latent (B, T, r) and the decoupled rope key
+        (B, T, dr), one head shared by all heads."""
+        r_kv = cfg.kv_lora_rank
+        kv = Dense.apply(p["wkv_a"], x)
+        c_kv = RMSNorm.apply(p["kv_norm"], kv[..., :r_kv])
+        k_rope = apply_rope(kv[..., None, r_kv:], positions, cfg.rope_theta)
+        return c_kv, k_rope[..., 0, :]
+
+    @staticmethod
+    def _scale(cfg):
+        return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+    @staticmethod
+    def _absorb_query(p, q_nope, cfg):
+        """W_uk absorbed into the query: (B, Q, H, dn) -> q_lat (B, Q, H, r)."""
+        H, dn = cfg.n_heads, cfg.qk_nope_dim
+        wk_b = p["wk_b"]["w"].reshape(cfg.kv_lora_rank, H, dn)
+        return torch.einsum("bqhd,rhd->bqhr", q_nope, wk_b)
+
+    @staticmethod
+    def _absorbed_out(p, ctx, cfg):
+        """W_uv and ``wo`` applied to the attention-weighted latent
+        ctx (B, Q, H, r) -> (B, Q, D)."""
+        B, Q, H, _ = ctx.shape
+        wv_b = p["wv_b"]["w"].reshape(cfg.kv_lora_rank, H, cfg.v_head_dim)
+        out = torch.einsum("bqhr,rhd->bqhd", ctx, wv_b)
+        return Dense.apply(p["wo"], out.reshape(B, Q, -1))
+
+    @staticmethod
+    def _attend_absorbed(p, q_nope, q_rope, c_kv, k_rope, mask, cfg):
+        """Absorbed-matrix attention over the latent cache.
+
+        q_nope: (B, Q, H, dn); c_kv: (B, S, r); k_rope: (B, S, dr).
+        scores = q_nope^T W_uk c + q_rope . k_rope; the output applies W_uv
+        to the attention-weighted latent, so per-head K/V never exist.
+        Products run in the working dtype, the softmax in float32, as in
+        the reference."""
+        q_lat = MLAttention._absorb_query(p, q_nope, cfg)
+        logits = (torch.einsum("bqhr,bsr->bhqs", q_lat, c_kv)
+                  + torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope))
+        logits = logits.float() * MLAttention._scale(cfg)
+        if mask.ndim == 2:
+            mask = mask[None]
+        logits = torch.where(mask[:, None], logits,
+                             torch.full_like(logits, NEG_INF))
+        pattn = torch.softmax(logits, dim=-1).to(c_kv.dtype)
+        ctx = torch.einsum("bhqs,bsr->bqhr", pattn, c_kv)
+        return MLAttention._absorbed_out(p, ctx, cfg)
+
+    @staticmethod
+    def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
+                   device=None):
+        return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                    dtype=dtype, device=device),
+                "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                      dtype=dtype, device=device)}
+
+    @staticmethod
+    def window(p, x, cfg, cache, cache_len, window: int = 0):
+        """x: (B, W, D) verify-window queries against the dense latent
+        cache ``{"c_kv": (B, S, r), "k_rope": (B, S, dr)}``; cache_len:
+        (B,); ``window`` > 0 masks keys outside a sliding window, as in
+        the GQA mixer. Returns (y, new_cache)."""
+        B, W, _ = x.shape
+        S = cache["c_kv"].shape[1]
+        pos = cache_len.long()[:, None] + torch.arange(W, device=x.device)
+        q_nope, q_rope = MLAttention._q(p, x, cfg, pos)
+        c_new, kr_new = MLAttention._latent(p, x, cfg, pos)
+        c_kv = write_window(cache["c_kv"], c_new, cache_len)
+        k_rope = write_window(cache["k_rope"], kr_new, cache_len)
+        k_pos = torch.arange(S, device=x.device).expand(B, S)
+        mask = _causal_mask(pos, k_pos, window)
+        y = MLAttention._attend_absorbed(p, q_nope, q_rope, c_kv, k_rope,
+                                         mask, cfg)
+        return y, {"c_kv": c_kv, "k_rope": k_rope}
+
+    @staticmethod
+    def window_paged(p, x, cfg, pool, tables, cache_len, window: int = 0,
+                     use_kernel: bool = False):
+        """Paged MLA decode: the latent pools ``{"c_kv": (P, bs, r),
+        "k_rope": (P, bs, dr)}`` are written and read through ``tables``
+        and updated in place. ``use_kernel`` absorbs W_uk into the query
+        and runs the fused latent decode, which streams the latent pool
+        once (the merged c_kv tile is both key and value) while committing
+        both pools; otherwise the writeback op commits the window, the
+        dense view is gathered and ``_attend_absorbed`` runs on it, which
+        makes the result equal the dense ``window`` path's. The latent
+        kernel has no sliding window, so ``window`` must be 0."""
+        if window:
+            raise NotImplementedError("paged MLA has no sliding window")
+        B, W, _ = x.shape
+        pos = cache_len.long()[:, None] + torch.arange(W, device=x.device)
+        q_nope, q_rope = MLAttention._q(p, x, cfg, pos)
+        c_new, kr_new = MLAttention._latent(p, x, cfg, pos)
+        if use_kernel:
+            ctx, pc, pkr = paged_latent_attention(
+                MLAttention._absorb_query(p, q_nope, cfg), q_rope,
+                pool["c_kv"], pool["k_rope"], c_new, kr_new, tables,
+                cache_len, scale=MLAttention._scale(cfg))
+            y = MLAttention._absorbed_out(p, ctx, cfg)
+        else:
+            pc = paged_window_write(pool["c_kv"], c_new, tables, cache_len)
+            pkr = paged_window_write(pool["k_rope"], kr_new, tables,
+                                     cache_len)
+            c_kv, k_rope = gather_view(pc, tables), gather_view(pkr, tables)
+            S = c_kv.shape[1]
+            k_pos = torch.arange(S, device=x.device).expand(B, S)
+            mask = _causal_mask(pos, k_pos)
+            y = MLAttention._attend_absorbed(p, q_nope, q_rope, c_kv, k_rope,
+                                             mask, cfg)
+        return y, {"c_kv": pc, "k_rope": pkr}

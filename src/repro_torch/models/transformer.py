@@ -6,11 +6,13 @@ and runs the homogeneous blocks under ``lax.scan`` over a stacked
 is one plain dict per layer, in layer order, and the forward pass is a
 Python loop over them (``checkpoint.io.params_from_numpy`` converts the
 reference's stacked tree). Caches follow the same layout:
-``{"layers": [{"mixer": {"k", "v"}}, ...]}``.
+``{"layers": [{"mixer": {"k", "v"}}, ...]}`` for GQA layers and
+``{"mixer": {"c_kv", "k_rope"}}`` for MLA layers.
 
-This slice covers the attention mixers (``attn``, ``local``) with dense
-FFNs; the other mixers and MoE FFNs raise ``NotImplementedError`` naming
-their ROADMAP item.
+The port covers the attention mixers (``attn``, ``local``) and MLA
+(``mla``) with dense FFNs, and the learned forecast heads
+(``params["forecast"]``); the other mixers and MoE FFNs raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -19,13 +21,15 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.models.attention import GQAttention
+from repro_torch.core.forecasting import TokenForecast, TokenForecastConfig
+from repro_torch.models.attention import GQAttention, MLAttention
 from repro_torch.models.moe import _mlp_apply, _mlp_init
 from repro_torch.nn.core import Dense, Embedding, RMSNorm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_LATER = {"mla": "item 13", "mamba": "item 15", "rwkv": "item 15",
-          "moe": "item 14", "rwkv_cmix": "item 15"}
+_LATER = {"mamba": "item 15", "rwkv": "item 15", "moe": "item 14",
+          "rwkv_cmix": "item 15"}
+_MIXERS = {"attn": GQAttention, "local": GQAttention, "mla": MLAttention}
 
 
 @dataclass(frozen=True)
@@ -103,7 +107,7 @@ def _check_spec(spec):
             raise NotImplementedError(
                 f"layer kind {part!r} is not ported yet "
                 f"(ROADMAP.md §1 {_LATER[part]})")
-    if mixer not in ("attn", "local") or ffn != "dense":
+    if mixer not in _MIXERS or ffn != "dense":
         raise ValueError(f"unknown layer spec {spec!r}")
 
 
@@ -111,8 +115,8 @@ class PagedView(NamedTuple):
     """Block-table addressing for a paged decode step: attention cache
     entries are the shared physical pools and each of the R view rows reads
     and writes through ``tables`` (R, nb) int32; ``rows`` (R,) names the
-    batch slots decoded. ``use_kernel`` picks the fused paged-decode kernel
-    over the gather-view fallback."""
+    batch slots decoded. ``use_kernel`` picks the fused paged-decode
+    kernels (GQA or latent) over the gather-view fallback."""
     tables: Any
     rows: Any
     use_kernel: bool = False
@@ -125,16 +129,22 @@ def _layer_window(p, spec, cfg: ModelConfig, h, cache, cache_len,
     window = cfg.sliding_window if mixer == "local" else 0
     u = RMSNorm.apply(p["norm1"], h)
     if paged is not None:
-        y, nc = GQAttention.window_paged(
+        y, nc = _MIXERS[mixer].window_paged(
             p["mixer"], u, cfg, cache["mixer"], paged.tables, cache_len,
             window=window, use_kernel=paged.use_kernel)
     else:
-        y, nc = GQAttention.window(p["mixer"], u, cfg, cache["mixer"],
-                                   cache_len, window=window)
+        y, nc = _MIXERS[mixer].window(p["mixer"], u, cfg, cache["mixer"],
+                                      cache_len, window=window)
     h = h + y
     v = RMSNorm.apply(p["norm2"], h)
     h = h + _mlp_apply(p["ffn"], v, cfg.mlp_kind)
     return h, {"mixer": nc}
+
+
+def forecast_config(cfg: ModelConfig) -> TokenForecastConfig:
+    """The learned forecast heads' config of a model config."""
+    return TokenForecastConfig(cfg.d_model, cfg.vocab, cfg.forecast_horizon,
+                               cfg.forecast_hidden)
 
 
 class TransformerLM:
@@ -144,19 +154,16 @@ class TransformerLM:
         ``torch.Generator`` seeded with ``seed`` on ``device``."""
         for spec in cfg.layer_specs():
             _check_spec(spec)
-        if cfg.forecast_horizon:
-            raise NotImplementedError(
-                "forecast heads are not ported yet (ROADMAP.md §1 item 16)")
         device = torch.device(device) if device is not None else None
         gen = torch.Generator(device=device or "cpu").manual_seed(seed)
         dtype = cfg.param_dtype
         kw = dict(dtype=dtype, device=device)
         params = {"embed": Embedding.init(gen, cfg.vocab, cfg.d_model, **kw)}
         layers = []
-        for _ in cfg.layer_specs():
+        for mixer, _ in cfg.layer_specs():
             layers.append({
                 "norm1": RMSNorm.init(cfg.d_model, **kw),
-                "mixer": GQAttention.init(gen, cfg, **kw),
+                "mixer": _MIXERS[mixer].init(gen, cfg, **kw),
                 "norm2": RMSNorm.init(cfg.d_model, **kw),
                 "ffn": _mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
                                  dtype, device),
@@ -166,6 +173,9 @@ class TransformerLM:
         if not cfg.tie_embeddings:
             params["head"] = Dense.init(gen, cfg.d_model, cfg.vocab,
                                         use_bias=False, **kw)
+        if cfg.forecast_horizon:
+            params["forecast"] = TokenForecast.init(
+                gen, forecast_config(cfg), **kw)
         return params
 
     # -- shared embedding / head -------------------------------------------
@@ -190,16 +200,17 @@ class TransformerLM:
         for spec in cfg.layer_specs():
             _check_spec(spec)
         return {"layers": [
-            {"mixer": GQAttention.init_cache(cfg, batch, max_len, dtype,
-                                             device)}
-            for _ in cfg.layer_specs()]}
+            {"mixer": _MIXERS[mixer].init_cache(cfg, batch, max_len, dtype,
+                                                device)}
+            for mixer, _ in cfg.layer_specs()]}
 
     @staticmethod
     def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
                          block_size: int, dtype=None, device=None):
-        """Physical block pools: every attention layer holds
-        ``{"k", "v"}: (num_blocks, block_size, KV, hd)``; block 0 is the
-        reserved write sink."""
+        """Physical block pools: every GQA layer holds ``{"k", "v"}:
+        (num_blocks, block_size, KV, hd)``, every MLA layer ``{"c_kv":
+        (num_blocks, block_size, r), "k_rope": (num_blocks, block_size,
+        dr)}``; block 0 is the reserved write sink."""
         return TransformerLM.init_cache(cfg, num_blocks, block_size, dtype,
                                         device)
 

@@ -2,12 +2,13 @@
 
 The port of the reference's ``serving/engine.py``, single-device:
 
-* **Paged KV cache** — attention K/V lives in fixed-size blocks of a shared
-  physical pool; verify rounds and prefill decode through the block tables
-  (``decode_window_paged``). On the GPU every layer runs the fused
-  paged-decode kernel, which attends through the table and commits the
-  window K/V in the same launch; ``use_attention_kernel=False`` takes the
-  gather-view fallback (writeback kernel, gathered view, ``_sdpa``).
+* **Paged KV cache** — attention K/V (GQA) or the latent cache (MLA)
+  lives in fixed-size blocks of a shared physical pool; verify rounds and
+  prefill decode through the block tables (``decode_window_paged``). On
+  the GPU every layer runs its fused paged-decode kernel (GQA or latent),
+  which attends through the table and commits the window in the same
+  launch; ``use_attention_kernel=False`` takes the gather-view fallback
+  (writeback kernel, gathered view, plain attention).
 * **Prefix cache** — full prompt blocks are content-hashed (chained keys);
   admissions sharing a prompt prefix point their tables at the cached
   blocks and skip recomputing them.
@@ -22,6 +23,9 @@ The port of the reference's ``serving/engine.py``, single-device:
   as the reference's ``lax.while_loop`` would have stopped there.
 * **Adaptive speculation** — W is retuned per host sync from the accept
   EWMA (``AdaptiveWindowController``).
+* **Learned forecasts** — ``use_forecast_heads`` fills the window slots
+  past the fixed-point forecasts from the model's forecast (MTP) heads;
+  forecasts gate acceptance only, so the tokens do not change.
 
 The pool and the per-slot row state (tokens, lengths, windows) are updated
 in place: the reference donates them to each step, so their old values are
@@ -59,6 +63,7 @@ class ServingEngine:
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  adaptive: bool = True, window_init: int = 0,
                  prefix_cache: bool = True, prefill_chunk: int = 64,
+                 use_forecast_heads: bool = False,
                  use_verify_kernel: bool = False,
                  use_attention_kernel: Optional[bool] = None,
                  rounds_per_sync: int = 4, lookahead: int = 8,
@@ -76,6 +81,9 @@ class ServingEngine:
         self.max_len = max_len
         self.block_size = block_size
         self.prefill_chunk = pow2_at_most(prefill_chunk)
+        self.use_forecast_heads = (use_forecast_heads
+                                   and "forecast" in params
+                                   and cfg.forecast_horizon > 0)
         self.use_verify_kernel = use_verify_kernel
         # the fused paged kernel on the GPU; the gather-view fallback on the
         # CPU, which is exact against the dense solo sampler
@@ -201,6 +209,7 @@ class ServingEngine:
                           seq_ids)
             st2, rstats = verify_round(
                 self.params, self.cfg, self.eps_fn, st, tgt,
+                use_forecast_heads=self.use_forecast_heads,
                 use_verify_kernel=self.use_verify_kernel, paged=view)
             # sticky health bits: 1 = non-finite logits, 2 = no progress
             stuck = active * (st2.n == n).long()

@@ -55,3 +55,12 @@ def test_importing_the_port_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_scan_covers_the_mla_and_forecast_modules():
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if PORT in p.parents}
+    assert {"configs/deepseek_v3_671b.py", "core/forecasting.py",
+            "models/attention.py", "kernels/paged_attention/ops.py",
+            "kernels/paged_attention/kernel.py"} <= names
+    assert (PORT / "kernels" / "csrc" / "paged_latent.cu").exists()

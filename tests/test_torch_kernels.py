@@ -3,8 +3,9 @@
 On the CPU the port's ops take their plain versions, which are held here
 against the JAX kernels run in interpret mode (as tests/kernels runs
 them): spec_verify bitwise; the paged writeback bitwise on every pool block
-but the sink 0; the fused paged decode with pools bitwise (sink excluded)
-and outputs within 2e-5 (float32 softmax sums in another order).
+but the sink 0; the fused paged decode and the fused MLA latent decode
+with pools bitwise (sink excluded) and outputs within 2e-5 (float32 softmax
+sums in another order).
 
 The CUDA kernels are held against these plain versions on the card by
 ``tests/test_torch_gpu.py``.
@@ -17,8 +18,11 @@ import torch
 
 from repro.kernels.paged_attention.kernel import paged_write_kernel
 from repro.kernels.paged_attention.ops import paged_attention as jax_paged
+from repro.kernels.paged_attention.ops import \
+    paged_latent_attention as jax_paged_latent
 from repro.kernels.spec_verify.kernel import spec_verify_kernel
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                     paged_latent_attention,
                                                      paged_window_write)
 from repro_torch.kernels.spec_verify.ops import spec_verify
 
@@ -96,5 +100,33 @@ def test_paged_decode_plain_matches_pallas(W, window):
                                             lengths)), window=window)
     np.testing.assert_array_equal(gk.numpy()[1:], np.asarray(wk)[1:])
     np.testing.assert_array_equal(gv.numpy()[1:], np.asarray(wv)[1:])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("W", [1, 4, 8])
+def test_paged_latent_plain_matches_pallas(W):
+    """MLA's absorbed-latent decode at the reduced widths (4 heads, latent
+    32, rope 16): one row near the end of its table, one short row whose
+    table is not grown past its window."""
+    rng = np.random.default_rng(200 + W)
+    B, H, r, dr, bs, nb = 2, 4, 32, 16, 4, 6
+    P = 1 + B * nb
+    ql = rng.standard_normal((B, W, H, r)).astype(np.float32)
+    qr = rng.standard_normal((B, W, H, dr)).astype(np.float32)
+    cp = rng.standard_normal((P, bs, r)).astype(np.float32)
+    kp = rng.standard_normal((P, bs, dr)).astype(np.float32)
+    cn = rng.standard_normal((B, W, r)).astype(np.float32)
+    kn = rng.standard_normal((B, W, dr)).astype(np.float32)
+    lengths = np.array([nb * bs - W - 1, 3], np.int32)
+    tables = _tables(rng, B, nb, P, [nb, -(-(3 + W) // bs)])
+    scale = 1.0 / 64 ** 0.5                 # 1/sqrt(qk_nope + qk_rope)
+    want, wc, wk = jax_paged_latent(
+        *map(jnp.asarray, (ql, qr, cp, kp, cn, kn, tables, lengths)),
+        scale=scale, interpret=True)
+    got, gc, gk = paged_latent_attention(
+        *map(_t, (ql, qr, cp, kp, cn, kn, tables, lengths)), scale=scale)
+    np.testing.assert_array_equal(gc.numpy()[1:], np.asarray(wc)[1:])
+    np.testing.assert_array_equal(gk.numpy()[1:], np.asarray(wk)[1:])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                atol=2e-5)
