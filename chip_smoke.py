@@ -29,7 +29,22 @@ which fails the script when it fails:
    the latent kernel's path with fixed-point forecasts and again with the
    learned forecast (MTP) heads, a profile, one request on the gather
    fallback (the writeback kernel on both latent pools), and every request
-   against the solo sampler under the margin rule.
+   against the solo sampler under the margin rule;
+7. train qwen3-1.7b at full width: 3 steps of ``make_train_step`` (AdamW,
+   B = 2, S = 2048, random weights from seed 0) with its attention on the
+   flash-attention kernel, the step-1 loss, logits and per-position
+   losses against the plain attention path on the same parameters and
+   batch (gated beside two planted attention faults the gate must
+   catch), the peak memory, and a profile of one step;
+8. the paper's forecast-KL objective on DeepSeek-V3 cut as in phase 6: 2
+   Adafactor steps at B = 1, S = 512, the trained parameters saved with
+   ``save_pytree``, loaded back bitwise, and 1 request served from them
+   with the forecast heads.
+
+Phase 2 also holds the flash-attention kernel (the training path's) against
+its plain version at qwen3-1.7b's training shape, a ragged length and
+gemma3-1b's 512-key sliding window, and its backward against autograd
+through the plain version.
 
 The second line from the end is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``. ``--report PATH``
@@ -158,6 +173,111 @@ def check_spec_verify(dev, gen):
                     lambda: torch.argmax(logits + eps, -1))}
         log(f"spec_verify R={R} V={nv}: bitwise equal; {rows[name]}")
     return rows
+
+
+def check_flash_attention(dev, gen):
+    """The flash-attention kernel against its plain version (bf16, qwen3-
+    1.7b's 16 query heads over 8 kv heads of width 128), and the op's
+    backward against autograd through the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    H, KVH = 16, 8
+    rows, worst = {}, {"o": 0.0, "lse": 0.0}
+    for name, B, T, window in (("qwen_train", 2, 2048, 0),
+                               ("ragged", 2, 1000, 0),
+                               ("sliding_window", 2, 2048, 512)):
+        q = torch.randn((B, T, H, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k = torch.randn((B, T, KVH, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = torch.randn((B, T, KVH, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        got, lse = flash_attention_fwd(q, k, v, window)
+        want, lse_want = flash_attention_ref(q, k, v, window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        lse_err = (lse - lse_want).abs()
+        # both sides compute in float32 (they part by ~1e-6 of the value,
+        # summation order) and round the output to bf16 once, so they may
+        # differ by one bf16 ulp: 2^-7 |want| is at least one ulp and less
+        # than two, plus 1e-4 absolute for values near 0; the float32 lse
+        # differs only by summation order (128-long dots, <= 2048-long sums)
+        tol = 1e-4 + 2.0 ** -7 * want.float().abs()
+        if not bool((err <= tol).all()) or not float(lse_err.max()) <= 1e-4:
+            raise AssertionError(
+                f"flash_attention {name}: max err o {float(err.max())}, lse "
+                f"{float(lse_err.max())} beyond tolerance (o: 1e-4 + "
+                "2^-7 |want|; lse: 1e-4)")
+        worst["o"] = max(worst["o"], float(err.max()))
+        worst["lse"] = max(worst["lse"], float(lse_err.max()))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window:
+            pos = torch.arange(T, device=dev)
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_err = float((lib().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        # the least a call must do: each (query, visible key) pair costs a
+        # 128-long q.k and a 128-long p.v (4 * d flops) for every query
+        # head; and read q, k, v once, write o and the float32 lse once
+        vis = sum(min(i + 1, window) if window else i + 1 for i in range(T))
+        nops = 4 * D * B * H * vis
+        nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2 \
+            + lse.numel() * 4
+        b_ms, b_by = bound(nbytes, nops, "bfloat16")
+        rows[name] = {
+            "B": B, "T": T, "window": window, "max_abs_err": float(err.max()),
+            "lse_max_abs_err": float(lse_err.max()),
+            "library_max_abs_err": lib_err, "gflop": nops / 1e9,
+            "mbytes": nbytes / 1e6, "bound_ms": b_ms, "bound_by": b_by,
+            **times(lambda: flash_attention_fwd(q, k, v, window),
+                    lambda: flash_attention_ref(q, k, v, window), lib)}
+        if name == "qwen_train":
+            o_k, lse_k = got, lse
+            do = torch.randn(q.shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+            rows[name]["bwd_eager_ms"] = eager_ms(
+                lambda: flash_attention_bwd(q, k, v, o_k, lse_k, do),
+                iters=5, warmup=1)
+        log(f"flash_attention {name} B={B} T={T} H={H} KV={KVH} d={D} "
+            f"window={window}: {rows[name]}")
+    # the backward: the op's hand-written VJP against autograd through the
+    # plain version, bf16, B = 1, T = 512
+    q, k, v = (torch.randn((1, 512, h, D), generator=gen, device=dev).to(
+        torch.bfloat16) for h in (H, KVH, KVH))
+    do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*leaves), leaves, do)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*ref_leaves)[0],
+                               ref_leaves, do)
+    torch.cuda.synchronize()
+    bwd = {}
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        e = float((g.float() - w.float()).abs().max())
+        top = float(w.float().abs().max())
+        # each side rounds every gradient to bf16 once; the op's backward
+        # takes rowsum(do * o) from o already rounded to bf16
+        ok = bool(((g.float() - w.float()).abs()
+                   <= 1e-2 * top + 2e-2 * w.float().abs()).all())
+        bwd[gname] = {"max_abs_err": e, "max_abs": top}
+        if not ok:
+            raise AssertionError(f"flash_attention backward {gname}: max err "
+                                 f"{e} (largest gradient {top}) beyond "
+                                 "1e-2 of the largest + 2e-2 relative")
+    rows["backward_T512"] = bwd
+    log(f"flash_attention backward B=1 T=512 bf16 vs autograd through the "
+        f"plain version (tolerance 1e-2 of the largest + 2e-2 relative): "
+        f"{bwd}")
+    return rows, worst
 
 
 def _paged_inputs(dev, gen, B, W, nb, lengths, dtype):
@@ -443,6 +563,20 @@ def serve(cfg, params, dev, reqs, **kw):
     return done, m, wall, launches
 
 
+def kernel_times(prof):
+    """(device µs, launches, name) of every kernel a ``torch.profiler``
+    run recorded, longest first."""
+    kern = []
+    for evt in prof.key_averages():
+        if "CUDA" not in str(getattr(evt, "device_type", "")):
+            continue
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0))
+        kern.append((float(us), evt.count, evt.key))
+    kern.sort(reverse=True)
+    return kern
+
+
 def profile_serve(cfg, params, dev):
     """Where the time of a short serving run on the kernel path goes (2
     requests, 16 new tokens each): the run once without the profiler for
@@ -458,14 +592,7 @@ def profile_serve(cfg, params, dev):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, pm, pwall, _ = serve(cfg, params, dev, reqs)
-    kern = []
-    for evt in prof.key_averages():
-        if "CUDA" not in str(getattr(evt, "device_type", "")):
-            continue
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0))
-        kern.append((float(us), evt.count, evt.key))
-    kern.sort(reverse=True)
+    kern = kernel_times(prof)
     busy_s = sum(k[0] for k in kern) / 1e6
     # device time of each of the port's own kernels, by function name
     # (spec_verify's call runs spec_verify_partial and spec_verify_final)
@@ -623,6 +750,298 @@ def serve_deepseek(dev, tol):
     return out, fpi_launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-8: the training path at full width
+# ---------------------------------------------------------------------------
+
+def run_steps(cfg, step_fn, params, state, batches, label):
+    """Runs ``step_fn`` over ``batches``; per step its metrics, wall ms and
+    tokens/s (host clock around work that ends in a synchronize)."""
+    import torch
+    out = []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        row = {k: float(v) for k, v in m.items()}
+        row.update(ms=ms, tokens_per_s=batch.numel() / ms * 1e3)
+        out.append(row)
+        log(f"train {label} step {i + 1}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in row.items()))
+        bad = [k for k, v in row.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"train {label} step {i + 1}: non-finite "
+                                 f"{bad}")
+    return params, state, out
+
+
+# Phase 7 holds the whole model's kernel route against its plain route by
+# the logits and the per-position losses (the mean loss of random weights
+# sits near ln V whatever attention computes). Both routes round to bf16
+# between layers and the plain _sdpa rounds scores and probabilities to
+# bf16 too, so the routes part by a few hundredths after 28 layers; each
+# limit lies between that reading and the smaller of two planted faults',
+# and the script fails if the gate would pass either fault.
+ROUTE_LIMITS = {"logits_mean_abs_diff": 0.03, "logits_max_abs_diff": 0.25,
+                "xent_per_position_max_abs_diff": 0.15}
+
+
+def planted_fault(fault):
+    """The flash op's function with one fault planted, in plain float32
+    torch (window 0): ``kv_head_mod`` has query head h read kv head
+    h % KV instead of h // G; ``diagonal_tile_dropped`` has each 64-row
+    query tile skip its last key tile, the diagonal one (a row that then
+    sees no key gives 0)."""
+    import torch
+
+    def attend(q, k, v, window=0):
+        B, T, H, d = q.shape
+        heads = torch.arange(H, device=q.device)
+        kv = (heads % k.shape[2] if fault == "kv_head_mod"
+              else heads // (H // k.shape[2]))
+        pos = torch.arange(T, device=q.device)
+        if fault == "diagonal_tile_dropped":
+            mask = pos[None, :] < (pos[:, None] // 64) * 64
+        else:
+            mask = pos[None, :] <= pos[:, None]
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                         k[:, :, kv].float()) / d ** 0.5
+        p = torch.softmax(s.masked_fill(~mask, -float("inf")), -1)
+        p = torch.nan_to_num(p, nan=0.0)
+        return torch.einsum("bhqk,bkhd->bqhd", p,
+                            v[:, :, kv].float()).to(q.dtype)
+    return attend
+
+
+def route_diffs(params, cfg, tokens):
+    """Logits and per-position loss differences from the plain attention
+    route: of the kernel route and of the two planted faults."""
+    import torch
+    import repro_torch.models.attention as attention
+    from repro_torch.models.transformer import TransformerLM
+    tgt = tokens[:, 1:].long()[..., None]
+
+    def forward(use_kernel):
+        logits = TransformerLM.apply(params, cfg, tokens,
+                                     use_kernel=use_kernel)[0]
+        lg = logits[:, :-1].float()
+        return logits, (torch.logsumexp(lg, -1)
+                        - torch.gather(lg, -1, tgt)[..., 0])
+
+    plain, plain_pos = forward(False)
+    out = {}
+    for route in ("kernel", "kv_head_mod", "diagonal_tile_dropped"):
+        op = attention.flash_attention
+        if route != "kernel":
+            attention.flash_attention = planted_fault(route)
+        try:
+            logits, per_pos = forward(True)
+        finally:
+            attention.flash_attention = op
+        dl = (logits.float() - plain.float()).abs()
+        dx = (per_pos - plain_pos).abs()
+        out[route] = {"logits_mean_abs_diff": float(dl.mean()),
+                      "logits_max_abs_diff": float(dl.max()),
+                      "xent_per_position_max_abs_diff": float(dx.max()),
+                      "xent_positions_differing": int((dx > 0).sum())}
+        del logits, per_pos, dl, dx
+    return out
+
+
+def check_route_diffs(diffs, positions):
+    """Fails unless the kernel route is inside every limit of
+    ``ROUTE_LIMITS`` and each planted fault is outside at least one."""
+    for route, d in diffs.items():
+        log(f"route {route} vs plain: logits mean |diff| "
+            f"{d['logits_mean_abs_diff']:.4g}, max "
+            f"{d['logits_max_abs_diff']:.4g}; per-position loss max |diff| "
+            f"{d['xent_per_position_max_abs_diff']:.4g} at "
+            f"{d['xent_positions_differing']} of {positions} positions")
+    log(f"limits: {ROUTE_LIMITS}")
+    inside = {route: all(d[k] <= lim for k, lim in ROUTE_LIMITS.items())
+              for route, d in diffs.items()}
+    if not inside["kernel"]:
+        raise AssertionError(f"kernel route beyond {ROUTE_LIMITS}: "
+                             f"{diffs['kernel']}")
+    caught = [r for r in inside if r != "kernel" and not inside[r]]
+    if len(caught) != len(inside) - 1:
+        raise AssertionError(f"the route gate passes a planted fault: "
+                             f"{diffs}")
+
+
+def train_qwen(dev):
+    """Phase 7: qwen3-1.7b at full width, 3 AdamW steps at B = 2, S = 2048
+    with the attention on the flash-attention kernel. Returns the phase's
+    report and the launch counts of the 3 steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import make_optimizer, make_train_step
+    from repro_torch.models.losses import lm_loss
+    from repro_torch.models.transformer import TransformerLM
+    cfg = get_config("qwen3-1.7b")
+    B, S, steps = 2, 2048, 3
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    opt = make_optimizer(cfg, steps=steps)
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, remat=False)
+    pipe = TokenPipeline(token_batches(max(512, B * 8), B, S, cfg.vocab),
+                         dev)
+    batches = [next(pipe) for _ in range(steps + 1)]
+    out = {"B": B, "S": S, "optimizer": "adamw"}
+    # step 1's loss on the plain attention route, from the same parameters
+    # and batch, before the first update (the step updates them in place);
+    # and how far the kernel route's logits and per-position losses part
+    # from the plain route's, beside two routes with a planted fault
+    with torch.no_grad():
+        lp, _ = lm_loss(params, cfg, batches[0], use_kernel=False)
+        out["route_diff"] = route_diffs(params, cfg, batches[0])
+    out["plain_loss_step1"] = float(lp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    params, state, rows = run_steps(cfg, step_fn, params, state,
+                                    batches[:steps], "qwen3-1.7b")
+    launches = dict(LAUNCHES)
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["steps"] = rows
+    out["launches"] = launches
+    log(f"train qwen3-1.7b: launches {launches} ({cfg.n_layers} flash "
+        f"launches per forward x {steps} steps), peak memory "
+        f"{out['peak_memory_gb']:.3f} GB")
+    if launches["flash_attention"] != cfg.n_layers * steps:
+        raise AssertionError(f"flash launches {launches['flash_attention']}, "
+                             f"want {cfg.n_layers} x {steps}")
+    loss1 = rows[0]["loss"]
+    ln_v = math.log(cfg.vocab)
+    # random tied logits of std ~0.02 * sqrt(d_model) ~ 0.9 add about
+    # var / 2 ~ 0.4 to ln V
+    if abs(loss1 - ln_v) > 1.0:
+        raise AssertionError(f"step-1 loss {loss1} not near ln V {ln_v}")
+    # bf16 logits through 28 layers: the kernel keeps scores and
+    # probabilities in float32 where the plain _sdpa rounds them to bf16;
+    # the float32 mean over 4094 positions differs by far less than 1e-2
+    out["loss_tolerance"] = 1e-2
+    diff = abs(loss1 - out["plain_loss_step1"])
+    log(f"step-1 loss: kernel path {loss1:.9g}, plain path "
+        f"{out['plain_loss_step1']:.9g}, |diff| {diff:.3g} (tolerance "
+        f"1e-2); ln V {ln_v:.4f}")
+    if not diff <= out["loss_tolerance"]:
+        raise AssertionError(f"step-1 loss: kernel {loss1} vs plain "
+                             f"{out['plain_loss_step1']}")
+    check_route_diffs(out["route_diff"], B * (S - 1))
+    # one more step under the profiler: the busy share against the
+    # unprofiled steps 2-3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, state, prow = run_steps(cfg, step_fn, params, state,
+                                        batches[steps:], "profiled")
+    kern = kernel_times(prof)
+    busy_ms = sum(k[0] for k in kern) / 1e3
+    step_ms = sum(r["ms"] for r in rows[1:]) / (steps - 1)
+    flash = [(us, n) for us, n, key in kern if "flash_attention_" in key]
+    out["profile"] = {
+        "step_ms_unprofiled": step_ms, "step_ms_profiled": prow[0]["ms"],
+        "device_busy_ms": busy_ms,
+        "busy_share": busy_ms / step_ms if kern else None,
+        "flash_attention_ms": sum(f[0] for f in flash) / 1e3,
+        "flash_attention_launches": sum(f[1] for f in flash),
+        "top_kernels": [{"ms": us / 1e3, "count": n, "name": name[:90]}
+                        for us, n, name in kern[:12]]}
+    if not kern:
+        log("profile: the profiler recorded no device time")
+    else:
+        pr = out["profile"]
+        log(f"profile of one train step: device busy {busy_ms:.2f} ms of "
+            f"{step_ms:.2f} ms unprofiled ({prow[0]['ms']:.2f} profiled); "
+            f"busy share {pr['busy_share']:.4f}; flash_attention "
+            f"{pr['flash_attention_ms']:.3f} ms over "
+            f"{pr['flash_attention_launches']} launches")
+        for k in pr["top_kernels"]:
+            log(f"  {k['ms']:9.3f} ms  x{k['count']:<6d} {k['name']}")
+    del params, state
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def train_deepseek(dev, tol):
+    """Phase 8: DeepSeek-V3 at its published widths cut to its three
+    dense-prefix MLA layers, 2 Adafactor steps of the LM loss plus the
+    forecast-KL objective at B = 1, S = 512; the trained parameters saved
+    with ``save_pytree``, loaded back (bitwise), and one request of 8
+    tokens served from them with the forecast heads."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint.io import (load_pytree, params_from_numpy,
+                                           reference_tree, save_pytree)
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch.train import make_optimizer, make_train_step
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim.optimizers import tree_leaves
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=3)
+    B, S, steps = 1, 512, 2
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    opt = make_optimizer(cfg, steps=steps)
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, remat=False)
+    pipe = TokenPipeline(token_batches(512, B, S, cfg.vocab), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, rows = run_steps(cfg, step_fn, params, state,
+                                    [next(pipe) for _ in range(steps)],
+                                    "deepseek-v3 (3 layers)")
+    out = {"B": B, "S": S, "optimizer": "adafactor", "steps": rows,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if "forecast_kl" not in rows[0]:
+        raise AssertionError("no forecast_kl in the metrics")
+    del state
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        save_pytree(reference_tree(params, cfg), str(ckpt), steps)
+        out["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = params_from_numpy(load_pytree(str(ckpt), steps), cfg,
+                                   device=dev)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                 tree_leaves(loaded)))
+    log(f"train deepseek: peak memory {out['peak_memory_gb']:.3f} GB; "
+        f"checkpoint saved in {out['save_s']:.1f} s, loaded in "
+        f"{out['load_s']:.1f} s, bitwise equal: {same}")
+    if not same:
+        raise AssertionError("the loaded checkpoint differs from the "
+                             "trained parameters")
+    del params
+    torch.cuda.empty_cache()
+    done, m, wall, launches = serve(cfg, loaded, dev,
+                                    make_requests(cfg, (17,), 8),
+                                    use_forecast_heads=True)
+    log(f"serve deepseek from the trained checkpoint (forecast heads): "
+        f"{m['tokens_generated']} new tokens, {m['rounds']} verify rounds, "
+        f"wall {wall:.3f} s, launches {launches}, tokens "
+        f"{done[0].result[-8:].tolist()}")
+    if launches["paged_latent"] <= 0 or launches["spec_verify"] <= 0:
+        raise AssertionError(f"latent kernel path not taken: {launches}")
+    out["serve"] = {"metrics": m, "wall_s": wall, "launches": launches,
+                    "agreement": solo_agreement(cfg, loaded, dev, done, tol,
+                                                use_forecast_heads=True)}
+    del loaded
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -663,8 +1082,10 @@ def main(argv=None) -> int:
     pd, pd_err = check_paged_decode(dev, gen)
     pw = check_paged_write(dev, gen)
     pl, pl_err = check_paged_latent(dev, gen)
+    fa, fa_err = check_flash_attention(dev, gen)
     report["kernels_detail"] = {"spec_verify": sv, "paged_decode": pd,
-                                "paged_write": pw, "paged_latent": pl}
+                                "paged_write": pw, "paged_latent": pl,
+                                "flash_attention": fa}
 
     eps_fn = make_eps_fn(1, V)
     sid = torch.tensor([0, 1], device=dev)
@@ -723,6 +1144,12 @@ def main(argv=None) -> int:
     # ---- phase 6: DeepSeek-V3's MLA layers at full width ------------------
     report["deepseek"], ds_launches = serve_deepseek(dev, tol)
 
+    # ---- phase 7: training qwen3-1.7b on the flash-attention kernel ------
+    report["train"], tr_launches = train_qwen(dev)
+
+    # ---- phase 8: the forecast-KL objective on DeepSeek-V3 ---------------
+    report["train_deepseek"] = train_deepseek(dev, tol)
+
     entries = []
     for name, rows, key, n, path, extra in (
             ("spec_verify", sv, f"R16_V{V}", launches["spec_verify"],
@@ -732,7 +1159,10 @@ def main(argv=None) -> int:
             ("paged_write", pw, "verify", fb_launches["paged_write"],
              "serve_gather_fallback", 0),
             ("paged_latent", pl, "verify", ds_launches["paged_latent"],
-             "serve_deepseek", pl_err)):
+             "serve_deepseek", pl_err),
+            ("flash_attention", {k: v for k, v in fa.items()
+                                 if k != "backward_T512"}, "qwen_train",
+             tr_launches["flash_attention"], "train", fa_err["o"])):
         row = rows[key]
         entries.append({
             "name": name, "route": "cuda",
@@ -744,7 +1174,9 @@ def main(argv=None) -> int:
                 "paged_write":
                     "src/repro/kernels/paged_attention/kernel.py:320",
                 "paged_latent":
-                    "src/repro/kernels/paged_attention/kernel.py:248"}[name],
+                    "src/repro/kernels/paged_attention/kernel.py:248",
+                "flash_attention":
+                    "src/repro/kernels/flash_attention/kernel.py:68"}[name],
             "launches": n, "path": path,
             "max_abs_err": max(float(r["max_abs_err"]) for r in rows.values())
             if extra == 0 else extra,

@@ -1,9 +1,14 @@
-"""Checkpoints of the reference, read with numpy alone, and the bridge
-between its parameter tree and the port's.
+"""Checkpoints in the reference's format, written and read with numpy
+alone, and the bridge between its parameter tree and the port's.
 
-The reference's ``save_pytree`` writes ``ckpt_<step>.npz`` (arrays ``a0,
-a1, ...``) plus ``ckpt_<step>.json`` (the flattened path keys in the same
-order); lists are keyed ``#i`` and an empty list ``#empty``.
+``save_pytree`` writes ``ckpt_<step>.npz`` (arrays ``a0, a1, ...``) plus
+``ckpt_<step>.json`` (the flattened path keys in the same order and each
+leaf's dtype); lists are keyed ``#i`` and an empty list ``#empty``, as the
+reference's ``save_pytree`` does, so each package reads the other's
+checkpoints. A bfloat16 leaf is stored as its raw 2-byte words (numpy
+dtype ``V2``, manifest dtype ``bfloat16``): numpy has no bfloat16, and
+this is how a reference checkpoint's bfloat16 leaves read without
+``ml_dtypes``.
 
 Its ``TransformerLM`` tree keeps homogeneous layers stacked on a leading
 ``n_blocks`` axis under ``params["blocks"]`` (one entry per layer of the
@@ -17,9 +22,66 @@ from __future__ import annotations
 
 import json
 import os
+import re
 
 import numpy as np
 import torch
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}/#{i}" if prefix else f"#{i}"))
+        if len(tree) == 0:
+            out[prefix + "/#empty"] = np.zeros(0)
+    else:
+        out[prefix] = tree
+    return out
+
+
+def _to_numpy(x):
+    """(array, manifest dtype) of a tensor or array leaf."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.dtype("V2")), \
+                "bfloat16"
+        x = t.numpy()
+    a = np.asarray(x)
+    return a, "bfloat16" if a.dtype.kind == "V" else str(a.dtype)
+
+
+def save_pytree(tree, directory: str, step: int):
+    """Write a tree of tensors or numpy arrays as ``ckpt_<step>``."""
+    os.makedirs(directory, exist_ok=True)
+    arrays = {}
+    manifest = {"step": step, "keys": [], "dtypes": {}}
+    for i, (k, v) in enumerate(sorted(_flatten(tree).items())):
+        arrays[f"a{i}"], manifest["dtypes"][k] = _to_numpy(v)
+        manifest["keys"].append(k)
+    np.savez(os.path.join(directory, f"ckpt_{step:08d}.npz"), **arrays)
+    with open(os.path.join(directory, f"ckpt_{step:08d}.json"), "w") as f:
+        json.dump(manifest, f)
+
+
+def latest_step(directory: str):
+    if not os.path.isdir(directory):
+        return None
+    steps = [int(m.group(1)) for f in os.listdir(directory)
+             if (m := re.match(r"ckpt_(\d+)\.json", f))]
+    return max(steps) if steps else None
+
+
+def restore_pytree(directory: str, step: int, device=None):
+    """The tree ``save_pytree`` wrote, as tensors of the stored dtypes
+    (bfloat16 leaves as bfloat16) on ``device``."""
+    return _map(load_pytree(directory, step),
+                lambda a: _to_tensor(a, None, device))
+
 
 def load_pytree(directory: str, step: int):
     """The nested dict/list tree of numpy arrays ``save_pytree`` wrote."""
@@ -62,15 +124,15 @@ def _map(tree, fn):
 
 
 def _to_tensor(x, dtype, device):
+    """A numpy leaf as a tensor of ``dtype`` (None: the stored dtype)."""
     a = np.asarray(x)
     if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
         # ml_dtypes bfloat16 (or its raw 2-byte void form in an npz): the
         # high half of a float32
-        bits = a.view(np.uint16).astype(np.uint32) << 16
-        t = torch.from_numpy(bits.view(np.float32)).to(torch.bfloat16)
+        t = torch.from_numpy(np.array(a.view(np.int16))).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))
-    return t.to(dtype=dtype, device=device)
+    return t.to(dtype=dtype or t.dtype, device=device)
 
 
 def params_from_numpy(tree, cfg, device=None):
@@ -94,32 +156,39 @@ def params_from_numpy(tree, cfg, device=None):
     return out
 
 
-def params_to_numpy(params, cfg):
-    """Inverse of ``params_from_numpy``: the reference's tree layout, as
-    float32 numpy arrays."""
-    conv = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
+def reference_tree(params, cfg):
+    """Inverse of ``params_from_numpy``: the port's parameters in the
+    reference's tree layout (the repeating block's layers stacked on a
+    leading ``n_blocks`` axis), tensors of the parameters' dtype. The
+    stacked leaves are built on the host, so writing a checkpoint costs no
+    device memory. ``save_pytree`` of it is a checkpoint either package
+    loads."""
     layers = params["layers"]
     n_pre, n_suf = len(cfg.layer_prefix), len(cfg.layer_suffix)
     per = len(cfg.layer_block)
-    tree = {"embed": _map(params["embed"], conv),
-            "prefix": [_map(p, conv) for p in layers[:n_pre]],
-            "suffix": [_map(p, conv)
-                       for p in layers[len(layers) - n_suf:]],
-            "final_norm": _map(params["final_norm"], conv)}
+    tree = {"embed": params["embed"],
+            "prefix": layers[:n_pre],
+            "suffix": layers[len(layers) - n_suf:],
+            "final_norm": params["final_norm"]}
     if cfg.n_blocks:
         body = layers[n_pre:len(layers) - n_suf]
-        tree["blocks"] = [
-            _stack([_map(body[i * per + s], conv)
-                    for i in range(cfg.n_blocks)])
-            for s in range(per)]
+        tree["blocks"] = [_stack([body[i * per + s]
+                                  for i in range(cfg.n_blocks)])
+                          for s in range(per)]
     for key in ("head", "forecast"):
         if key in params:
-            tree[key] = _map(params[key], conv)
+            tree[key] = params[key]
     return tree
+
+
+def params_to_numpy(params, cfg):
+    """The reference's tree layout, as float32 numpy arrays."""
+    return _map(reference_tree(params, cfg),
+                lambda t: t.detach().float().cpu().numpy())
 
 
 def _stack(trees):
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
-    return np.stack(trees)
+    return torch.stack([t.detach().cpu() for t in trees])

@@ -6,8 +6,11 @@ DeepSeek-V3).
 states, shifted so the forecast for position ``s + t`` reads ``h[s - 1]``
 (a valid prefix only). The serving path uses its forecasts to fill the
 verify window where fixed-point iteration has run out
-(``engine/spec_decode.py``); the paper's training objective (``kl_loss``
-in the reference) belongs to the training slice (ROADMAP.md §1 item 19).
+(``engine/spec_decode.py``). Training fits them with the paper's
+objective (Eq. 9, ``kl_loss``):
+  ``KL[ stop_grad(P_ARM(x_{s+t} | x_{<s+t})) || P_F^(t)(x_{s+t} | x_{<s}) ]``
+down-weighted (0.01 in ``models/losses.py``) so the ARM likelihood is
+unaffected; ``h`` is shared and receives the small student-side gradient.
 """
 from __future__ import annotations
 
@@ -59,3 +62,23 @@ class TokenForecast:
                 u = F.gelu(Dense.apply(head["proj"], u), approximate="tanh")
             outs.append(Dense.apply(head["out"], u))
         return torch.stack(outs, dim=2)
+
+    @staticmethod
+    def kl_loss(fc_logits, arm_logits):
+        """fc_logits (B, S, T, V); arm_logits (B, S, V), where arm_logits[s]
+        is the ARM distribution over x_s given x_{<s} (detached: the target
+        gets no gradient). The target of (s, t) is arm_logits[s + t]; pairs
+        with s + t past the sequence are masked out of the mean. Computed
+        in float32."""
+        B, S, T, V = fc_logits.shape
+        dev = fc_logits.device
+        tgt = arm_logits.detach().float()
+        idx = (torch.arange(S, device=dev)[:, None]
+               + torch.arange(T, device=dev)[None, :])        # (S, T)
+        valid = idx < S
+        tgt_sh = tgt[:, idx.clamp(max=S - 1)]                  # (B, S, T, V)
+        logp_t = F.log_softmax(tgt_sh, dim=-1)
+        logp_f = F.log_softmax(fc_logits.float(), dim=-1)
+        kl = torch.sum(torch.exp(logp_t) * (logp_t - logp_f), dim=-1)
+        w = valid[None].expand(kl.shape).float()
+        return torch.sum(kl * w) / (torch.sum(w) + 1e-9)

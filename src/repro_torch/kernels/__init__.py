@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"spec_verify": 0, "paged_decode": 0, "paged_write": 0,
-            "paged_latent": 0}
+            "paged_latent": 0, "flash_attention": 0}
 
 _LIB = None
 _FNS: dict = {}

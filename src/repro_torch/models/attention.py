@@ -1,6 +1,7 @@
-"""Attention mixers in verify-window mode: GQA/MQA (optional qk-norm,
-sliding window) and MLA (DeepSeek-V3's multi-head latent attention).
+"""Attention mixers: GQA/MQA (optional qk-norm, sliding window) and MLA
+(DeepSeek-V3's multi-head latent attention).
 
+``full`` runs whole-sequence causal attention (the training path).
 ``window`` runs W query tokens against a dense KV cache with per-sequence
 lengths ``cache_len (B,)`` (the solo sampler's path); ``window_paged`` runs
 them against the physical block pool through block tables (the serving
@@ -10,16 +11,16 @@ the next window.
 
 MLA caches the compressed latent ``c_kv`` and the decoupled rope key
 instead of per-head K/V, and attends in the absorbed-matrix form, so a
-decode step reads only ``r + rope_dim`` values per cached token. Its
-whole-sequence ``full`` mode (training, prefill of a whole sequence) is
-not on the serving path and is not ported yet.
+decode step reads only ``r + rope_dim`` values per cached token.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_latent_attention,
                                                      paged_window_write)
@@ -77,6 +78,47 @@ def _sdpa(q, k, v, mask, scale):
     return out.reshape(B, Q, H, hd)
 
 
+# Above this sequence length the plain whole-sequence route attends query
+# chunk by query chunk ((B, H, CHUNK, T) score tiles instead of
+# (B, H, T, T)), each chunk checkpointed, as the reference does.
+CHUNKED_THRESHOLD = 2048
+QUERY_CHUNK = 512
+
+
+def _pick_chunk(T: int, target: int = QUERY_CHUNK) -> int:
+    """Largest divisor of T that is <= target."""
+    for c in range(min(target, T), 0, -1):
+        if T % c == 0:
+            return c
+    return T
+
+
+def _chunked(one_chunk, T: int, *qs):
+    """Runs ``one_chunk(q_pos, *q_chunks)`` over query chunks of
+    ``_pick_chunk(T)`` rows of each (B, T, ...) tensor in ``qs``, each
+    under ``torch.utils.checkpoint`` (its backward recomputes the chunk's
+    softmax weights instead of keeping them), and concatenates the
+    (B, chunk, ...) outputs along the sequence."""
+    cq = _pick_chunk(T)
+    outs = []
+    for c0 in range(0, T, cq):
+        q_pos = torch.arange(c0, c0 + cq, device=qs[0].device)
+        outs.append(checkpoint(one_chunk, q_pos,
+                               *[x[:, c0:c0 + cq] for x in qs],
+                               use_reentrant=False))
+    return torch.cat(outs, dim=1)
+
+
+def _sdpa_chunked(q, k, v, scale, window: int = 0):
+    """Causal chunked attention over whole sequences. q: (B, T, H, hd);
+    k/v: (B, T, KV, hd). Keys stay resident; queries go chunk by chunk."""
+    k_pos = torch.arange(q.shape[1], device=q.device)
+
+    def one_chunk(q_pos, q_i):
+        return _sdpa(q_i, k, v, _causal_mask(q_pos, k_pos, window), scale)
+    return _chunked(one_chunk, q.shape[1], q)
+
+
 class GQAttention:
     @staticmethod
     def init(gen, cfg, dtype=torch.float32, device=None):
@@ -106,6 +148,27 @@ class GQAttention:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
+
+    @staticmethod
+    def full(p, x, cfg, window: int = 0, use_kernel: bool = True):
+        """x: (B, T, D) -> (B, T, D); causal (optionally sliding-window).
+        With ``use_kernel``, CUDA tensors attend through the flash-attention
+        kernel; otherwise, and always on the CPU, the reference's plain
+        route: ``_sdpa`` up to ``CHUNKED_THRESHOLD`` positions, then
+        ``_sdpa_chunked``. The kernel keeps the scores and probabilities
+        in float32 where ``_sdpa`` rounds them to the working dtype, so in
+        bfloat16 the two routes differ by a few ulps."""
+        B, T, _ = x.shape
+        pos = torch.arange(T, device=x.device).expand(B, T)
+        q, k, v = GQAttention._qkv(p, x, cfg, pos)
+        scale = 1.0 / math.sqrt(cfg.head_dim)
+        if use_kernel and x.device.type == "cuda":
+            out = flash_attention(q, k, v, window)
+        elif T > CHUNKED_THRESHOLD:
+            out = _sdpa_chunked(q, k, v, scale, window)
+        else:
+            out = _sdpa(q, k, v, _causal_mask(pos, pos, window), scale)
+        return Dense.apply(p["wo"], out.reshape(B, T, -1))
 
     @staticmethod
     def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
@@ -243,6 +306,29 @@ class MLAttention:
         pattn = torch.softmax(logits, dim=-1).to(c_kv.dtype)
         ctx = torch.einsum("bhqs,bsr->bqhr", pattn, c_kv)
         return MLAttention._absorbed_out(p, ctx, cfg)
+
+    @staticmethod
+    def full(p, x, cfg):
+        """x: (B, T, D) -> (B, T, D), whole-sequence causal MLA in the
+        absorbed form, plain torch on every device as in the reference
+        (its q.k width, qk_nope + qk_rope = 192, is not its value width,
+        so the flash-attention kernel does not apply). Above
+        ``CHUNKED_THRESHOLD`` positions the queries go chunk by chunk,
+        each chunk checkpointed."""
+        B, T, _ = x.shape
+        pos = torch.arange(T, device=x.device).expand(B, T)
+        q_nope, q_rope = MLAttention._q(p, x, cfg, pos)
+        c_kv, k_rope = MLAttention._latent(p, x, cfg, pos)
+        if T > CHUNKED_THRESHOLD:
+            k_pos = torch.arange(T, device=x.device)
+
+            def one_chunk(q_pos, qn_i, qr_i):
+                return MLAttention._attend_absorbed(
+                    p, qn_i, qr_i, c_kv, k_rope, _causal_mask(q_pos, k_pos),
+                    cfg)
+            return _chunked(one_chunk, T, q_nope, q_rope)
+        return MLAttention._attend_absorbed(p, q_nope, q_rope, c_kv, k_rope,
+                                            _causal_mask(pos, pos), cfg)
 
     @staticmethod
     def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,

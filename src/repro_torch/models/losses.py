@@ -1,0 +1,47 @@
+"""Language-model losses: next-token cross-entropy plus, for a model with
+forecast heads, the paper's forecast-KL objective (Eq. 9, weight
+``cfg.forecast_loss_weight``, 0.01). Both are computed in float32.
+
+The reference also adds its MoE load-balancing loss; no MoE layer is
+ported (ROADMAP.md §1 item 14), so ``moe_aux`` is 0 and the metrics keep
+the reference's keys.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.forecasting import TokenForecast
+from repro_torch.models.transformer import TransformerLM, forecast_config
+
+
+def next_token_xent(logits, tokens):
+    """logits (B, S, V) over the token part of the sequence; tokens (B, S).
+    Position s predicts token s+1 (the last position is unused)."""
+    tgt = tokens[:, 1:].long()
+    lg = logits[:, :-1].float()
+    logz = torch.logsumexp(lg, dim=-1)
+    true = torch.gather(lg, -1, tgt[..., None])[..., 0]
+    return torch.mean(logz - true)
+
+
+def lm_loss(params, cfg, tokens, remat: bool = False,
+            use_kernel: bool = True):
+    """The training loss. Returns (loss, metrics) with ``xent``,
+    ``moe_aux``, ``forecast_kl`` (with forecast heads) and ``loss``.
+    ``use_kernel`` as in ``TransformerLM.apply``."""
+    logits, h, aux = TransformerLM.apply(params, cfg, tokens, remat=remat,
+                                         use_kernel=use_kernel)
+    xent = next_token_xent(logits, tokens)
+    loss = xent
+    metrics = {"xent": xent, "moe_aux": aux}
+    if cfg.forecast_horizon and "forecast" in params:
+        fc_logits = TokenForecast.apply(params["forecast"], h,
+                                        forecast_config(cfg))
+        # arm[s] = the distribution over token s given x_{<s}
+        arm = F.pad(logits, (0, 0, 1, 0))[:, :-1]
+        kl = TokenForecast.kl_loss(fc_logits, arm)
+        loss = loss + cfg.forecast_loss_weight * kl
+        metrics["forecast_kl"] = kl
+    metrics["loss"] = loss
+    return loss, metrics

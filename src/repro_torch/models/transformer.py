@@ -1,4 +1,5 @@
-"""Decoder stack assembled from a ModelConfig, in verify-window mode.
+"""Decoder stack assembled from a ModelConfig: the whole-sequence forward
+of training (``apply``) and verify-window decode (``decode_window``).
 
 The reference lays its layers out as ``prefix + n_blocks * block + suffix``
 and runs the homogeneous blocks under ``lax.scan`` over a stacked
@@ -20,6 +21,7 @@ from dataclasses import dataclass
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.forecasting import TokenForecast, TokenForecastConfig
 from repro_torch.models.attention import GQAttention, MLAttention
@@ -122,6 +124,21 @@ class PagedView(NamedTuple):
     use_kernel: bool = False
 
 
+def _layer_full(p, spec, cfg: ModelConfig, h, use_kernel: bool = True):
+    """One layer over whole sequences: h (B, T, D) -> (B, T, D)."""
+    mixer, _ = spec
+    u = RMSNorm.apply(p["norm1"], h)
+    if mixer == "mla":
+        y = MLAttention.full(p["mixer"], u, cfg)
+    else:
+        window = cfg.sliding_window if mixer == "local" else 0
+        y = GQAttention.full(p["mixer"], u, cfg, window=window,
+                             use_kernel=use_kernel)
+    h = h + y
+    v = RMSNorm.apply(p["norm2"], h)
+    return h + _mlp_apply(p["ffn"], v, cfg.mlp_kind)
+
+
 def _layer_window(p, spec, cfg: ModelConfig, h, cache, cache_len,
                   paged: PagedView | None = None):
     """Returns (h, new_cache) for one layer."""
@@ -191,6 +208,39 @@ class TransformerLM:
         if cfg.tie_embeddings:
             return Embedding.attend(params["embed"], h)
         return Dense.apply(params["head"], h)
+
+    # -- full-sequence forward ----------------------------------------------
+    @staticmethod
+    def apply(params, cfg: ModelConfig, tokens, prefix_embeddings=None,
+              moe_capacity=None, remat: bool = False,
+              use_kernel: bool = True):
+        """tokens: (B, S) int. Returns (logits (B, S, V), h, aux), ``h``
+        the final-normed states that feed the forecast heads and ``aux``
+        the MoE load-balancing loss (0: no MoE layer is ported).
+        ``remat=True`` checkpoints each layer (its activations are
+        recomputed in the backward). ``use_kernel`` routes GQA attention
+        on CUDA tensors through the flash-attention kernel
+        (``GQAttention.full``)."""
+        if prefix_embeddings is not None:
+            raise NotImplementedError(
+                "prefix embeddings (multimodal frontends) are not ported "
+                "yet (ROADMAP.md §1 item 16)")
+        if moe_capacity is not None:
+            raise NotImplementedError(
+                "MoE layers are not ported yet (ROADMAP.md §1 item 14)")
+        for spec in cfg.layer_specs():
+            _check_spec(spec)
+        h = TransformerLM._embed(params, cfg, tokens)
+        for p, spec in zip(params["layers"], cfg.layer_specs()):
+            if remat:
+                h = checkpoint(_layer_full, p, spec, cfg, h, use_kernel,
+                               use_reentrant=False)
+            else:
+                h = _layer_full(p, spec, cfg, h, use_kernel)
+        h = RMSNorm.apply(params["final_norm"], h)
+        logits = TransformerLM._head(params, cfg, h)
+        return logits, h, torch.zeros((), dtype=torch.float32,
+                                      device=h.device)
 
     # -- caches ---------------------------------------------------------------
     @staticmethod

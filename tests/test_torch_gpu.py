@@ -11,13 +11,24 @@ Tolerances: spec_verify and every writeback bitwise (pools compared on
 every block but the sink 0); the paged decode output 1e-5 in float32
 (summation order) and 1e-2 in bfloat16 (one output rounding apart); the
 latent decode output 2e-5 in float32 (576-long dot products summed in
-another order) and 1e-2 in bfloat16.
+another order) and 1e-2 in bfloat16. Flash attention: the output 1e-5 in
+float32 and in bfloat16 1e-4 plus 2^-7 of the value (one output rounding
+apart, which is at most one bf16 ulp), the float32 log-sum-exp 1e-4
+(128-long dot products and
+up to 2048-long sums in another order); its gradients against autograd
+through the plain version 1e-4 of the largest gradient in float32, and in
+bfloat16 2e-2 relative plus 1e-2 of the largest (each side rounds every
+gradient to bfloat16 once, and the op's backward takes rowsum(do * o) from
+the output already rounded to bfloat16 where autograd keeps it in float32).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_fwd)
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_latent_attention,
                                                      paged_window_write)
@@ -108,3 +119,71 @@ def test_paged_latent_kernel_matches_plain_on_gpu(cuda, dtype, W, H, r, dr):
     assert torch.equal(c1[1:], c2[1:]) and torch.equal(k1[1:], k2[1:])
     tol = 2e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _flash_inputs(cuda, B, T, H, KV, d, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=cuda).to(dtype)
+            for shape in ((B, T, H, d), (B, T, KV, d), (B, T, KV, d))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,KV,window", [
+    (2, 512, 16, 8, 0),        # qwen3-1.7b's heads
+    (1, 1000, 4, 2, 0),        # a ragged length (not a multiple of 64)
+    (1, 777, 16, 8, 512),      # gemma3-1b's sliding window, ragged
+    (3, 64, 8, 8, 0)])         # one tile, no grouping
+def test_flash_attention_kernel_matches_plain_on_gpu(cuda, dtype, B, T, H,
+                                                     KV, window):
+    q, k, v = _flash_inputs(cuda, B, T, H, KV, 128, dtype, T + window)
+    reset_launches()
+    got, lse = flash_attention_fwd(q, k, v, window)
+    assert LAUNCHES["flash_attention"] == 1
+    want, lse_want = flash_attention_ref(q, k, v, window)
+    torch.cuda.synchronize()
+    # both sides compute in float32; bf16 rounds the output once, so the
+    # two may part by one bf16 ulp (2^-7 of the value bounds it)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                                   atol=1e-4)
+    torch.testing.assert_close(lse, lse_want, rtol=1e-4, atol=1e-4)
+    assert got.dtype == dtype and lse.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,window", [(512, 0), (700, 128)])
+def test_flash_attention_backward_matches_autograd_on_gpu(cuda, dtype, T,
+                                                          window):
+    q, k, v = _flash_inputs(cuda, 1, T, 16, 8, 128, dtype, 3 * T)
+    do = torch.randn(q.shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(1)
+                     ).to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reset_launches()
+    got = torch.autograd.grad(flash_attention(*leaves, window), leaves, do)
+    assert LAUNCHES["flash_attention"] == 1
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*ref_leaves, window)[0],
+                               ref_leaves, do)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        top = float(w.float().abs().max())
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * top)
+        else:
+            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                       atol=1e-2 * top)
+
+
+def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda):
+    q, k, v = _flash_inputs(cuda, 1, 64, 4, 2, 64, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="head width 64"):
+        flash_attention_fwd(q, k, v)
+    q, k, v = _flash_inputs(cuda, 1, 64, 4, 2, 128, torch.float16, 0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_fwd(q, k, v)
+    q, k, v = _flash_inputs(cuda, 1, 64, 4, 2, 128, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention_fwd(q, k.cpu(), v)

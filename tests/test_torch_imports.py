@@ -64,3 +64,14 @@ def test_scan_covers_the_mla_and_forecast_modules():
             "models/attention.py", "kernels/paged_attention/ops.py",
             "kernels/paged_attention/kernel.py"} <= names
     assert (PORT / "kernels" / "csrc" / "paged_latent.cu").exists()
+
+
+def test_scan_covers_the_training_modules():
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if PORT in p.parents}
+    assert {"models/losses.py", "optim/optimizers.py", "optim/schedules.py",
+            "data/synthetic.py", "data/pipeline.py", "launch/train.py",
+            "kernels/flash_attention/ops.py",
+            "kernels/flash_attention/kernel.py",
+            "kernels/flash_attention/ref.py"} <= names
+    assert (PORT / "kernels" / "csrc" / "flash_attention.cu").exists()
