@@ -39,14 +39,28 @@ which fails the script when it fails:
 8. the paper's forecast-KL objective on DeepSeek-V3 cut as in phase 6: 2
    Adafactor steps at B = 1, S = 512, the trained parameters saved with
    ``save_pytree``, loaded back bitwise, and 1 request served from them
-   with the forecast heads.
+   with the forecast heads;
+9. rwkv6-7b at full width (32 layers, bf16, 7.58 B random parameters from
+   seed 0): phase 3's 4 requests served with every layer's WKV recurrence
+   on the WKV kernel (32 launches per verify pass and per prefill chunk),
+   a profile, every request against the solo sampler on the plain scan
+   under the margin rule, and ``TransformerLM.apply`` at T = 1024 on the
+   kernel route against the plain route, gated beside two planted faults;
+10. the solo sampler (``PredictiveSampler``, dense cache) on qwen3-1.7b at
+   full width with its attention on the dense flash-decode kernel in the
+   prompt prefill and every round (28 launches per pass), its tokens
+   against the plain solo sampler and against phase 3's served tokens
+   under the margin rule.
 
 Phase 2 also holds the flash-attention kernel (the training path's) against
 its plain version at qwen3-1.7b's training shape, a ragged length and
 gemma3-1b's 512-key sliding window, and its backward against autograd
-through the plain version.
+through the plain version; the WKV kernel in its verify, prefill and
+zero-state forms at rwkv6-7b's widths; and the dense flash-decode kernel at
+qwen3-1.7b's solo verify and prefill shapes and a 512-key sliding window.
 
-The second line from the end is a JSON object with one entry per kernel;
+The second line from the end is a JSON object with one entry per kernel
+(seven);
 the last line is ``{"ok": true, "device": {...}}``. ``--report PATH``
 also writes every number measured to PATH as JSON.
 """
@@ -120,14 +134,23 @@ def device_ms(fn, iters=20, reps=5):
     return start.elapsed_time(end) / (iters * reps)
 
 
-def times(kernel, plain, library):
+def times(kernel, plain, library, plain_iters=20):
     """Device and eager milliseconds of a kernel, its plain version and
-    the library yardstick."""
+    the library yardstick (None where no one PyTorch call computes the
+    function). ``plain_iters`` cuts the calls captured and issued of a
+    plain version that launches thousands of kernels a call."""
     out = {}
     for key, fn in (("ms", kernel), ("plain_ms", plain),
                     ("library_ms", library)):
-        out[key] = device_ms(fn)
-        out["eager_" + key] = eager_ms(fn)
+        if fn is None:
+            out[key] = out["eager_" + key] = None
+            continue
+        if key == "plain_ms" and plain_iters != 20:
+            out[key] = device_ms(fn, iters=plain_iters, reps=1)
+            out["eager_" + key] = eager_ms(fn, iters=plain_iters, warmup=1)
+        else:
+            out[key] = device_ms(fn)
+            out["eager_" + key] = eager_ms(fn)
     return out
 
 
@@ -517,6 +540,152 @@ def check_paged_latent(dev, gen):
     return rows, worst
 
 
+H_RWKV, HD_RWKV = 64, 64            # rwkv6-7b's heads and head width
+
+
+def wkv_close(got, want):
+    """(max abs error, within tolerance): float32 outputs and states 2e-5
+    relative plus 2e-5 of the largest value (sums in another order, a fused
+    multiply-add in the state update); bf16 outputs 2^-7 relative plus 1e-3
+    of the largest (both carry the state in float32 and round each output
+    once)."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    top = float(want.float().abs().max())
+    rel, floor = ((2e-5, 2e-5) if got.dtype == torch.float32
+                  else (2.0 ** -7, 1e-3))
+    ok = bool((err <= rel * want.float().abs() + floor * top).all())
+    return float(err.max()), ok
+
+
+def check_rwkv_wkv(dev, gen):
+    """The WKV kernel against its plain version at rwkv6-7b's widths (64
+    heads of 64): the verify window's form from a random float32 state
+    (B = 2, W = 8, bf16 and float32 inputs), the prefill form (state after
+    the last of a 64-token chunk), and the zero-state form at T = 1024 and
+    a ragged T = 1000. No single PyTorch call computes the recurrence, so
+    there is no library time."""
+    import torch
+    from repro_torch.kernels.rwkv_wkv.ops import rwkv_wkv
+    from repro_torch.kernels.rwkv_wkv.ref import rwkv_wkv_ref
+    H, hd = H_RWKV, HD_RWKV
+    rows, worst = {}, 0.0
+    for name, B, T, states, dtype in (
+            ("verify", 2, 8, "all", "bfloat16"),
+            ("verify_f32", 2, 8, "all", "float32"),
+            ("prefill", 1, 64, "last", "bfloat16"),
+            ("zero_state_T1024", 1, 1024, "none", "bfloat16"),
+            ("ragged_T1000", 1, 1000, "none", "bfloat16")):
+        dt = getattr(torch, dtype)
+
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dt)
+        r, k, v = rn(B, T, H, hd), rn(B, T, H, hd), rn(B, T, H, hd)
+        # decays near 1, as the model's exp(-exp(-6 +- ...)) gives
+        w = (1 - 0.02 * torch.rand((B, T, H, hd), generator=gen,
+                                   device=dev)).to(dt)
+        u = rn(H, hd)
+        s0 = (0.3 * torch.randn((B, H, hd, hd), generator=gen, device=dev)
+              if states != "none" else None)
+        got = rwkv_wkv(r, k, v, w, u, s0, states)
+        want = rwkv_wkv_ref(r, k, v, w, u, s0, states)
+        torch.cuda.synchronize()
+        if states == "none":
+            got, want = (got,), (want,)
+        errs = [wkv_close(a, b) for a, b in zip(got, want)]
+        if not all(ok for _, ok in errs):
+            raise AssertionError(f"rwkv_wkv {name}: max errors "
+                                 f"{[e for e, _ in errs]} beyond tolerance")
+        err = max(e for e, _ in errs)
+        worst = max(worst, err)
+        size = torch.finfo(dt).bits // 8
+        # the least a call must move: r, k, v, w and u read once, the
+        # float32 initial state read once, y written once and the float32
+        # states returned written once; per step and head it does 7 hd^2
+        # operations (the k^T v outer product, u * and S + it, r times it,
+        # w * S + k^T v)
+        n_out = {"all": B * T, "last": B, "none": 0}[states]
+        nbytes = ((5 * r.numel() + u.numel()) * size
+                  + (0 if s0 is None else s0.numel() * 4)
+                  + n_out * H * hd * hd * 4)
+        b_ms, b_by = bound(nbytes, 7 * B * T * H * hd * hd, dtype)
+        rows[name] = {
+            "B": B, "T": T, "states": states, "dtype": dtype,
+            "max_abs_err": err, "mbytes": nbytes / 1e6, "bound_ms": b_ms,
+            "bound_by": b_by,
+            **times(lambda: rwkv_wkv(r, k, v, w, u, s0, states),
+                    lambda: rwkv_wkv_ref(r, k, v, w, u, s0, states), None,
+                    plain_iters=20 if T <= 64 else 2)}
+        log(f"rwkv_wkv {name} B={B} T={T} H={H} hd={hd} states={states} "
+            f"{dtype}: {rows[name]}")
+    return rows, worst
+
+
+def check_decode_attention(dev, gen):
+    """The dense flash-decode kernel against its plain version at
+    qwen3-1.7b's widths (16 query heads over 8 kv heads of 128, bf16): the
+    solo sampler's verify round (B = 2, W = 8 over a 264-slot cache,
+    lengths 100 and 37), its prompt prefill (W = 79 from length 0) and a
+    512-key sliding window at S = 2048; the yardstick is SDPA with a
+    boolean mask and ``enable_gqa``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    H = KV * G
+    rows, worst = {}, 0.0
+    for name, B, W, S, lengths, window in (
+            ("verify", 2, 8, 264, [100, 37], 0),
+            ("prefill", 1, 79, 264, [0], 0),
+            ("sliding_window", 2, 8, 2048, [1500, 700], 512)):
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+        q, k, v = rn(B, W, H, D), rn(B, S, KV, D), rn(B, S, KV, D)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        got = decode_attention(q, k, v, lens, window)
+        want = decode_attention_ref(q, k, v, lens, window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        # both sides compute in float32 and round the output to bf16 once:
+        # 2 bf16 ulps of the value, 1e-2 absolute floor (as paged_decode)
+        tol = 1e-2 + 2 * 2.0 ** -8 * want.float().abs()
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"decode_attention {name}: max err "
+                                 f"{float(err.max())} beyond tolerance")
+        worst = max(worst, float(err.max()))
+        qp = lens.long()[:, None] + torch.arange(W, device=dev)
+        kpos = torch.arange(S, device=dev)
+        mask = kpos[None, None, :] <= qp[:, :, None]
+        if window > 0:
+            mask &= kpos[None, None, :] > qp[:, :, None] - window
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)
+        lib_err = float((lib().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        # the least a call must move: the K and V rows some query sees,
+        # q in and out, the lengths
+        seen = 0
+        for L in lengths:
+            lo = max(0, L - window + 1) if window else 0
+            seen += min(L + W - 1, S - 1) - lo + 1
+        nbytes = 2 * seen * KV * D * 2 + 2 * q.numel() * 2 + B * 4
+        vis = sum(min(L + w + 1, window) if window else L + w + 1
+                  for L in lengths for w in range(W))
+        b_ms, b_by = bound(nbytes, 4 * H * D * vis, "bfloat16")
+        rows[name] = {
+            "B": B, "W": W, "S": S, "lengths": lengths, "window": window,
+            "max_abs_err": float(err.max()), "library_max_abs_err": lib_err,
+            "bound_ms": b_ms, "bound_by": b_by,
+            **times(lambda: decode_attention(q, k, v, lens, window),
+                    lambda: decode_attention_ref(q, k, v, lens, window),
+                    lib)}
+        log(f"decode_attention {name} B={B} W={W} S={S} lengths={lengths} "
+            f"window={window}: {rows[name]}")
+    return rows, worst
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-5: the serving path at full width
 # ---------------------------------------------------------------------------
@@ -598,7 +767,7 @@ def profile_serve(cfg, params, dev):
     # (spec_verify's call runs spec_verify_partial and spec_verify_final)
     own = {}
     for name in ("spec_verify", "paged_decode", "paged_latent",
-                 "paged_write"):
+                 "paged_write", "rwkv_wkv"):
         hits = [(us, n) for us, n, key in kern if name + "_" in key]
         own[name] = {"us": sum(h[0] for h in hits),
                      "count": sum(h[1] for h in hits)}
@@ -632,9 +801,10 @@ def profile_serve(cfg, params, dev):
 
 def solo_agreement(cfg, params, dev, done, tol, **kw):
     """Each served request against the port's solo sampler (dense cache,
-    plain attention, plain argmax: none of the port's kernels) on the
-    card, under the margin rule; ``kw`` goes to
-    the sampler (``use_forecast_heads``). Where the streams split within
+    plain attention or plain WKV scan, plain argmax: none of the port's
+    kernels unless ``kw`` asks for them) on the card, under the margin
+    rule; ``kw`` goes to the sampler (``use_forecast_heads``,
+    ``use_attention_kernel``). Where the streams split within
     the tolerance, the solo sampler starts again from the engine's tokens
     up to and including that position (the noise depends only on the
     sequence and the position), so every new token is compared."""
@@ -644,6 +814,7 @@ def solo_agreement(cfg, params, dev, done, tol, **kw):
     from repro_torch.engine.spec_decode import PredictiveSampler, make_eps_fn
     from repro_torch.models.transformer import TransformerLM
     eps_fn = make_eps_fn(1, cfg.vocab)
+    kw.setdefault("use_attention_kernel", False)
     out = []
     for r in sorted(done, key=lambda r: r.uid):
         end = len(r.prompt) + r.new_tokens
@@ -815,31 +986,33 @@ def planted_fault(fault):
     return attend
 
 
-def route_diffs(params, cfg, tokens):
-    """Logits and per-position loss differences from the plain attention
-    route: of the kernel route and of the two planted faults."""
+def route_diffs(params, cfg, tokens, module, name, faults, plain_op=None):
+    """Logits and per-position loss differences from the plain route: of
+    the kernel route and of each planted fault, a function put in place of
+    the kernel's op ``module.name`` for one forward on the kernel route.
+    The plain route is the model's (``use_kernel=False``), or with
+    ``plain_op`` the kernel route with that function in the op's place."""
     import torch
-    import repro_torch.models.attention as attention
     from repro_torch.models.transformer import TransformerLM
     tgt = tokens[:, 1:].long()[..., None]
 
-    def forward(use_kernel):
-        logits = TransformerLM.apply(params, cfg, tokens,
-                                     use_kernel=use_kernel)[0]
+    def forward(use_kernel, op=None):
+        kernel_op = getattr(module, name)
+        if op is not None:
+            setattr(module, name, op)
+        try:
+            logits = TransformerLM.apply(params, cfg, tokens,
+                                         use_kernel=use_kernel)[0]
+        finally:
+            setattr(module, name, kernel_op)
         lg = logits[:, :-1].float()
         return logits, (torch.logsumexp(lg, -1)
                         - torch.gather(lg, -1, tgt)[..., 0])
 
-    plain, plain_pos = forward(False)
+    plain, plain_pos = forward(plain_op is not None, plain_op)
     out = {}
-    for route in ("kernel", "kv_head_mod", "diagonal_tile_dropped"):
-        op = attention.flash_attention
-        if route != "kernel":
-            attention.flash_attention = planted_fault(route)
-        try:
-            logits, per_pos = forward(True)
-        finally:
-            attention.flash_attention = op
+    for route in ("kernel",) + tuple(faults):
+        logits, per_pos = forward(True, faults.get(route))
         dl = (logits.float() - plain.float()).abs()
         dx = (per_pos - plain_pos).abs()
         out[route] = {"logits_mean_abs_diff": float(dl.mean()),
@@ -850,20 +1023,20 @@ def route_diffs(params, cfg, tokens):
     return out
 
 
-def check_route_diffs(diffs, positions):
-    """Fails unless the kernel route is inside every limit of
-    ``ROUTE_LIMITS`` and each planted fault is outside at least one."""
+def check_route_diffs(diffs, positions, limits):
+    """Fails unless the kernel route is inside every limit of ``limits``
+    and each planted fault is outside at least one."""
     for route, d in diffs.items():
         log(f"route {route} vs plain: logits mean |diff| "
             f"{d['logits_mean_abs_diff']:.4g}, max "
             f"{d['logits_max_abs_diff']:.4g}; per-position loss max |diff| "
             f"{d['xent_per_position_max_abs_diff']:.4g} at "
             f"{d['xent_positions_differing']} of {positions} positions")
-    log(f"limits: {ROUTE_LIMITS}")
-    inside = {route: all(d[k] <= lim for k, lim in ROUTE_LIMITS.items())
+    log(f"limits: {limits}")
+    inside = {route: all(d[k] <= lim for k, lim in limits.items())
               for route, d in diffs.items()}
     if not inside["kernel"]:
-        raise AssertionError(f"kernel route beyond {ROUTE_LIMITS}: "
+        raise AssertionError(f"kernel route beyond {limits}: "
                              f"{diffs['kernel']}")
     caught = [r for r in inside if r != "kernel" and not inside[r]]
     if len(caught) != len(inside) - 1:
@@ -877,6 +1050,7 @@ def train_qwen(dev):
     report and the launch counts of the 3 steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    import repro_torch.models.attention as attention
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.data.synthetic import token_batches
@@ -900,7 +1074,10 @@ def train_qwen(dev):
     # from the plain route's, beside two routes with a planted fault
     with torch.no_grad():
         lp, _ = lm_loss(params, cfg, batches[0], use_kernel=False)
-        out["route_diff"] = route_diffs(params, cfg, batches[0])
+        out["route_diff"] = route_diffs(
+            params, cfg, batches[0], attention, "flash_attention",
+            {f: planted_fault(f) for f in ("kv_head_mod",
+                                           "diagonal_tile_dropped")})
     out["plain_loss_step1"] = float(lp)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -934,7 +1111,7 @@ def train_qwen(dev):
     if not diff <= out["loss_tolerance"]:
         raise AssertionError(f"step-1 loss: kernel {loss1} vs plain "
                              f"{out['plain_loss_step1']}")
-    check_route_diffs(out["route_diff"], B * (S - 1))
+    check_route_diffs(out["route_diff"], B * (S - 1), ROUTE_LIMITS)
     # one more step under the profiler: the busy share against the
     # unprofiled steps 2-3
     with profile(activities=[ProfilerActivity.CPU,
@@ -1042,6 +1219,199 @@ def train_deepseek(dev, tol):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 9-10: RWKV-6 serving and the solo sampler's dense cache
+# ---------------------------------------------------------------------------
+
+# Phase 9 holds the whole rwkv6-7b kernel route at T = 1024 by the logits
+# and the per-position losses against two plain routes, each beside two
+# planted faults the gate must catch. RWKV_ROUTE_LIMITS: against the
+# model's plain route, the reference's scan, which rounds the state to bf16
+# at every step and so loses much of the decay (1 - w is near 2^-9, below
+# half a bf16 ulp of the state); the kernel keeps it in float32, so the
+# two part widely and the limits sit between that reading and the nearer
+# fault. RWKV_OP_LIMITS: against the WKV op's float32 plain version put in
+# the kernel's place, which computes the kernel's own function, so the
+# routes part only by the order of sums and the limits are tight.
+RWKV_ROUTE_LIMITS = {"logits_mean_abs_diff": 0.53,
+                     "logits_max_abs_diff": 5.0,
+                     "xent_per_position_max_abs_diff": 2.55}
+RWKV_OP_LIMITS = {"logits_mean_abs_diff": 0.1,
+                  "logits_max_abs_diff": 1.0,
+                  "xent_per_position_max_abs_diff": 0.5}
+
+
+def wkv_planted_fault(fault):
+    """The WKV op's function with one fault planted, in its plain
+    version's float32: ``bonus_dropped`` has u = 0 (y_t reads S_{t-1}
+    alone); ``kv_transposed`` has k and v trade places, so the state is
+    accumulated transposed."""
+    import torch
+    from repro_torch.kernels.rwkv_wkv.ref import rwkv_wkv_ref
+
+    def op(r, k, v, w, u, state0=None, states="none"):
+        if fault == "bonus_dropped":
+            return rwkv_wkv_ref(r, k, v, w, torch.zeros_like(u), state0,
+                                states)
+        return rwkv_wkv_ref(r, v, k, w, u, state0, states)
+    return op
+
+
+def serve_rwkv(dev, cfg, tol, route_T=1024):
+    """Phase 9: rwkv6-7b served at full width (random weights from seed 0)
+    on the WKV kernel's path, 32 launches per verify pass and per prefill
+    chunk, profiled, every request held against the solo sampler on the
+    WKV kernel and on the plain scan; then ``TransformerLM.apply`` at
+    B = 1, T = ``route_T`` on the kernel route against the plain scan and
+    against the op's plain version, each gated beside two planted faults.
+    Returns the phase's report and the serving run's launches."""
+    import torch
+    import repro_torch.models.ssm as ssm
+    from repro_torch.kernels.rwkv_wkv.ref import rwkv_wkv_ref
+    from repro_torch.models.transformer import TransformerLM
+    t0 = time.perf_counter()
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    log(f"{cfg.name}: {cfg.n_layers} layers {cfg.layer_specs()[0]}, d_model "
+        f"{cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} heads of "
+        f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}, {n_params / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {"params": n_params}
+    serve(cfg, params, dev, make_requests(cfg, (17,), 4))     # warm-up
+    reqs = make_requests(cfg, PROMPT_LENS, NEW_TOKENS)
+    done, m, wall, launches = serve(cfg, params, dev, reqs)
+    tok = m["tokens_generated"]
+    passes = m["verify_passes"] + m["prefill_calls"]
+    log(f"serve {cfg.name} (WKV kernel path): {len(done)} requests, {tok} "
+        f"new tokens, {m['rounds']} verify rounds ({m['rounds'] / tok:.4f} "
+        f"rounds per token), {m['verify_passes']} verify passes, "
+        f"{m['prefill_calls']} prefill chunks, arm_calls_vs_ancestral "
+        f"{m['arm_calls_vs_ancestral']:.4f}, wall {wall:.3f} s "
+        f"({wall / tok * 1e3:.2f} ms per token, {wall / passes * 1e3:.2f} "
+        f"ms per pass), launches {launches}")
+    if launches["rwkv_wkv"] != cfg.n_layers * passes \
+            or launches["spec_verify"] <= 0:
+        raise AssertionError(f"rwkv_wkv launches {launches['rwkv_wkv']}, "
+                             f"want {cfg.n_layers} x {passes} passes")
+    out["serve"] = {"metrics": m, "wall_s": wall, "launches": launches,
+                    "ms_per_token": wall / tok * 1e3,
+                    "ms_per_pass": wall / passes * 1e3}
+    out["profile"] = profile_serve(cfg, params, dev)
+    log(f"solo agreement, {cfg.name}, against the solo sampler on the WKV "
+        f"kernel (margin rule, tolerance {tol}):")
+    out["agreement_kernel"] = solo_agreement(cfg, params, dev, done, tol,
+                                             use_attention_kernel=True)
+    # the plain scan parts from the kernel route by its bf16 rounding of the
+    # state; where two routes' logits differ by at most L, their argmax can
+    # differ only where the top-2 margin is below 2 L: L is measured on the
+    # served streams themselves
+    gap = route_logit_gap(params, cfg, dev, done)
+    tol_plain = 2 * gap
+    log(f"largest |logit difference| of the kernel and plain routes over "
+        f"the served streams: {gap:.4g}; solo agreement against the solo "
+        f"sampler on the plain scan (margin rule, tolerance 2 x that = "
+        f"{tol_plain:.4g}):")
+    out["route_logit_gap"] = gap
+    out["agreement_plain"] = solo_agreement(cfg, params, dev, done,
+                                            tol_plain)
+    tokens = torch.randint(0, cfg.vocab, (1, route_T), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               1))
+    faults = {f: wkv_planted_fault(f) for f in ("bonus_dropped",
+                                                "kv_transposed")}
+    with torch.no_grad():
+        out["route_diff"] = route_diffs(params, cfg, tokens, ssm,
+                                        "rwkv_wkv", faults)
+        out["op_route_diff"] = route_diffs(params, cfg, tokens, ssm,
+                                           "rwkv_wkv", faults,
+                                           plain_op=rwkv_wkv_ref)
+    log("kernel route against the model's plain scan (bf16 state):")
+    check_route_diffs(out["route_diff"], route_T - 1, RWKV_ROUTE_LIMITS)
+    log("kernel route against the WKV op's float32 plain version:")
+    check_route_diffs(out["op_route_diff"], route_T - 1, RWKV_OP_LIMITS)
+    del params
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def route_logit_gap(params, cfg, dev, done):
+    """The largest |difference| between the kernel route's and the plain
+    route's logits (``TransformerLM.apply``) at the generated positions of
+    the served streams."""
+    import torch
+    from repro_torch.models.transformer import TransformerLM
+    gap = 0.0
+    with torch.no_grad():
+        for r in done:
+            toks = torch.as_tensor(r.result[:-1], device=dev)[None]
+            lg = [TransformerLM.apply(params, cfg, toks, use_kernel=k)[0][
+                0, len(r.prompt) - 1:].float() for k in (True, False)]
+            gap = max(gap, float((lg[0] - lg[1]).abs().max()))
+    return gap
+
+
+def solo_dense(dev, cfg, served, tol):
+    """Phase 10: the solo sampler (``PredictiveSampler``, dense cache) on
+    qwen3-1.7b at full width with the dense flash-decode kernel in its
+    prompt prefill and every verify round, one request at a time: 28
+    launches per pass; its tokens against the plain solo sampler and the
+    kernel-route sampler against phase 3's served tokens, both under the
+    margin rule. Returns the phase's report and the summed launches."""
+    import torch
+    from repro_torch.engine.spec_decode import PredictiveSampler
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.transformer import TransformerLM
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    reqs = make_requests(cfg, PROMPT_LENS, NEW_TOKENS)
+    total = {k: 0 for k in LAUNCHES}
+    rows, wall, n_tok = [], 0.0, 0
+    for r in reqs:
+        s = PredictiveSampler(cfg, params, window=8, max_len=256, eps_key=1,
+                              device=dev, use_verify_kernel=True,
+                              use_attention_kernel=True)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        toks, st = s.generate(torch.as_tensor(r.prompt)[None], r.new_tokens,
+                              seq_ids=torch.tensor([r.seq_id]))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        passes = st["rounds"] + (len(r.prompt) > 1)
+        n = LAUNCHES["decode_attention"]
+        for k in total:
+            total[k] += LAUNCHES[k]
+        if n != cfg.n_layers * passes:
+            raise AssertionError(f"request {r.uid}: decode_attention "
+                                 f"launches {n}, want {cfg.n_layers} x "
+                                 f"{passes} passes")
+        r.result = toks[0, :len(r.prompt) + r.new_tokens].cpu().numpy()
+        wall += dt
+        n_tok += r.new_tokens
+        rows.append({"uid": r.uid, "prompt": len(r.prompt),
+                     "rounds": st["rounds"], "passes": passes,
+                     "decode_attention_launches": n, "wall_s": dt})
+        log(f"solo (dense flash-decode kernel) request {r.uid}: prompt "
+            f"{len(r.prompt)}, {r.new_tokens} new tokens in {st['rounds']} "
+            f"rounds, {passes} passes, {n} decode_attention launches, "
+            f"{dt:.3f} s")
+    log(f"solo dense path: {n_tok} new tokens, {wall / n_tok * 1e3:.2f} ms "
+        f"per token, launches {total}")
+    out = {"requests": rows, "wall_s": wall, "launches": total,
+           "ms_per_token": wall / n_tok * 1e3}
+    log(f"agreement with the plain solo sampler (margin rule, tolerance "
+        f"{tol}):")
+    out["agreement_plain"] = solo_agreement(cfg, params, dev, reqs, tol)
+    log(f"agreement of the kernel-route solo sampler with phase 3's served "
+        f"tokens (margin rule, tolerance {tol}):")
+    out["agreement_served"] = solo_agreement(cfg, params, dev, served, tol,
+                                             use_attention_kernel=True)
+    del params
+    torch.cuda.empty_cache()
+    return out, total
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -1083,9 +1453,12 @@ def main(argv=None) -> int:
     pw = check_paged_write(dev, gen)
     pl, pl_err = check_paged_latent(dev, gen)
     fa, fa_err = check_flash_attention(dev, gen)
+    rw, rw_err = check_rwkv_wkv(dev, gen)
+    da, da_err = check_decode_attention(dev, gen)
     report["kernels_detail"] = {"spec_verify": sv, "paged_decode": pd,
                                 "paged_write": pw, "paged_latent": pl,
-                                "flash_attention": fa}
+                                "flash_attention": fa, "rwkv_wkv": rw,
+                                "decode_attention": da}
 
     eps_fn = make_eps_fn(1, V)
     sid = torch.tensor([0, 1], device=dev)
@@ -1150,6 +1523,13 @@ def main(argv=None) -> int:
     # ---- phase 8: the forecast-KL objective on DeepSeek-V3 ---------------
     report["train_deepseek"] = train_deepseek(dev, tol)
 
+    # ---- phase 9: rwkv6-7b served at full width on the WKV kernel --------
+    report["rwkv"], rw_launches = serve_rwkv(dev, get_config("rwkv6-7b"),
+                                             tol)
+
+    # ---- phase 10: the solo sampler's dense cache on its kernel ----------
+    report["solo_dense"], sd_launches = solo_dense(dev, cfg, done, tol)
+
     entries = []
     for name, rows, key, n, path, extra in (
             ("spec_verify", sv, f"R16_V{V}", launches["spec_verify"],
@@ -1162,7 +1542,11 @@ def main(argv=None) -> int:
              "serve_deepseek", pl_err),
             ("flash_attention", {k: v for k, v in fa.items()
                                  if k != "backward_T512"}, "qwen_train",
-             tr_launches["flash_attention"], "train", fa_err["o"])):
+             tr_launches["flash_attention"], "train", fa_err["o"]),
+            ("rwkv_wkv", rw, "verify", rw_launches["rwkv_wkv"],
+             "serve_rwkv", rw_err),
+            ("decode_attention", da, "verify",
+             sd_launches["decode_attention"], "solo_dense", da_err)):
         row = rows[key]
         entries.append({
             "name": name, "route": "cuda",
@@ -1176,7 +1560,10 @@ def main(argv=None) -> int:
                 "paged_latent":
                     "src/repro/kernels/paged_attention/kernel.py:248",
                 "flash_attention":
-                    "src/repro/kernels/flash_attention/kernel.py:68"}[name],
+                    "src/repro/kernels/flash_attention/kernel.py:68",
+                "rwkv_wkv": "src/repro/kernels/rwkv_wkv/kernel.py:49",
+                "decode_attention":
+                    "src/repro/kernels/decode_attention/kernel.py:79"}[name],
             "launches": n, "path": path,
             "max_abs_err": max(float(r["max_abs_err"]) for r in rows.values())
             if extra == 0 else extra,

@@ -78,12 +78,19 @@ class GenState(NamedTuple):
 
 
 class PredictiveSampler:
-    """Batched predictive-sampling text generation — the solo oracle every
-    serving test compares with."""
+    """Batched predictive-sampling text generation over a dense cache — the
+    solo oracle every serving test compares with.
+
+    ``use_attention_kernel`` runs the mixers' kernels in the prompt prefill
+    and every verify round: GQA attention through the dense flash-decode
+    op, the RWKV-6 recurrence through the WKV op. It defaults to on on the
+    GPU, as the serving engine's; off, the sampler takes the plain routes
+    (``_sdpa``, the model-dtype scan)."""
 
     def __init__(self, cfg, params, window: int = 8, max_len: int = 256,
                  eps_key=0, eps_fn=None, use_forecast_heads: bool = False,
-                 use_verify_kernel: bool = False, device=None):
+                 use_verify_kernel: bool = False,
+                 use_attention_kernel: Optional[bool] = None, device=None):
         self.cfg = cfg
         self.params = params
         self.W = window
@@ -95,6 +102,9 @@ class PredictiveSampler:
                                    and "forecast" in params
                                    and cfg.forecast_horizon > 0)
         self.use_verify_kernel = use_verify_kernel
+        if use_attention_kernel is None:
+            use_attention_kernel = self.device.type == "cuda"
+        self.use_attention_kernel = use_attention_kernel
 
     def init_state(self, prompts, batch: int, seq_ids=None) -> GenState:
         """prompts: (B, L_p) int (one prompt length for the whole batch).
@@ -108,10 +118,15 @@ class PredictiveSampler:
         tokens = torch.zeros((B, self.max_len), dtype=torch.int64, device=dev)
         tokens[:, :L_p] = prompts
         if L_p > 1:
-            # prefill the first L_p - 1 tokens (their K/V enter the cache)
+            # prefill the first L_p - 1 tokens (their K/V or recurrent state
+            # enter the cache): the state after position L_p - 2
             _, _, cache = TransformerLM.decode_window(
                 self.params, cfg, prompts[:, :-1], cache,
-                torch.zeros((B,), dtype=torch.int64, device=dev))
+                torch.zeros((B,), dtype=torch.int64, device=dev),
+                use_kernel=self.use_attention_kernel)
+            cache = TransformerLM.select_states(
+                cfg, cache, torch.full((B,), L_p - 1, dtype=torch.int64,
+                                       device=dev))
         n = torch.full((B,), L_p, dtype=torch.int64, device=dev)
         cand = torch.zeros((B, W), dtype=torch.int64, device=dev)
         cand[:, 0] = prompts[:, -1]
@@ -138,7 +153,8 @@ class PredictiveSampler:
             state, _ = verify_round(
                 self.params, self.cfg, self.eps_fn, state, target,
                 use_forecast_heads=self.use_forecast_heads,
-                use_verify_kernel=self.use_verify_kernel)
+                use_verify_kernel=self.use_verify_kernel,
+                use_attention_kernel=self.use_attention_kernel)
         stats = {
             "rounds": int(state.rounds),
             "per_seq_calls": state.per_seq_calls.cpu().numpy(),
@@ -171,14 +187,23 @@ def _forecast_fill(params, cfg, eps_fn, seq_ids, h, a, n_new, cand,
 def verify_round(params, cfg, eps_fn, state: GenState, target_len,
                  use_forecast_heads: bool = False,
                  use_verify_kernel: bool = False,
-                 paged: Optional[PagedView] = None):
+                 paged: Optional[PagedView] = None,
+                 use_attention_kernel: bool = False):
     """One verify round over ``state``; W is ``state.cand.shape[1]``, so
     callers may vary the window round to round (candidates gate only
     acceptance, never token values). ``use_forecast_heads`` fills the
     window slots past the FPI forecasts from ``params["forecast"]``.
 
-    ``state.cache`` is a dense cache, or — with ``paged`` — the paged block
-    pools, decoded through the block tables and updated in place.
+    ``state.cache`` is a dense cache, decoded with the mixers' kernels when
+    ``use_attention_kernel``, or — with ``paged`` — the paged block pools,
+    decoded through the block tables and updated in place (recurrent rows
+    adopted in place), with the kernels ``paged.use_kernel`` picks.
+
+    Recurrent states are adopted at ``max(a, 1)``: a row with ``a = 0`` (not
+    active) takes the state after ``cand[0]``, one token past its
+    snapshot, as the reference does; that is harmless only because such a
+    row is done (its state is never read again before the row is cleared
+    or reset).
 
     Returns ``(new_state, row_stats)`` where ``row_stats`` is the packed
     (B, 4) int64 per-row vector ``[accepted, done, new_length,
@@ -192,7 +217,8 @@ def verify_round(params, cfg, eps_fn, state: GenState, target_len,
     cache_len = n - 1
     if paged is None:
         logits, h, new_cache = TransformerLM.decode_window(
-            params, cfg, state.cand, state.cache, cache_len)
+            params, cfg, state.cand, state.cache, cache_len,
+            use_kernel=use_attention_kernel)
     else:
         logits, h, new_cache = TransformerLM.decode_window_paged(
             params, cfg, state.cand, state.cache, paged, cache_len)

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"spec_verify": 0, "paged_decode": 0, "paged_write": 0,
-            "paged_latent": 0, "flash_attention": 0}
+            "paged_latent": 0, "flash_attention": 0, "rwkv_wkv": 0,
+            "decode_attention": 0}
 
 _LIB = None
 _FNS: dict = {}

@@ -20,6 +20,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_latent_attention,
@@ -180,18 +181,27 @@ class GQAttention:
                                  device=device)}
 
     @staticmethod
-    def window(p, x, cfg, cache, cache_len, window: int = 0):
+    def window(p, x, cfg, cache, cache_len, window: int = 0,
+               use_kernel: bool = False):
         """x: (B, W, D) verify-window queries; cache_len: (B,) valid
-        lengths. Returns (y, new_cache); key positions are absolute."""
+        lengths. Returns (y, new_cache); key positions are absolute. The
+        window's K/V are written into the cache first; ``use_kernel`` then
+        attends through the dense flash-decode op (the CUDA kernel on CUDA
+        tensors, its float32 plain version on the CPU), otherwise through
+        ``_sdpa``, which rounds scores and probabilities to the working
+        dtype where the op keeps them in float32."""
         B, W, _ = x.shape
         S = cache["k"].shape[1]
         pos = cache_len.long()[:, None] + torch.arange(W, device=x.device)
         q, k_new, v_new = GQAttention._qkv(p, x, cfg, pos)
         k = write_window(cache["k"], k_new, cache_len)
         v = write_window(cache["v"], v_new, cache_len)
-        k_pos = torch.arange(S, device=x.device).expand(B, S)
-        mask = _causal_mask(pos, k_pos, window)
-        out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(cfg.head_dim))
+        if use_kernel:
+            out = decode_attention(q, k, v, cache_len, window)
+        else:
+            k_pos = torch.arange(S, device=x.device).expand(B, S)
+            mask = _causal_mask(pos, k_pos, window)
+            out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(cfg.head_dim))
         y = Dense.apply(p["wo"], out.reshape(B, W, -1))
         return y, {"k": k, "v": v}
 

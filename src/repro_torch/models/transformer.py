@@ -1,19 +1,24 @@
 """Decoder stack assembled from a ModelConfig: the whole-sequence forward
-of training (``apply``) and verify-window decode (``decode_window``).
+(``apply``) and verify-window decode (``decode_window``).
 
 The reference lays its layers out as ``prefix + n_blocks * block + suffix``
 and runs the homogeneous blocks under ``lax.scan`` over a stacked
 ``params["blocks"]`` axis. The port unrolls that axis: ``params["layers"]``
 is one plain dict per layer, in layer order, and the forward pass is a
 Python loop over them (``checkpoint.io.params_from_numpy`` converts the
-reference's stacked tree). Caches follow the same layout:
-``{"layers": [{"mixer": {"k", "v"}}, ...]}`` for GQA layers and
-``{"mixer": {"c_kv", "k_rope"}}`` for MLA layers.
+reference's stacked tree). Caches follow the same layout, one dict per
+layer: ``{"mixer": {"k", "v"}}`` for GQA layers, ``{"mixer": {"c_kv",
+"k_rope"}}`` for MLA layers, and for RWKV-6 layers the per-row recurrent
+states ``{"mixer": {"x_last", "S"}, "ffn": {"x_last"}}`` (time mix and
+channel mix).
 
-The port covers the attention mixers (``attn``, ``local``) and MLA
-(``mla``) with dense FFNs, and the learned forecast heads
-(``params["forecast"]``); the other mixers and MoE FFNs raise
-``NotImplementedError`` naming their ROADMAP item.
+Mixers: GQA attention (``attn``, ``local``), MLA (``mla``) and the RWKV-6
+time mix (``rwkv``); FFNs: dense and the RWKV-6 channel mix
+(``rwkv_cmix``); the learned forecast heads (``params["forecast"]``).
+Mamba and MoE FFNs raise ``NotImplementedError`` naming their ROADMAP
+item. In the paged cache the attention entries are physical block pools
+shared by all rows, while recurrent states stay one row per batch slot
+(they are small and never shared).
 """
 from __future__ import annotations
 
@@ -26,12 +31,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.forecasting import TokenForecast, TokenForecastConfig
 from repro_torch.models.attention import GQAttention, MLAttention
 from repro_torch.models.moe import _mlp_apply, _mlp_init
+from repro_torch.models.ssm import RWKV6ChannelMix, RWKV6TimeMix
 from repro_torch.nn.core import Dense, Embedding, RMSNorm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_LATER = {"mamba": "item 15", "rwkv": "item 15", "moe": "item 14",
-          "rwkv_cmix": "item 15"}
-_MIXERS = {"attn": GQAttention, "local": GQAttention, "mla": MLAttention}
+_LATER = {"mamba": "item 15", "moe": "item 14"}
+_MIXERS = {"attn": GQAttention, "local": GQAttention, "mla": MLAttention,
+           "rwkv": RWKV6TimeMix}
+_RECURRENT = ("rwkv",)                  # mixers with per-row states
+_FFNS = ("dense", "rwkv_cmix")
 
 
 @dataclass(frozen=True)
@@ -109,53 +117,140 @@ def _check_spec(spec):
             raise NotImplementedError(
                 f"layer kind {part!r} is not ported yet "
                 f"(ROADMAP.md §1 {_LATER[part]})")
-    if mixer not in _MIXERS or ffn != "dense":
+    if mixer not in _MIXERS or ffn not in _FFNS:
         raise ValueError(f"unknown layer spec {spec!r}")
+
+
+def _recurrent_keys(spec) -> list:
+    """The keys of a layer's cache entry that hold per-row states."""
+    mixer, ffn = spec
+    return [k for k, on in (("mixer", mixer in _RECURRENT),
+                            ("ffn", ffn == "rwkv_cmix")) if on]
+
+
+def _recurrent_entries(cfg, cache) -> list:
+    """The recurrent state dicts of a cache tree, in layer order: each RWKV
+    layer's time-mix and channel-mix states."""
+    return [c[k] for spec, c in zip(cfg.layer_specs(), cache["layers"])
+            for k in _recurrent_keys(spec)]
+
+
+def _map_recurrent(cfg, cache, fn):
+    """The cache tree with every recurrent leaf replaced by ``fn(leaf)``;
+    attention entries are the same tensors."""
+    layers = []
+    for spec, c in zip(cfg.layer_specs(), cache["layers"]):
+        c = dict(c)
+        for k in _recurrent_keys(spec):
+            c[k] = {name: fn(leaf) for name, leaf in c[k].items()}
+        layers.append(c)
+    return {"layers": layers}
+
+
+def has_recurrent(cfg) -> bool:
+    return any(m in _RECURRENT or f == "rwkv_cmix"
+               for m, f in cfg.layer_specs())
 
 
 class PagedView(NamedTuple):
     """Block-table addressing for a paged decode step: attention cache
     entries are the shared physical pools and each of the R view rows reads
-    and writes through ``tables`` (R, nb) int32; ``rows`` (R,) names the
-    batch slots decoded. ``use_kernel`` picks the fused paged-decode
-    kernels (GQA or latent) over the gather-view fallback."""
+    and writes through ``tables`` (R, nb) int32; ``rows`` names the R batch
+    slots decoded, whose recurrent state rows ride along (an index tensor,
+    or a slice, which reads and writes those rows in place). ``use_kernel``
+    picks the mixers' kernels: the fused paged-decode kernels (GQA or
+    latent) over the gather-view fallback, and the WKV kernel over the
+    plain scan."""
     tables: Any
     rows: Any
     use_kernel: bool = False
 
 
+def _layer_init(gen, spec, cfg: ModelConfig, dtype, device):
+    mixer, ffn = spec
+    kw = dict(dtype=dtype, device=device)
+    p = {"norm1": RMSNorm.init(cfg.d_model, **kw),
+         "mixer": _MIXERS[mixer].init(gen, cfg, **kw),
+         "norm2": RMSNorm.init(cfg.d_model, **kw)}
+    if ffn == "rwkv_cmix":
+        p["ffn"] = RWKV6ChannelMix.init(gen, cfg, **kw)
+    else:
+        p["ffn"] = _mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype,
+                             device)
+    return p
+
+
 def _layer_full(p, spec, cfg: ModelConfig, h, use_kernel: bool = True):
     """One layer over whole sequences: h (B, T, D) -> (B, T, D)."""
-    mixer, _ = spec
+    mixer, ffn = spec
     u = RMSNorm.apply(p["norm1"], h)
     if mixer == "mla":
         y = MLAttention.full(p["mixer"], u, cfg)
+    elif mixer == "rwkv":
+        y = RWKV6TimeMix.full(p["mixer"], u, cfg, use_kernel=use_kernel)
     else:
         window = cfg.sliding_window if mixer == "local" else 0
         y = GQAttention.full(p["mixer"], u, cfg, window=window,
                              use_kernel=use_kernel)
     h = h + y
     v = RMSNorm.apply(p["norm2"], h)
+    if ffn == "rwkv_cmix":
+        return h + RWKV6ChannelMix.full(p["ffn"], v, cfg)
     return h + _mlp_apply(p["ffn"], v, cfg.mlp_kind)
 
 
 def _layer_window(p, spec, cfg: ModelConfig, h, cache, cache_len,
-                  paged: PagedView | None = None):
-    """Returns (h, new_cache) for one layer."""
-    mixer, _ = spec
+                  paged: PagedView | None = None, use_kernel: bool = False,
+                  last_state_only: bool = False):
+    """Returns (h, new_cache) for one layer. Recurrent entries of
+    ``new_cache`` hold the state after every window position, or with
+    ``last_state_only`` after the last one."""
+    mixer, ffn = spec
     window = cfg.sliding_window if mixer == "local" else 0
+    use_kernel = paged.use_kernel if paged is not None else use_kernel
     u = RMSNorm.apply(p["norm1"], h)
-    if paged is not None:
-        y, nc = _MIXERS[mixer].window_paged(
+    nc = {}
+    if mixer == "rwkv":
+        y, nc["mixer"] = RWKV6TimeMix.window(
+            p["mixer"], u, cfg, cache["mixer"], use_kernel=use_kernel,
+            last_state_only=last_state_only)
+    elif paged is not None:
+        y, nc["mixer"] = _MIXERS[mixer].window_paged(
             p["mixer"], u, cfg, cache["mixer"], paged.tables, cache_len,
-            window=window, use_kernel=paged.use_kernel)
+            window=window, use_kernel=use_kernel)
+    elif mixer == "mla":
+        y, nc["mixer"] = MLAttention.window(p["mixer"], u, cfg,
+                                            cache["mixer"], cache_len)
     else:
-        y, nc = _MIXERS[mixer].window(p["mixer"], u, cfg, cache["mixer"],
-                                      cache_len, window=window)
+        y, nc["mixer"] = GQAttention.window(p["mixer"], u, cfg,
+                                            cache["mixer"], cache_len,
+                                            window=window,
+                                            use_kernel=use_kernel)
     h = h + y
     v = RMSNorm.apply(p["norm2"], h)
-    h = h + _mlp_apply(p["ffn"], v, cfg.mlp_kind)
-    return h, {"mixer": nc}
+    if ffn == "rwkv_cmix":
+        z, nc["ffn"] = RWKV6ChannelMix.window(p["ffn"], v, cfg, cache["ffn"],
+                                              last_state_only=last_state_only)
+    else:
+        z = _mlp_apply(p["ffn"], v, cfg.mlp_kind)
+    return h + z, nc
+
+
+def _layer_cache_init(spec, cfg: ModelConfig, attn_batch: int,
+                      rec_batch: int, length: int, dtype, device):
+    """One layer's cache: attention entries of ``attn_batch`` rows (dense
+    sequences, or physical blocks) of ``length`` slots, recurrent states of
+    ``rec_batch`` rows."""
+    mixer, ffn = spec
+    if mixer in _RECURRENT:
+        c = {"mixer": _MIXERS[mixer].init_state(cfg, rec_batch, dtype,
+                                                device)}
+    else:
+        c = {"mixer": _MIXERS[mixer].init_cache(cfg, attn_batch, length,
+                                                dtype, device)}
+    if ffn == "rwkv_cmix":
+        c["ffn"] = RWKV6ChannelMix.init_state(cfg, rec_batch, dtype, device)
+    return c
 
 
 def forecast_config(cfg: ModelConfig) -> TokenForecastConfig:
@@ -176,16 +271,8 @@ class TransformerLM:
         dtype = cfg.param_dtype
         kw = dict(dtype=dtype, device=device)
         params = {"embed": Embedding.init(gen, cfg.vocab, cfg.d_model, **kw)}
-        layers = []
-        for mixer, _ in cfg.layer_specs():
-            layers.append({
-                "norm1": RMSNorm.init(cfg.d_model, **kw),
-                "mixer": _MIXERS[mixer].init(gen, cfg, **kw),
-                "norm2": RMSNorm.init(cfg.d_model, **kw),
-                "ffn": _mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
-                                 dtype, device),
-            })
-        params["layers"] = layers
+        params["layers"] = [_layer_init(gen, spec, cfg, dtype, device)
+                            for spec in cfg.layer_specs()]
         params["final_norm"] = RMSNorm.init(cfg.d_model, **kw)
         if not cfg.tie_embeddings:
             params["head"] = Dense.init(gen, cfg.d_model, cfg.vocab,
@@ -220,7 +307,9 @@ class TransformerLM:
         ``remat=True`` checkpoints each layer (its activations are
         recomputed in the backward). ``use_kernel`` routes GQA attention
         on CUDA tensors through the flash-attention kernel
-        (``GQAttention.full``)."""
+        (``GQAttention.full``) and the RWKV-6 recurrence through the WKV
+        kernel (``RWKV6TimeMix.full``, which raises where a gradient is
+        needed: the kernel has no backward yet)."""
         if prefix_embeddings is not None:
             raise NotImplementedError(
                 "prefix embeddings (multimodal frontends) are not ported "
@@ -246,13 +335,14 @@ class TransformerLM:
     @staticmethod
     def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                    device=None):
+        """Dense caches of ``batch`` sequences of ``max_len`` slots, and the
+        recurrent layers' zero states of ``batch`` rows."""
         dtype = dtype or cfg.param_dtype
         for spec in cfg.layer_specs():
             _check_spec(spec)
         return {"layers": [
-            {"mixer": _MIXERS[mixer].init_cache(cfg, batch, max_len, dtype,
-                                                device)}
-            for mixer, _ in cfg.layer_specs()]}
+            _layer_cache_init(spec, cfg, batch, batch, max_len, dtype,
+                              device) for spec in cfg.layer_specs()]}
 
     @staticmethod
     def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
@@ -260,21 +350,34 @@ class TransformerLM:
         """Physical block pools: every GQA layer holds ``{"k", "v"}:
         (num_blocks, block_size, KV, hd)``, every MLA layer ``{"c_kv":
         (num_blocks, block_size, r), "k_rope": (num_blocks, block_size,
-        dr)}``; block 0 is the reserved write sink."""
-        return TransformerLM.init_cache(cfg, num_blocks, block_size, dtype,
-                                        device)
+        dr)}``; block 0 is the reserved write sink. Recurrent states are
+        not paged: one row per batch slot (``batch`` rows)."""
+        dtype = dtype or cfg.param_dtype
+        for spec in cfg.layer_specs():
+            _check_spec(spec)
+        return {"layers": [
+            _layer_cache_init(spec, cfg, num_blocks, batch, block_size,
+                              dtype, device) for spec in cfg.layer_specs()]}
 
     # -- verify-window decode -------------------------------------------------
     @staticmethod
     def decode_window(params, cfg: ModelConfig, tokens, cache, cache_len,
-                      paged: PagedView | None = None):
+                      paged: PagedView | None = None,
+                      use_kernel: bool = False,
+                      last_state_only: bool = False):
         """tokens: (B, W) candidates; cache_len: (B,). Returns
-        (logits (B, W, V), h, new_cache)."""
+        (logits (B, W, V), h, new_cache). Recurrent entries of
+        ``new_cache`` hold the state after every window position (feed
+        them through ``select_states``), or with ``last_state_only`` only
+        the state after the last one. ``use_kernel`` (dense caches; a paged
+        view carries its own) runs GQA attention through the dense
+        flash-decode op and the RWKV-6 recurrence through the WKV op."""
         h = TransformerLM._embed(params, cfg, tokens)
         new_layers = []
         for p, spec, c in zip(params["layers"], cfg.layer_specs(),
                               cache["layers"]):
-            h, nc = _layer_window(p, spec, cfg, h, c, cache_len, paged)
+            h, nc = _layer_window(p, spec, cfg, h, c, cache_len, paged,
+                                  use_kernel, last_state_only)
             new_layers.append(nc)
         h = RMSNorm.apply(params["final_norm"], h)
         logits = TransformerLM._head(params, cfg, h)
@@ -282,24 +385,50 @@ class TransformerLM:
 
     @staticmethod
     def decode_window_paged(params, cfg: ModelConfig, tokens, paged_cache,
-                            view: PagedView, cache_len):
+                            view: PagedView, cache_len,
+                            last_state_only: bool = False):
         """Verify-window decode straight over the physical block pools, which
         are updated in place: no dense K/V view is built on the kernel path,
         and each layer's window K/V is committed by the same launch that
-        attends through ``view.tables``. Returns (logits, h, new_cache)."""
+        attends through ``view.tables``. Recurrent state rows are read at
+        ``view.rows``. Returns (logits, h, new_cache): the pools for
+        attention entries and the new states of the decoded rows for
+        recurrent ones (feed them through ``select_states``, unless
+        ``last_state_only``, then ``adopt_states_paged``)."""
+        cache = _map_recurrent(cfg, paged_cache, lambda x: x[view.rows])
         return TransformerLM.decode_window(
-            params, cfg, tokens, paged_cache, cache_len.to(torch.int32),
-            paged=view)
+            params, cfg, tokens, cache, cache_len.to(torch.int32),
+            paged=view, last_state_only=last_state_only)
 
     @staticmethod
     def adopt_states_paged(cfg: ModelConfig, paged_cache, sel, rows):
-        """Merge a paged decode's outputs back into the pool tree. Attention
-        pools were already written in place by the window writes; there are
-        no recurrent per-row states in this slice."""
-        return sel
+        """Merge a paged decode's selected states back into the pool tree,
+        in place: attention pools were already written by the window
+        writes; recurrent entries copy the selected states into their slot
+        rows ``rows`` (no copy of the whole state). Returns
+        ``paged_cache``."""
+        for dst, src in zip(_recurrent_entries(cfg, paged_cache),
+                            _recurrent_entries(cfg, sel)):
+            for k, leaf in dst.items():
+                leaf[rows] = src[k]
+        return paged_cache
+
+    @staticmethod
+    def reset_rows(cfg: ModelConfig, cache, rows):
+        """Zero the recurrent states of slot rows ``rows`` in place (a slot
+        freed or newly admitted starts from the zero state)."""
+        for entry in _recurrent_entries(cfg, cache):
+            for leaf in entry.values():
+                leaf[rows] = 0
 
     @staticmethod
     def select_states(cfg: ModelConfig, new_cache, accept_idx):
         """Adopt the verify outputs: attention buffers are taken as they are
-        (the rewound ``cache_len`` shields stale slots)."""
-        return new_cache
+        (the rewound ``cache_len`` shields stale slots); recurrent
+        per-position states are gathered at ``accept_idx - 1`` (B,), the
+        state after the last accepted token (index 0 where
+        ``accept_idx`` is 0, as in the reference)."""
+        B = accept_idx.shape[0]
+        ar = torch.arange(B, device=accept_idx.device)
+        at = (accept_idx - 1).clamp(min=0)
+        return _map_recurrent(cfg, new_cache, lambda x: x[ar, at])

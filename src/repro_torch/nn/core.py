@@ -1,4 +1,4 @@
-"""Core layers: Dense, Embedding, RMSNorm.
+"""Core layers: Dense, Embedding, RMSNorm, LayerNorm.
 
 As in the reference, layers are namespaces of static functions over plain
 dict parameters, so call sites read ``Dense.init`` / ``Dense.apply`` and a
@@ -78,3 +78,22 @@ class RMSNorm:
         var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(var + eps)
         return (y * params["scale"].float()).to(dtype)
+
+
+class LayerNorm:
+    @staticmethod
+    def init(dim: int, dtype=torch.float32, device=None):
+        return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+                "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+    @staticmethod
+    def apply(params, x, eps: float = 1e-5):
+        """Mean and variance in float32, the result cast back to x's
+        dtype (the reference's order of operations)."""
+        dtype = x.dtype
+        x32 = x.float()
+        mu = torch.mean(x32, dim=-1, keepdim=True)
+        var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+        y = (x32 - mu) * torch.rsqrt(var + eps)
+        return (y * params["scale"].float() + params["bias"].float()).to(
+            dtype)

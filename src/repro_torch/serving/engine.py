@@ -9,9 +9,16 @@ The port of the reference's ``serving/engine.py``, single-device:
   which attends through the table and commits the window in the same
   launch; ``use_attention_kernel=False`` takes the gather-view fallback
   (writeback kernel, gathered view, plain attention).
+* **Recurrent states** — RWKV-6 layers carry one state row per batch slot
+  instead of KV blocks; rounds and prefill adopt the state at the accept
+  point into the slot's row in place, on the GPU through the WKV kernel
+  (``use_attention_kernel`` picks the mixers' kernels). A slot's row is
+  zeroed when it is freed and when a request is admitted to it.
 * **Prefix cache** — full prompt blocks are content-hashed (chained keys);
   admissions sharing a prompt prefix point their tables at the cached
-  blocks and skip recomputing them.
+  blocks and skip recomputing them. Off for stacks with recurrent layers,
+  whose state after a prefix is not paged (the reference reaches it only
+  through its host tier's snapshots, not ported).
 * **Row-local chunked prefill** — an admitted row prefills its un-cached
   prompt tail through batch-1 windows over its own blocks, in power-of-two
   chunks of at most ``prefill_chunk``.
@@ -48,7 +55,8 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.engine.spec_decode import GenState, make_eps_fn, verify_round
-from repro_torch.models.transformer import PagedView, TransformerLM
+from repro_torch.models.transformer import (PagedView, TransformerLM,
+                                            has_recurrent)
 from repro_torch.serving.adaptive import AdaptiveWindowController
 from repro_torch.serving.admission import (AdmissionQueue, Request,
                                            RequestError, pow2_at_most,
@@ -107,7 +115,8 @@ class ServingEngine:
             device=self.device)
         self.tables = np.zeros((batch, self.nb), np.int32)
         self.owned: list[list[int]] = [[] for _ in range(batch)]
-        self.kv_prefix = prefix_cache
+        # a prefix hit would skip the recurrent state's prefill
+        self.kv_prefix = prefix_cache and not has_recurrent(cfg)
 
         # ---- control / telemetry ---------------------------------------
         self.controller = AdaptiveWindowController(
@@ -177,13 +186,17 @@ class ServingEngine:
         return True
 
     # -- device steps -------------------------------------------------------
-    def _prefill(self, table_row, row, chunk, start: int):
-        """Row-local prefill of one chunk through the row's block table;
-        the pool is written in place."""
-        view = PagedView(table_row, row, self.use_attention_kernel)
-        TransformerLM.decode_window_paged(
+    def _prefill(self, table_row, b: int, chunk, start: int):
+        """Row-local prefill of one chunk through slot ``b``'s block table;
+        the pool is written in place and the slot's recurrent row takes the
+        state after the chunk's last token."""
+        view = PagedView(table_row, slice(b, b + 1),
+                         self.use_attention_kernel)
+        _, _, nc = TransformerLM.decode_window_paged(
             self.params, self.cfg, chunk, self.paged, view,
-            torch.tensor([start], dtype=torch.int32, device=self.device))
+            torch.tensor([start], dtype=torch.int32, device=self.device),
+            last_state_only=True)
+        TransformerLM.adopt_states_paged(self.cfg, self.paged, nc, view.rows)
 
     def _round_loop(self, W: int, k: int) -> torch.Tensor:
         """Up to ``k`` verify rounds at window W on the device, with no host
@@ -195,8 +208,7 @@ class ServingEngine:
         B, dev = self.B, self.device
         tables, seq_ids = self._tables_device(), self._seq_device()
         target = self._target_device()
-        view = PagedView(tables, torch.arange(B, device=dev),
-                         self.use_attention_kernel)
+        view = PagedView(tables, slice(0, B), self.use_attention_kernel)
         tokens, n, cand = self.tokens, self.n, self.cand
         zero = torch.zeros((B,), dtype=torch.int64, device=dev)
         acc, act_rounds, bad = zero, zero, zero
@@ -217,6 +229,7 @@ class ServingEngine:
             acc = acc + rstats[:, 0]
             act_rounds = act_rounds + active
             r = r + live.long()
+            self.metrics.verify_passes += 1
             tokens, n = st2.tokens, st2.n
             cand = torch.cat([st2.cand, torch.zeros_like(cand[:, W:])], dim=1)
         self.tokens.copy_(tokens)
@@ -249,6 +262,7 @@ class ServingEngine:
         self.tokens[b] = 0
         self.n[b] = 1
         self.cand[b] = 0
+        TransformerLM.reset_rows(self.cfg, self.paged, b)
 
     def _tables_device(self):
         if self._tables_dev is None:
@@ -341,13 +355,14 @@ class ServingEngine:
         self.seq_ids[b] = req.seq_id
         self._seq_dev = None
 
-        # chunked row-local prefill of the un-cached prompt tail
+        # chunked row-local prefill of the un-cached prompt tail, from the
+        # zero state
+        TransformerLM.reset_rows(self.cfg, self.paged, b)
         start = len(hits) * self.block_size
         table_row = torch.from_numpy(self.tables[b:b + 1].copy()).to(dev)
-        row = torch.tensor([b], device=dev)
         for C in prefill_chunks(L_p - 1 - start, self.prefill_chunk):
             chunk = torch.from_numpy(prompt[None, start:start + C]).to(dev)
-            self._prefill(table_row, row, chunk, start)
+            self._prefill(table_row, b, chunk, start)
             start += C
             req.prefill_calls += 1
             self.metrics.prefill_calls += 1

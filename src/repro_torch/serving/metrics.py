@@ -21,6 +21,9 @@ def percentile(values, p: float) -> float:
 @dataclass
 class EngineMetrics:
     rounds: int = 0                      # batch-level verify rounds (ARM calls)
+    verify_passes: int = 0               # model passes of the round loops,
+    #                                      no-op rounds after the last live row
+    #                                      included
     prefill_calls: int = 0               # row-local prefill chunk passes
     host_syncs: int = 0                  # stats-array pulls (one per loop)
     device_dispatches: int = 0           # round loops launched
@@ -76,6 +79,7 @@ class EngineMetrics:
         new = np.asarray(self.request_new_tokens, np.float64)
         out = {
             "rounds": self.rounds,
+            "verify_passes": self.verify_passes,
             "prefill_calls": self.prefill_calls,
             "host_syncs": self.host_syncs,
             "device_dispatches": self.device_dispatches,

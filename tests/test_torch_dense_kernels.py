@@ -1,0 +1,167 @@
+"""The plain versions of the port's WKV-recurrence and dense flash-decode
+kernels against the reference's Pallas kernels, run in interpret mode as
+tests/kernels runs them, and the solo sampler on the dense flash-decode
+op's route against the reference.
+
+On the CPU the port's ops take their plain versions (``ref.py``). The WKV
+op in its zero-state form is held against ``rwkv_wkv`` (Pallas), including
+lengths that are not a multiple of its 64-step chunk; its window form (a
+given initial state, the state after every position) and its last-state
+form against the model scan ``RWKV6TimeMix._wkv_scan`` in float32. The
+dense flash-decode op against ``decode_attention`` (Pallas) with two query
+heads per kv head, a sliding window, a cache length that is not a multiple
+of the Pallas key block and up to 40 queries.
+
+Tolerances: outputs and states 2e-5 relative to the largest value (float32
+sums in another order, carried through up to 130 steps of the state);
+attention outputs 2e-5 (float32 softmax sums in another order); the
+sampler's ``row_stats``, tokens and windows bitwise under the same noise,
+whole generations under the margin rule with tolerance 1e-4.
+
+The CUDA kernels are held against these plain versions on the card by
+``tests/test_torch_gpu.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.engine.spec_decode import PredictiveSampler as JaxSampler
+from repro.engine.spec_decode import make_eps_fn as jax_make_eps_fn
+from repro.engine.spec_decode import verify_round as jax_verify_round
+from repro.kernels.decode_attention.ops import \
+    decode_attention as jax_decode_attention
+from repro.kernels.rwkv_wkv.ops import rwkv_wkv as jax_rwkv_wkv
+from repro.models.ssm import RWKV6TimeMix as JaxTMix
+from repro.models.transformer import TransformerLM as JaxLM
+from repro_torch.checkpoint.io import params_from_numpy
+from repro_torch.configs import get_config
+from repro_torch.engine.agreement import check_token_agreement, top2_margin
+from repro_torch.engine.spec_decode import PredictiveSampler, verify_round
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.rwkv_wkv.ops import rwkv_wkv
+
+CPU = torch.device("cpu")
+EPS_KEY = jax.random.PRNGKey(9)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _close_rel(got, want, tol):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=tol,
+                               atol=tol * float(np.abs(want).max()))
+
+
+def _wkv_inputs(rng, B, T, H, hd):
+    r, k, v = (rng.standard_normal((B, T, H, hd)).astype(np.float32)
+               for _ in range(3))
+    w = rng.uniform(0.5, 1.0, size=(B, T, H, hd)).astype(np.float32)
+    u = rng.standard_normal((H, hd)).astype(np.float32)
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("T,hd", [(16, 32), (64, 64), (100, 64),
+                                  (130, 32)])
+def test_wkv_plain_matches_pallas(T, hd):
+    """The zero-state form; T = 100 and 130 leave a ragged last chunk,
+    which the Pallas kernel pads with w = 1."""
+    r, k, v, w, u = _wkv_inputs(np.random.default_rng(T + hd), 2, T, 4, hd)
+    want = jax_rwkv_wkv(*map(jnp.asarray, (r, k, v, w, u)), use_kernel=True,
+                        interpret=True)
+    got = rwkv_wkv(*map(_t, (r, k, v, w, u)))
+    assert got.shape == (2, T, 4, hd)
+    _close_rel(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("W", [1, 8, 33])
+def test_wkv_window_and_last_state_forms_match_model_scan(W):
+    rng = np.random.default_rng(W)
+    r, k, v, w, u = _wkv_inputs(rng, 2, W, 4, 32)
+    s0 = rng.standard_normal((2, 4, 32, 32)).astype(np.float32)
+    jy, jS = JaxTMix._wkv_scan(*map(jnp.asarray, (r, k, v, w, u, s0)))
+    y, S = rwkv_wkv(*map(_t, (r, k, v, w, u, s0)), states="all")
+    assert S.shape == (2, W, 4, 32, 32)
+    _close_rel(y, jy, 2e-5)
+    _close_rel(S, jS, 2e-5)
+    y2, S2 = rwkv_wkv(*map(_t, (r, k, v, w, u, s0)), states="last")
+    assert torch.equal(y2, y) and torch.equal(S2, S[:, -1])
+
+
+@pytest.mark.parametrize("W,window,S", [(1, 0, 70), (8, 0, 70),
+                                        (8, 24, 70), (40, 0, 96),
+                                        (40, 16, 83)])
+def test_decode_attention_plain_matches_pallas(W, window, S):
+    rng = np.random.default_rng(W + window + S)
+    B, H, KV, d = 2, 4, 2, 64
+    q = rng.standard_normal((B, W, H, d)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, d)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, d)).astype(np.float32)
+    lengths = np.array([S - W, 3], np.int32)
+    want = jax_decode_attention(*map(jnp.asarray, (q, k, v, lengths)),
+                                window=window, block_k=16, interpret=True)
+    got = decode_attention(*map(_t, (q, k, v, lengths)), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.fixture(scope="module")
+def qwen():
+    cfg = get_config("qwen3-1.7b", reduced=True)
+    jcfg = jax_get_config("qwen3-1.7b", reduced=True)
+    jparams = JaxLM.init(jax.random.PRNGKey(0), jcfg)
+    tree = jax.tree.map(np.asarray, jparams)
+    return cfg, jcfg, jparams, params_from_numpy(tree, cfg)
+
+
+def _jax_eps_for_port(vocab):
+    jeps = jax.jit(jax_make_eps_fn(EPS_KEY, vocab))
+
+    def eps_fn(seq_ids, positions):
+        return _t(jeps(jnp.asarray(seq_ids.numpy(), jnp.int32),
+                       jnp.asarray(positions.numpy(), jnp.int32)))
+    return eps_fn
+
+
+def test_solo_sampler_on_the_decode_op_matches_jax(qwen):
+    """The solo sampler with ``use_attention_kernel`` (the dense flash-
+    decode op in the prompt prefill and every round): three rounds'
+    ``row_stats``, tokens and windows bitwise against the reference, then
+    whole generations under the margin rule."""
+    cfg, jcfg, jparams, params = qwen
+    rng = np.random.default_rng(11)
+    prompts = rng.integers(0, cfg.vocab, size=(3, 6))
+    s = PredictiveSampler(cfg, params, window=8, max_len=40,
+                          eps_fn=_jax_eps_for_port(cfg.vocab), device=CPU,
+                          use_attention_kernel=True)
+    js = JaxSampler(jcfg, jparams, window=8, max_len=40, eps_key=EPS_KEY)
+    st = s.init_state(prompts, 3)
+    jst = js.init_state(jnp.asarray(prompts, jnp.int32), 3)
+    target = np.array([10, 30, 6], np.int64)
+    for _ in range(3):
+        st, stats = verify_round(params, cfg, s.eps_fn, st, _t(target),
+                                 use_attention_kernel=True)
+        jst, jstats = jax_verify_round(jparams, jcfg, js.eps_fn, jst,
+                                       jnp.asarray(target, jnp.int32))
+        np.testing.assert_array_equal(stats.numpy(), np.asarray(jstats))
+        np.testing.assert_array_equal(st.tokens.numpy(),
+                                      np.asarray(jst.tokens))
+        np.testing.assert_array_equal(st.cand.numpy(), np.asarray(jst.cand))
+    toks, _ = s.generate(prompts[:2, :5], 20)
+    jtoks, _ = js.generate(jnp.asarray(prompts[:2, :5], jnp.int32), 20)
+    jeps = jax_make_eps_fn(EPS_KEY, cfg.vocab)
+    for b in range(2):
+        ref = np.asarray(jtoks[b, :25])
+
+        def margin_at(p, ref=ref, b=b):
+            logits, _, _ = JaxLM.apply(jparams, jcfg,
+                                       jnp.asarray(ref[None, :p], jnp.int32))
+            e = jeps(jnp.asarray([b], jnp.int32),
+                     jnp.asarray([[p]], jnp.int32))
+            return top2_margin(np.asarray(logits[0, -1] + e[0, 0]))
+        check_token_agreement(ref, toks[b, :25].numpy(), margin_at, tol=1e-4,
+                              start=5)

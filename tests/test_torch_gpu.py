@@ -20,12 +20,21 @@ through the plain version 1e-4 of the largest gradient in float32, and in
 bfloat16 2e-2 relative plus 1e-2 of the largest (each side rounds every
 gradient to bfloat16 once, and the op's backward takes rowsum(do * o) from
 the output already rounded to bfloat16 where autograd keeps it in float32).
+The WKV recurrence: float32 outputs and the (always float32) states 2e-5
+relative plus 2e-5 of the largest value (sums in another order, a fused
+multiply-add in the state update, carried through up to 1000 steps), and
+bfloat16 outputs 2^-7 relative plus 1e-3 of the largest (both carry the
+state in float32 and round each output once, so they part by at most one
+bf16 ulp beyond the float32 drift). The dense flash-decode output as the
+paged decode's: 1e-5 in float32 and 1e-2 in bfloat16.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_fwd)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -34,6 +43,8 @@ from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_window_write)
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_fused_ref, paged_latent_fused_ref, write_window_paged)
+from repro_torch.kernels.rwkv_wkv.ops import rwkv_wkv
+from repro_torch.kernels.rwkv_wkv.ref import rwkv_wkv_ref
 from repro_torch.kernels.spec_verify.ops import spec_verify
 from repro_torch.kernels.spec_verify.ref import spec_verify_ref
 
@@ -187,3 +198,84 @@ def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda):
     q, k, v = _flash_inputs(cuda, 1, 64, 4, 2, 128, torch.bfloat16, 0)
     with pytest.raises(ValueError, match="one CUDA device"):
         flash_attention_fwd(q, k.cpu(), v)
+
+
+def _wkv_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    dtype = got.dtype
+    got, want = got.float(), want.float()
+    top = float(want.abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * top)
+    else:
+        torch.testing.assert_close(got, want, rtol=2.0 ** -7,
+                                   atol=1e-3 * top)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,hd,states,with_state", [
+    (2, 8, 64, 64, "all", True),        # rwkv6-7b's verify window
+    (1, 64, 64, 64, "last", True),      # a 64-token prefill chunk
+    (1, 64, 64, 64, "last", False),     # the first chunk, from zero
+    (1, 1000, 8, 64, "none", False),    # a ragged zero-state sequence
+    (3, 5, 8, 32, "all", True)])        # the reduced config's head width
+def test_rwkv_wkv_kernel_matches_plain_on_gpu(cuda, dtype, B, T, H, hd,
+                                              states, with_state):
+    g = torch.Generator(device=cuda).manual_seed(T + hd + B)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    r, k, v = (rn(B, T, H, hd).to(dtype) for _ in range(3))
+    # decays near 1, as the model's exp(-exp(-6 +- ...)) gives
+    w = (1 - 0.02 * torch.rand((B, T, H, hd), generator=g,
+                               device=cuda)).to(dtype)
+    u = rn(H, hd).to(dtype)
+    s0 = rn(B, H, hd, hd) if with_state else None
+    reset_launches()
+    got = rwkv_wkv(r, k, v, w, u, s0, states)
+    assert LAUNCHES["rwkv_wkv"] == 1
+    want = rwkv_wkv_ref(r, k, v, w, u, s0, states)
+    torch.cuda.synchronize()
+    if states == "none":
+        got, want = (got,), (want,)
+    assert got[0].dtype == dtype
+    assert all(a.dtype == torch.float32 for a in got[1:])
+    for a, b in zip(got, want):
+        _wkv_close(a, b)
+
+
+def test_rwkv_full_refuses_a_gradient_on_the_kernel_route(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import RWKV6TimeMix
+    cfg = get_config("rwkv6-7b", reduced=True)
+    p = RWKV6TimeMix.init(torch.Generator(device=cuda).manual_seed(0), cfg,
+                          device=cuda)
+    x = torch.randn((1, 16, cfg.d_model), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        RWKV6TimeMix.full(p, x, cfg)
+    with torch.no_grad():
+        reset_launches()
+        y = RWKV6TimeMix.full(p, x, cfg)
+        assert LAUNCHES["rwkv_wkv"] == 1
+        torch.testing.assert_close(
+            y, RWKV6TimeMix.full(p, x, cfg, use_kernel=False), rtol=1e-4,
+            atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,S,lengths,H,KV,d,window", [
+    (2, 8, 264, (100, 37), 16, 8, 128, 0),    # qwen3-1.7b's solo verify
+    (1, 79, 264, (0,), 16, 8, 128, 0),        # its prompt prefill
+    (2, 8, 2048, (1500, 700), 16, 8, 128, 512),  # a 512-key window
+    (2, 40, 83, (40, 3), 4, 2, 64, 16)])      # ragged S, reduced widths
+def test_decode_attention_kernel_matches_plain_on_gpu(
+        cuda, dtype, B, W, S, lengths, H, KV, d, window):
+    g = torch.Generator(device=cuda).manual_seed(W + S)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda).to(  # noqa
+        dtype)
+    q, k, v = rn(B, W, H, d), rn(B, S, KV, d), rn(B, S, KV, d)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    reset_launches()
+    got = decode_attention(q, k, v, lens, window)
+    assert LAUNCHES["decode_attention"] == 1
+    want = decode_attention_ref(q, k, v, lens, window)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

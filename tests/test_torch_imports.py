@@ -75,3 +75,15 @@ def test_scan_covers_the_training_modules():
             "kernels/flash_attention/kernel.py",
             "kernels/flash_attention/ref.py"} <= names
     assert (PORT / "kernels" / "csrc" / "flash_attention.cu").exists()
+
+
+def test_scan_covers_the_rwkv_and_dense_decode_modules():
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if PORT in p.parents}
+    assert {"configs/rwkv6_7b.py", "models/ssm.py", "nn/core.py",
+            "kernels/rwkv_wkv/ops.py", "kernels/rwkv_wkv/kernel.py",
+            "kernels/rwkv_wkv/ref.py", "kernels/decode_attention/ops.py",
+            "kernels/decode_attention/kernel.py",
+            "kernels/decode_attention/ref.py"} <= names
+    for cu in ("rwkv_wkv.cu", "decode_attention.cu"):
+        assert (PORT / "kernels" / "csrc" / cu).exists()
