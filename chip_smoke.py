@@ -16,7 +16,10 @@ which fails the script when it fails:
    DeepSeek-V3: 128 heads over one latent of width 512 plus a rope key of
    64 for the latent kernel, the writeback kernel on both latent pools,
    the verify kernel at vocab 129,280), with times of the kernel, the
-   plain version and one library call;
+   plain version and one library call; it also logs ptxas's registers,
+   shared memory and spills for the two attention kernels
+   (``build.log``) and the tensor-core (HGMMA, HMMA) instruction count of
+   the flash kernels (``cuobjdump -sass``, or "not available");
 3. serve 4 requests of qwen3-1.7b through ``ServingEngine`` at full width
    (28 layers, bf16, random weights from a seed) on the kernel path, with
    the launch counts of that run and a profile of a shorter one;
@@ -152,6 +155,48 @@ def times(kernel, plain, library, plain_iters=20):
             out[key] = device_ms(fn)
             out["eager_" + key] = eager_ms(fn)
     return out
+
+
+def ptxas_lines(build_log, sources=("flash_attention.cu",
+                                     "decode_attention.cu")):
+    """ptxas's lines for the kernels of ``sources`` in ``build.log``:
+    entry functions, registers, shared memory, spills and warnings."""
+    keep, current = [], None
+    for line in Path(build_log).read_text().splitlines():
+        if line.startswith("== "):
+            current = line.split()[1]
+            continue
+        if current in sources and any(
+                w in line for w in ("Compiling entry", "registers", "spill",
+                                    "arning", "smem")):
+            keep.append(f"{current}: {line.strip()}")
+    return keep
+
+
+def sass_counts(lib):
+    """HGMMA and HMMA instructions in each flash-attention kernel of the
+    built library (``cuobjdump -sass``), or None without ``cuobjdump``."""
+    import os
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or next(
+        (c for c in ("/usr/local/cuda/bin/cuobjdump",) if os.path.exists(c)),
+        None)
+    if tool is None:
+        return None
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "flash_attention_kernel" in fn:
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            continue
+        if fn in counts:
+            for op in ("HGMMA", "HMMA"):
+                counts[fn][op] += len(re.findall(rf"\b{op}\b", line))
+    return counts
 
 
 def bound(nbytes, nops, dtype):
@@ -1447,6 +1492,15 @@ def main(argv=None) -> int:
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("  " + line.strip())
+    report["ptxas"] = ptxas_lines(lib.parent / "build.log")
+    log("ptxas, flash_attention and decode_attention:")
+    for line in report["ptxas"]:
+        log("  " + line)
+    report["sass"] = sass_counts(lib)
+    if report["sass"] is None:
+        log("SASS of flash_attention: not available (no cuobjdump)")
+    for fn, n in (report["sass"] or {}).items():
+        log(f"SASS of {fn}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA")
     gen = torch.Generator(device=dev).manual_seed(0)
     sv = check_spec_verify(dev, gen)
     pd, pd_err = check_paged_decode(dev, gen)

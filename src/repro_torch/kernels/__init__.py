@@ -4,7 +4,10 @@ Every kernel lives in ``csrc/*.cu`` behind a plain C interface. At first
 use the sources are compiled for Hopper with ``nvcc`` (one process per
 source, all started together, then one link) into a shared library under
 ``build/repro_torch/<hash of the sources and flags>/`` at the root of the
-checkout, and loaded with ``ctypes``. Nothing is built or imported at
+checkout, and loaded with ``ctypes``. The one ``libcuda`` function a
+kernel needs (``cuTensorMapEncodeTiled``, for TMA) is looked up at run
+time with ``dlsym`` in the ``libcuda.so.1`` the process holds, so nothing
+links ``libcuda``. Nothing is built or imported at
 module import: the CPU tests import every module on a machine without
 ``nvcc``.
 
@@ -93,7 +96,7 @@ def build() -> Path:
     tmp = out_dir / f"libkernels.{os.getpid()}.so"
     link = subprocess.run(
         [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
-         "-o", str(tmp), *[str(o) for _, o, _ in procs]],
+         "-o", str(tmp), *[str(o) for _, o, _ in procs], "-ldl"],
         capture_output=True, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")

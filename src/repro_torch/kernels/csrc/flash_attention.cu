@@ -18,64 +18,75 @@
 // Bound on the H100: operations. At qwen3-1.7b's training shape (B = 2,
 // T = 2048, 16 query heads of width 128) the causal work is 34.4 GFLOP
 // against ~50 MB of q, k, v, o and lse: about 35 us at the bf16 tensor-core
-// rate, 15 us at the memory rate. This kernel runs its products on the
-// CUDA cores in float32 (67 TFLOP/s peak), so 0.51 ms is its own floor;
-// tensor cores (mma / wgmma), TMA and warp specialisation are the later
-// redesign.
+// rate, 15 us at the memory rate.
 //
-// Design (simple first): one CTA of 256 threads per (64-row query tile,
-// query head, sequence); the reference's sequential grid axis over key
-// tiles becomes a loop inside the CTA, from the first tile the sliding
-// window can reach to the tile holding the last query row, so tiles wholly
-// above the diagonal or below the window are never visited. The CTAs of
-// the longest rows are issued first. Per 64-key tile: K and V are staged in
-// shared memory as float32; each thread computes a 4 x 4 block of the
-// 64 x 64 scores (rows ty + 16i, keys tx + 16j, so a warp reads conflict-
-// free rows of the padded tiles); four threads per row update its running
-// max and sum and turn the scores into probabilities; each thread then
-// rescales and accumulates 4 rows x 8 columns of p @ V in registers. The
-// ragged tail (T not a multiple of 64) is handled in the kernel: rows and
-// keys past T are staged as zeros, masked, and never written.
+// bfloat16 (the training path): a Hopper tensor-core kernel. One CTA of
+// three warpgroups per (128-row query tile, query head, sequence), the
+// tiles with the most keys first. Warpgroup 0 is the producer: one
+// thread starts the TMA loads of the Q tile and of a two-stage ring of
+// 128-key K and V tiles (4-D tensor maps over (d, heads, T, B), so rows
+// past T arrive as zeros; 128-byte swizzle, a 128-wide head as two 64-wide
+// boxes), each stage behind a full and an empty mbarrier; it then gives
+// its registers to the consumers (setmaxnreg). Warpgroups 1 and 2 each own
+// 64 query rows: S = Q K^T by wgmma from shared memory (both K-major), the
+// mask, the online softmax in float32 registers (exp2 of pre-scaled
+// scores), then O += P V by wgmma with P as the register A operand and V
+// from shared memory (MN-major, the transpose bit). Key tiles wholly above
+// the diagonal or below the window are never loaded; keys past T are
+// masked like the causal ones.
+//
+// P V stays float32-exact: the reference multiplies float32 p by v. P
+// rounded to bfloat16 before the product (as SDPA does) parts from it by
+// up to 20x the output's one-ulp tolerance; so P is split into
+// hi = bf16(p) and lo = bf16(p - hi) and both are multiplied by V (bf16,
+// exact) into the float32 accumulator: 1.5x the tensor-core work of a
+// plain flash attention (a ~52 us floor at peak), and the output agrees
+// with the float32 plain version to one output rounding. Q K^T from bf16
+// inputs with float32 accumulation equals the float32 product up to
+// summation order.
+//
+// float32: the tensor cores' float32 path is TF32 (10-bit mantissa), which
+// cannot meet the float32 tolerance (1e-5), so float32 inputs keep the
+// CUDA-core kernel: one CTA of 256 threads per (64-row query tile, query
+// head, sequence), K and V staged in shared memory as float32 64 keys at a
+// time, the scores and p V as float32 fmaf, bound by the CUDA cores' 67
+// TFLOP/s. Only tests and the plain parity paths call it.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
 constexpr int kD = 128;            // head width, compiled in
-constexpr int kBQ = 64;            // query rows per CTA
-constexpr int kBK = 64;            // keys per shared-memory tile
-constexpr int kThreads = 256;
-constexpr int kQP = kD + 1;        // padded row of the Q and K tiles
-constexpr int kPP = kBK + 1;       // padded row of the score tile
 constexpr float kNeg = -1.0e30f;   // running-max start, as the reference
-
-constexpr size_t kSmemFloats =
-    (size_t)kBQ * kQP + (size_t)kBK * kQP + (size_t)kBK * kD +
-    (size_t)kBQ * kPP + 3 * kBQ;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ bool visible(int kpos, int qpos, int T,
                                         int window) {
   return kpos <= qpos && kpos < T && (window <= 0 || kpos > qpos - window);
 }
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// float32: CUDA-core kernel
+// ---------------------------------------------------------------------------
+namespace f32 {
+
+constexpr int kBQ = 64;            // query rows per CTA
+constexpr int kBK = 64;            // keys per shared-memory tile
+constexpr int kThreads = 256;
+constexpr int kQP = kD + 1;        // padded row of the Q and K tiles
+constexpr int kPP = kBK + 1;       // padded row of the score tile
+
+constexpr size_t kSmemFloats =
+    (size_t)kBQ * kQP + (size_t)kBK * kQP + (size_t)kBK * kD +
+    (size_t)kBQ * kPP + 3 * kBQ;
+
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
                        float* __restrict__ lse, int Tn, int H, int KV,
                        int window, float scale) {
   // the last query tile (the most keys) first
@@ -98,14 +109,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const size_t q_stride = (size_t)H * kD;     // between positions
   const size_t kv_stride = (size_t)KV * kD;
-  const T* qb = q + ((size_t)b * Tn * H + h) * kD;
-  const T* kb = k + ((size_t)b * Tn * KV + hk) * kD;
-  const T* vb = v + ((size_t)b * Tn * KV + hk) * kD;
+  const float* qb = q + ((size_t)b * Tn * H + h) * kD;
+  const float* kb = k + ((size_t)b * Tn * KV + hk) * kD;
+  const float* vb = v + ((size_t)b * Tn * KV + hk) * kD;
 
   for (int i = tid; i < kBQ * kD; i += kThreads) {
     const int r = i / kD, c = i % kD;
     const int pos = q0 + r;
-    q_s[r * kQP + c] = pos < Tn ? to_f(qb[pos * q_stride + c]) : 0.f;
+    q_s[r * kQP + c] = pos < Tn ? qb[pos * q_stride + c] : 0.f;
   }
   if (tid < kBQ) {
     m_s[tid] = kNeg;
@@ -129,8 +140,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / kD, c = i % kD;
       const int pos = k0 + r;
       const bool in = pos < Tn;
-      k_s[r * kQP + c] = in ? to_f(kb[pos * kv_stride + c]) : 0.f;
-      v_s[r * kD + c] = in ? to_f(vb[pos * kv_stride + c]) : 0.f;
+      k_s[r * kQP + c] = in ? kb[pos * kv_stride + c] : 0.f;
+      v_s[r * kD + c] = in ? vb[pos * kv_stride + c] : 0.f;
     }
     __syncthreads();
     // scores of rows ty + 16i against keys tx + 16j
@@ -207,7 +218,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   // l_s and m_s were last written before the final __syncthreads
-  T* ob = o + ((size_t)b * Tn * H + h) * kD;
+  float* ob = o + ((size_t)b * Tn * H + h) * kD;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -216,33 +227,419 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv_l = 1.f / fmaxf(l_s[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      ob[pos * q_stride + tx + 16 * j] = from_f<T>(acc[i][j] * inv_l);
+      ob[pos * q_stride + tx + 16 * j] = acc[i][j] * inv_l;
   }
   if (tid < kBQ && q0 + tid < Tn)
     lse[((size_t)b * H + h) * Tn + q0 + tid] =
         m_s[tid] + logf(l_s[tid]);
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int Tn, int H, int KV, int window, float scale,
            cudaStream_t stream) {
   const size_t bytes = kSmemFloats * sizeof(float);
-  auto kern = flash_attention_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(err);
   }
   dim3 grid((Tn + kBQ - 1) / kBQ, H, B);
-  kern<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Tn, H, KV, window,
+  flash_attention_kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Tn, H, KV,
+      window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor-core kernel (TMA, wgmma, warp specialisation)
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kBM = 128;           // query rows per CTA (two warpgroups)
+constexpr int kBN = 128;           // keys per K/V tile
+constexpr int kStages = 2;         // K/V ring depth
+constexpr int kThreads = 384;      // producer + two consumer warpgroups
+constexpr int kBox = 64;           // bf16 columns per 128-byte swizzled row
+constexpr int kHalfBytes = kBN * kBox * 2;       // one 64-column box: 16 KB
+constexpr int kTileBytes = 2 * kHalfBytes;       // a 128-wide tile: 32 KB
+constexpr int kQOff = 0;
+constexpr int kKOff = kTileBytes;                // K of stage s at + s*2*tile
+constexpr int kBarOff = kTileBytes + kStages * 2 * kTileBytes;
+constexpr int kSmemBytes = kBarOff + 64 + 1024;  // barriers, 1 KB alignment
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// waits until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle. K-major operands (Q,
+// K): rows of 128 bytes, 8-row groups ``sbo`` = 1024 bytes apart, ``lbo``
+// unused. MN-major (V): ``lbo`` = the distance between the two 64-column
+// boxes of a 128-wide row, ``sbo`` = 1024 between groups of 8 keys.
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of an accumulator across the
+// asynchronous wgmma that reads or writes it
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define ACC8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define ACC64                                                          \
+  ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),  \
+      ACC8(56)
+#define D64                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "  \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "  \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, float32) (+)= A (64 x 16, shared, K-major) B (16 x 128,
+// shared, K-major); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC64
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, float32) += A (64 x 16, registers) B (16 x 128, shared,
+// MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int Tn, int H, int KV,
+                       int window, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint8_t* q_s = smem + kQOff;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;              // kStages
+  uint64_t* empty = bars + 1 + kStages;   // kStages
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tile = gridDim.z - 1 - blockIdx.z;   // the most keys first
+  const int hk = h / (H / KV);
+  const int q0 = tile * kBM;
+  const int q_last = min(q0 + kBM - 1, Tn - 1);
+  const int kt_lo = (window > 0 ? max(0, q0 - window + 1) : 0) / kBN;
+  const int n_tiles = q_last / kBN - kt_lo + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the TMA loads in flight ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, kTileBytes);
+      tma_load(q_s, &tq, q_full, 0, h, q0, b);
+      tma_load(q_s + kHalfBytes, &tq, q_full, kBox, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        const int ph = (i / kStages) & 1;
+        const int k0 = (kt_lo + i) * kBN;
+        uint8_t* k_s = smem + kKOff + st * 2 * kTileBytes;
+        uint8_t* v_s = k_s + kTileBytes;
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_expect_tx(&full[st], 2 * kTileBytes);
+        tma_load(k_s, &tk, &full[st], 0, hk, k0, b);
+        tma_load(k_s + kHalfBytes, &tk, &full[st], kBox, hk, k0, b);
+        tma_load(v_s, &tv, &full[st], 0, hk, k0, b);
+        tma_load(v_s + kHalfBytes, &tv, &full[st], kBox, hk, k0, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = wg - 1;                     // 0 or 1
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    // this thread's rows: row0 + 8 r for r = 0, 1
+    const int row0 = q0 + cw * 64 + warp * 16 + lane / 4;
+    const int col0 = 2 * (lane % 4);           // + 8 c + (0, 1)
+    const int wg_lo = q0 + cw * 64;            // this warpgroup's rows
+    const int wg_hi = wg_lo + 63;
+    const float sl2 = scale * kLog2e;          // scores in log2 units
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+    const uint8_t* qa = q_s + cw * 64 * 128;   // 64 rows of each box
+    mbar_wait(q_full, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages;
+      const int ph = (i / kStages) & 1;
+      const int k0 = (kt_lo + i) * kBN;
+      const uint8_t* k_s = smem + kKOff + st * 2 * kTileBytes;
+      const uint8_t* v_s = k_s + kTileBytes;
+      mbar_wait(&full[st], ph);
+
+      // S = Q K^T: 8 steps of 16 along d, 4 in each 64-column box
+      float s[64];
+      fence_regs(s);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        const int off = (ks / 4) * kHalfBytes + (ks % 4) * 32;
+        wgmma_ss(s, desc(qa + off, 0, 1024), desc(k_s + off, 0, 1024),
+                 ks > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+
+      // mask, online softmax (log2 units), rescale of the accumulator
+      const bool masked = k0 + kBN - 1 > wg_lo || k0 + kBN > Tn ||
+                          (window > 0 && k0 <= wg_hi - window);
+      float mc[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int j = 0; j < 64; ++j) {
+        const int r = (j >> 1) & 1;
+        float x = s[j] * sl2;
+        if (masked) {
+          const int kpos = k0 + 8 * (j >> 2) + col0 + (j & 1);
+          if (!visible(kpos, row0 + 8 * r, Tn, window)) x = kNeg;
+        }
+        s[j] = x;
+        mc[r] = fmaxf(mc[r], x);
+      }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 1));
+        mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 2));
+        const float m_new = fmaxf(m[r], mc[r]);
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+      }
+      // P as the A operand of the next product, split hi + lo: register
+      // e of k-step kk holds columns 16 kk + ... of elements
+      // s[8 kk + 2 e], s[8 kk + 2 e + 1], the accumulator's own order
+      uint32_t phi[8][4], plo[8][4];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = e & 1;
+        float p0 = s[2 * e] == kNeg ? 0.f : exp2f(s[2 * e] - m[r]);
+        float p1 =
+            s[2 * e + 1] == kNeg ? 0.f : exp2f(s[2 * e + 1] - m[r]);
+        sum[r] += p0 + p1;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        const float2 hf = __bfloat1622float2(hi);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+        phi[e / 4][e % 4] = pack_bf16(hi);
+        plo[e / 4][e % 4] = pack_bf16(lo);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = l[r] * alpha[r] + sum[r];
+      }
+#pragma unroll
+      for (int j = 0; j < 64; ++j) acc[j] *= alpha[(j >> 1) & 1];
+
+      // O += P_hi V + P_lo V: 8 steps of 16 keys, each 16 rows of V
+      fence_regs(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t dv = desc(v_s + kk * 16 * 128, kHalfBytes, 1024);
+        wgmma_rs(acc, phi[kk], dv);
+        wgmma_rs(acc, plo[kk], dv);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(acc);
+      mbar_arrive(&empty[st]);
+    }
+
+    // epilogue: o = acc / l in bf16, lse = m ln 2 + log l
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int pos = row0 + 8 * r;
+      if (pos >= Tn) continue;
+      const float inv_l = 1.f / fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* orow = o + (((size_t)b * Tn + pos) * H + h) * kD;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int j = 4 * c + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c + col0) =
+            __floats2bfloat162_rn(acc[j] * inv_l, acc[j + 1] * inv_l);
+      }
+      if (lane % 4 == 0)
+        lse[((size_t)b * H + h) * Tn + pos] = m[r] * kLn2 + logf(l[r]);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda: looked up in the libcuda.so.1
+// the process already holds, so the build links no libcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(
+          dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// (B, T, heads, 128) bf16 as a 4-D map (d, heads, T, B) of 64 x 128-row
+// boxes, 128-byte swizzle, rows past T read as zeros
+int make_map(CUtensorMap* map, const void* ptr, int heads, int Tn, int B) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)heads,
+                              (cuuint64_t)Tn, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)kD * 2,
+                                 (cuuint64_t)heads * kD * 2,
+                                 (cuuint64_t)Tn * heads * kD * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kBox, 1, (cuuint32_t)kBN, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Tn, int H, int KV, int window, float scale,
+           cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, H, Tn, B);
+  if (err == 0) err = make_map(&tk, k, KV, Tn, B);
+  if (err == 0) err = make_map(&tv, v, KV, Tn, B);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(e);
+  }
+  dim3 grid(H, B, (Tn + kBM - 1) / kBM);
+  flash_attention_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Tn, H, KV, window,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace tc
 
 }  // namespace
 
@@ -257,10 +654,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (D != kD || KV <= 0 || H % KV != 0 || Tn <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch<float>(q, k, v, o, lse, B, Tn, H, KV, window, scale,
-                         stream);
+    return f32::launch(q, k, v, o, lse, B, Tn, H, KV, window, scale,
+                       stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, lse, B, Tn, H, KV, window,
-                                 scale, stream);
+    return tc::launch(q, k, v, o, lse, B, Tn, H, KV, window, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,18 +2,38 @@
 cache of the solo sampler (``GQAttention.window``).
 
 GQA is handled by grouping the G query heads of one kv head into rows
-``w*G + g``, so the cache is read in place and never repeated (the
-reference's op ``jnp.repeat``s it). CPU tensors take the plain version in
-``ref.py``; CUDA tensors launch the kernel or raise: there is no fallback.
+``w*G + g``, read and written by the kernel in the model's ``(B, W, H, d)``
+layout, so neither the queries, the output nor the cache is copied or
+repeated (the reference's op ``jnp.repeat``s the cache). CPU tensors take
+the plain version in ``ref.py``; CUDA tensors launch the kernel or raise:
+there is no fallback.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+from repro_torch.kernels.decode_attention.kernel import (ROWS,
+                                                         decode_attention_cuda)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 HEAD_DIMS = (64, 128)   # the widths the kernel is compiled for
+SPLIT_TARGET = 132      # CTAs a call aims for: one per SM of the H100
+MIN_SPLIT_KEYS = 64     # the fewest keys per split of a tile's widest span
+MAX_SPLITS = 64         # the kernel's merge holds this many partials a row
+
+
+def split_plan(S: int, W: int, G: int, KV: int, B: int, window: int = 0):
+    """(n_tiles, n_splits) of a call: its ``W * G`` query rows per kv head
+    in tiles of ``ROWS``, and the number of key splits each tile's visible
+    keys are shared out over (each split takes an even share of them,
+    counted on the device from the lengths). Chosen from what the host
+    knows, never from the lengths: enough CTAs to fill the card, and no
+    more splits than a tile's widest possible span (all S keys, or the
+    window plus the tile's positions) fills at ``MIN_SPLIT_KEYS`` each."""
+    n_tiles = -(-W * G // ROWS)
+    span = S if window <= 0 else min(S, window + 15 // G + 1)
+    want = -(-SPLIT_TARGET // (n_tiles * KV * B))
+    return n_tiles, max(1, min(want, -(-span // MIN_SPLIT_KEYS), MAX_SPLITS))
 
 
 def decode_attention(q, k, v, lengths, window: int = 0):
@@ -39,12 +59,11 @@ def decode_attention(q, k, v, lengths, window: int = 0):
         raise ValueError(f"decode_attention: unsupported shapes q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}, lengths {tuple(lengths.shape)}")
-    KV = k.shape[2]
-    G = H // KV
-    qg = (q.reshape(B, W, KV, G, d).permute(0, 2, 1, 3, 4)
-          .reshape(B, KV, W * G, d).contiguous())
-    out = decode_attention_cuda(qg, k.contiguous(), v.contiguous(),
-                                lengths.to(torch.int32).contiguous(), G=G,
-                                window=window, scale=1.0 / d ** 0.5)
-    return (out.reshape(B, KV, W, G, d).permute(0, 2, 1, 3, 4)
-            .reshape(B, W, H, d))
+    if lengths.dtype not in (torch.int32, torch.int64):
+        lengths = lengths.to(torch.int32)
+    S, KV = k.shape[1], k.shape[2]
+    n_tiles, n_splits = split_plan(S, W, H // KV, KV, B, window)
+    return decode_attention_cuda(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), lengths.contiguous(),
+                                 window=window, scale=1.0 / d ** 0.5,
+                                 n_tiles=n_tiles, n_splits=n_splits)

@@ -18,6 +18,12 @@ attention outputs 2e-5 (float32 softmax sums in another order); the
 sampler's ``row_stats``, tokens and windows bitwise under the same noise,
 whole generations under the margin rule with tolerance 1e-4.
 
+The dense flash-decode kernel's split-key plan (``ops.split_plan``) and
+its chunk-and-merge arithmetic are emulated in float32 torch ops and held
+within 1e-6 against the plain version and the Pallas kernel: chunks with no
+visible key, a row of length 0, several row tiles, chunks that do not
+divide the keys.
+
 The CUDA kernels are held against these plain versions on the card by
 ``tests/test_torch_gpu.py``.
 """
@@ -40,7 +46,9 @@ from repro_torch.checkpoint.io import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.engine.agreement import check_token_agreement, top2_margin
 from repro_torch.engine.spec_decode import PredictiveSampler, verify_round
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.kernel import ROWS
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      split_plan)
 from repro_torch.kernels.rwkv_wkv.ops import rwkv_wkv
 
 CPU = torch.device("cpu")
@@ -107,6 +115,93 @@ def test_decode_attention_plain_matches_pallas(W, window, S):
     got = decode_attention(*map(_t, (q, k, v, lengths)), window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                atol=2e-5)
+
+
+def _split_decode(q, k, v, lengths, window):
+    """decode_attention.cu's arithmetic in float32 torch ops, on the plan
+    ``split_plan`` gives the wrapper: per (sequence, kv head, row tile of
+    ``ROWS`` w-major rows) the keys some row sees, [lo, hi], from the
+    length; each split's even share of them, scored 32 keys at a time with
+    an online softmax; the partials (m, l, acc) merged by weighing those
+    with l > 0. Returns (out, number of empty chunks, n_tiles, n_splits)."""
+    B, W, H, d = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    n_tiles, n_splits = split_plan(S, W, G, KV, B, window)
+    out = torch.zeros((B, W, H, d))
+    empty = 0
+    for b in range(B):
+        L = int(lengths[b])
+        for h in range(KV):
+            for tile in range(n_tiles):
+                r0 = tile * ROWS
+                nr = min(ROWS, W * G - r0)
+                rows = torch.arange(r0, r0 + nr)
+                w, hq = rows // G, h * G + rows % G
+                qr, qpos = q[b, w, hq].float(), L + w
+                hi = min(L + (r0 + nr - 1) // G, S - 1)
+                lo = max(0, L + r0 // G - window + 1) if window > 0 else 0
+                per = -(-max(0, hi - lo + 1) // n_splits)
+                ms, ls, accs = [], [], []
+                for s in range(n_splits):
+                    c_lo = lo + s * per
+                    c_hi = min(hi, c_lo + per - 1)
+                    m = torch.full((nr,), -1e30)
+                    l, acc = torch.zeros(nr), torch.zeros((nr, d))
+                    empty += c_lo > c_hi
+                    for k0 in range(c_lo, c_hi + 1, 32):
+                        kp = torch.arange(k0, min(k0 + 32, c_hi + 1))
+                        vis = kp[None] <= qpos[:, None]
+                        if window > 0:
+                            vis &= kp[None] > qpos[:, None] - window
+                        x = torch.where(
+                            vis, (qr @ k[b, kp, h].float().T) / d ** 0.5,
+                            torch.tensor(-1e30))
+                        m_new = torch.maximum(m, x.amax(1))
+                        p = torch.where(vis, torch.exp(x - m_new[:, None]),
+                                        0.0)
+                        alpha = torch.exp(m - m_new)
+                        l = alpha * l + p.sum(1)
+                        acc = acc * alpha[:, None] + p @ v[b, kp, h].float()
+                        m = m_new
+                    ms.append(m if c_lo <= c_hi
+                              else torch.full((nr,), -float("inf")))
+                    ls.append(l)
+                    accs.append(acc)
+                m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+                live = l > 0
+                top = torch.where(live, m, -float("inf")).amax(0)
+                wt = torch.where(live, torch.exp(m - top), 0.0)
+                o = (wt[..., None] * acc).sum(0) / torch.clamp(
+                    (wt * l).sum(0), min=1e-30)[:, None]
+                out[b, w, hq] = o
+    return out.to(q.dtype), empty, n_tiles, n_splits
+
+
+@pytest.mark.parametrize("W,window,S,lengths,tiles,splits,empty", [
+    (1, 0, 300, (0, 5), 1, 5, 12),        # length 0: one key, 4 empty
+    (8, 0, 300, (250, 37), 1, 5, 0),      # shares of 52 and 9 keys
+    (79, 0, 200, (1, 100), 10, 4, 2),     # 10 row tiles; 9 keys over 4
+    (8, 100, 300, (250, 3), 1, 2, 0),     # a window, chunks of 54 keys
+    (40, 16, 83, (43, 3), 5, 1, 0)])      # one split: no merge
+def test_decode_split_and_merge_matches_plain_and_pallas(
+        W, window, S, lengths, tiles, splits, empty):
+    rng = np.random.default_rng(W + window + S)
+    B, H, KV, d = 2, 4, 2, 64
+    q = rng.standard_normal((B, W, H, d)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, d)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, d)).astype(np.float32)
+    lens = np.array(lengths, np.int32)
+    got, n_empty, n_tiles, n_splits = _split_decode(
+        *map(_t, (q, k, v, lens)), window)
+    assert (n_tiles, n_splits, n_empty) == (tiles, splits, empty)
+    want = decode_attention(*map(_t, (q, k, v, lens)), window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    pallas = jax_decode_attention(*map(jnp.asarray, (q, k, v, lens)),
+                                  window=window, block_k=16, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=1e-6,
+                               atol=1e-6)
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,12 @@ against a float64 numpy oracle; gradients 5e-5 against ``jax.grad`` of the
 reference's plain version (each gradient is a sum over up to 40 keys or
 queries of float32 products, computed in another order). The op's own
 backward is exact to float64 rounding (``gradcheck``).
+
+The bf16 CUDA kernel's rounding is emulated here in torch ops and held
+within the card test's tolerance (output 1e-4 + 2^-7 |want|: one bf16
+output rounding apart; the float32 log-sum-exp 1e-4) against the plain
+version and the reference's plain op; the emulation with P rounded to bf16
+alone must break that tolerance.
 """
 import jax
 import jax.numpy as jnp
@@ -22,7 +28,8 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_fwd)
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (causal_mask,
+                                                     flash_attention_ref)
 
 B, H, KV, D = 2, 4, 2, 32
 
@@ -134,3 +141,64 @@ def test_shape_errors_raise():
         flash_attention_fwd(q, k[:, :4], v[:, :4])
     with pytest.raises(ValueError):
         flash_attention_fwd(q[:, :, :3], k, v)          # 3 heads over 2
+
+
+def _tensor_core_flash(q, k, v, window, split_p):
+    """The bf16 kernel's arithmetic (csrc/flash_attention.cu, tc::): float32
+    scores of the bf16 inputs, an online softmax in float32 over 128-key
+    tiles, P fed to the P V product as bf16 hi = bf16(p) plus lo =
+    bf16(p - hi), two products accumulated in float32 (with ``split_p``
+    False: P rounded to bf16 alone, as SDPA does), and one bf16 rounding of
+    the output. Returns (o (B, T, H, d) bf16, lse (B, H, T) float32)."""
+    B, T, H, d = q.shape
+    G = H // k.shape[2]
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    s_all = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / d ** 0.5
+    pos = torch.arange(T)
+    mask = causal_mask(pos, pos, window)
+    neg = torch.tensor(-1e30)
+    m = torch.full((B, H, T), -1e30)
+    l = torch.zeros((B, H, T))
+    acc = torch.zeros((B, H, T, d))
+    for k0 in range(0, T, 128):
+        mk = mask[:, k0:k0 + 128]
+        s = torch.where(mk, s_all[..., k0:k0 + 128], neg)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(mk, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        vt = vf[:, :, k0:k0 + 128]
+        hi = p.bfloat16().float()
+        pv = hi @ vt + (p - hi).bfloat16().float() @ vt if split_p \
+            else hi @ vt
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    o = (acc / l[..., None]).permute(0, 2, 1, 3).to(torch.bfloat16)
+    return o, m + torch.log(l)
+
+
+def _beyond(got, want):
+    """How many outputs lie beyond the card's bf16 tolerance."""
+    err = (got.float() - want.float()).abs()
+    return int((err > 1e-4 + 2.0 ** -7 * want.float().abs()).sum())
+
+
+@pytest.mark.parametrize("window", [0, 128])
+@pytest.mark.parametrize("T", [512, 1000])
+def test_tensor_core_rounding_keeps_the_card_tolerance(T, window):
+    """qwen3-1.7b's head width (128), 4 query heads over 2 kv heads, bf16
+    inputs from a seed; T = 1000 leaves a ragged last tile."""
+    rng = np.random.default_rng(T + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, T, h, 128)).astype(
+        np.float32)).bfloat16() for h in (4, 2, 2))
+    o, lse = _tensor_core_flash(q, k, v, window, split_p=True)
+    want, lse_want = flash_attention_ref(q, k, v, window)
+    jax_want = np.asarray(jax_flash(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)), window=window,
+        use_kernel=False))
+    assert _beyond(o, want) == 0
+    assert _beyond(o, torch.from_numpy(jax_want)) == 0
+    torch.testing.assert_close(lse, lse_want, rtol=1e-4, atol=1e-4)
+    o_bf16_p, _ = _tensor_core_flash(q, k, v, window, split_p=False)
+    assert _beyond(o_bf16_p, want) > 0

@@ -143,7 +143,13 @@ def _flash_inputs(cuda, B, T, H, KV, d, dtype, seed):
     (2, 512, 16, 8, 0),        # qwen3-1.7b's heads
     (1, 1000, 4, 2, 0),        # a ragged length (not a multiple of 64)
     (1, 777, 16, 8, 512),      # gemma3-1b's sliding window, ragged
-    (3, 64, 8, 8, 0)])         # one tile, no grouping
+    (3, 64, 8, 8, 0),          # one tile, no grouping
+    (2, 2048, 16, 8, 0),       # qwen3-1.7b's training shape
+    (1, 1, 16, 8, 0),          # one position
+    (2, 17, 16, 8, 0),         # shorter than one 128-row tile
+    (1, 129, 16, 8, 0),        # one row past a 128-row tile
+    (2, 300, 8, 8, 0),         # no grouping, ragged
+    (1, 2048, 16, 8, 512)])    # a 512-key window
 def test_flash_attention_kernel_matches_plain_on_gpu(cuda, dtype, B, T, H,
                                                      KV, window):
     q, k, v = _flash_inputs(cuda, B, T, H, KV, 128, dtype, T + window)
@@ -265,7 +271,11 @@ def test_rwkv_full_refuses_a_gradient_on_the_kernel_route(cuda):
     (2, 8, 264, (100, 37), 16, 8, 128, 0),    # qwen3-1.7b's solo verify
     (1, 79, 264, (0,), 16, 8, 128, 0),        # its prompt prefill
     (2, 8, 2048, (1500, 700), 16, 8, 128, 512),  # a 512-key window
-    (2, 40, 83, (40, 3), 4, 2, 64, 16)])      # ragged S, reduced widths
+    (2, 40, 83, (40, 3), 4, 2, 64, 16),       # ragged S, reduced widths
+    (2, 8, 2048, (1500, 3), 16, 8, 128, 0),   # 9 splits, short row's empty
+    (2, 8, 2048, (1000, 1000), 16, 8, 128, 16),  # one split, no merge
+    (1, 1, 2048, (0,), 16, 8, 128, 0),        # every split empty but one
+    (1, 255, 264, (0,), 16, 8, 128, 0)])      # the longest prompt prefill
 def test_decode_attention_kernel_matches_plain_on_gpu(
         cuda, dtype, B, W, S, lengths, H, KV, d, window):
     g = torch.Generator(device=cuda).manual_seed(W + S)
@@ -279,3 +289,32 @@ def test_decode_attention_kernel_matches_plain_on_gpu(
     want = decode_attention_ref(q, k, v, lens, window)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_decode_attention_ticket_counters_reset_on_gpu(cuda):
+    """Two calls in a row, then the same call captured in a CUDA graph and
+    replayed three times: each gives the first call's output bitwise (the
+    merge order is fixed), and the ticket counters are all 0 after. The
+    lengths are int64, as the solo sampler passes them."""
+    from repro_torch.kernels.decode_attention.kernel import _COUNTER_BUFS
+    g = torch.Generator(device=cuda).manual_seed(5)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda).to(  # noqa
+        torch.bfloat16)
+    q, k, v = rn(2, 8, 16, 128), rn(2, 2048, 8, 128), rn(2, 2048, 8, 128)
+    lens = torch.tensor([1500, 3], device=cuda)
+    reset_launches()
+    first = decode_attention(q, k, v, lens)
+    second = decode_attention(q, k, v, lens)
+    assert LAUNCHES["decode_attention"] == 2
+    assert torch.equal(first, second)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = decode_attention(q, k, v, lens)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+    assert int(_COUNTER_BUFS[q.device].abs().sum()) == 0
+    torch.testing.assert_close(first.float(), decode_attention_ref(
+        q, k, v, lens).float(), rtol=1e-2, atol=1e-2)
