@@ -17,12 +17,14 @@ which fails the script when it fails:
    64 for the latent kernel, the writeback kernel on both latent pools,
    the verify kernel at vocab 129,280), with times of the kernel, the
    plain version and one library call; it also logs ptxas's registers,
-   shared memory and spills for the two attention kernels
-   (``build.log``) and the tensor-core (HGMMA, HMMA) instruction count of
-   the flash kernels (``cuobjdump -sass``, or "not available");
+   shared memory and spills for the flash, dense-decode, paged-decode and
+   paged-write kernels (``build.log``) and the tensor-core (HGMMA, HMMA)
+   instruction count of the flash kernels (``cuobjdump -sass``, or "not
+   available");
 3. serve 4 requests of qwen3-1.7b through ``ServingEngine`` at full width
    (28 layers, bf16, random weights from a seed) on the kernel path, with
-   the launch counts of that run and a profile of a shorter one;
+   the launch counts of that run (one paged_decode launch per layer per
+   verify round and prefill chunk) and a profile of a shorter one;
 4. a shorter qwen run on the gather fallback (``use_attention_kernel=
    False``), which is the path of the writeback kernel;
 5. token agreement of phase 3's requests with the port's solo sampler under
@@ -63,7 +65,7 @@ zero-state forms at rwkv6-7b's widths; and the dense flash-decode kernel at
 qwen3-1.7b's solo verify and prefill shapes and a 512-key sliding window.
 
 The second line from the end is a JSON object with one entry per kernel
-(seven);
+(seven; paged_decode's also carries its 64-wide prefill row);
 the last line is ``{"ok": true, "device": {...}}``. ``--report PATH``
 also writes every number measured to PATH as JSON.
 """
@@ -158,7 +160,8 @@ def times(kernel, plain, library, plain_iters=20):
 
 
 def ptxas_lines(build_log, sources=("flash_attention.cu",
-                                     "decode_attention.cu")):
+                                     "decode_attention.cu", "paged_decode.cu",
+                                     "paged_write.cu")):
     """ptxas's lines for the kernels of ``sources`` in ``build.log``:
     entry functions, registers, shared memory, spills and warnings."""
     keep, current = [], None
@@ -1493,7 +1496,8 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("  " + line.strip())
     report["ptxas"] = ptxas_lines(lib.parent / "build.log")
-    log("ptxas, flash_attention and decode_attention:")
+    log("ptxas, flash_attention, decode_attention, paged_decode and "
+        "paged_write:")
     for line in report["ptxas"]:
         log("  " + line)
     report["sass"] = sass_counts(lib)
@@ -1543,6 +1547,11 @@ def main(argv=None) -> int:
         f"per token), launches {launches}")
     if launches["spec_verify"] <= 0 or launches["paged_decode"] <= 0:
         raise AssertionError(f"kernel path not taken: {launches}")
+    passes = m["verify_passes"] + m["prefill_calls"]
+    if launches["paged_decode"] != cfg.n_layers * passes:
+        raise AssertionError(
+            f"paged_decode launched {launches['paged_decode']} times, not "
+            f"once per layer per pass ({cfg.n_layers} x {passes})")
     report["serve"] = {"metrics": m, "wall_s": wall, "launches": launches}
     report["profile"] = profile_serve(cfg, params, dev)
 
@@ -1626,6 +1635,10 @@ def main(argv=None) -> int:
             "library_ms": row["library_ms"],
             "eager_ms": row["eager_ms"], "eager_plain_ms": row["eager_plain_ms"],
             "eager_library_ms": row["eager_library_ms"]})
+    pd_entry = next(e for e in entries if e["name"] == "paged_decode")
+    pd_entry["prefill"] = {k: pd["prefill"][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "max_abs_err")}
     report["kernels"] = entries
     if args.report:
         path = Path(args.report)

@@ -5,245 +5,206 @@
 // paged_decode_kernel (_paged_kernel with latent=False, _merge_window,
 // _pool_out_map).
 //
-// Computes, for each sequence b and kv head h, the attention of the G*W
-// grouped query rows (row r = g*W + w, query position lengths[b] + w) over
-// the keys reached through the block table tables[b, :], where the W fresh
-// window rows k_new/v_new[b] take the place of pool slots at logical
-// positions [lengths[b], lengths[b] + W). Those merged rows are written back
-// into their physical blocks in place, so one launch per layer both reads
-// the pool and commits the window. Masks: causal k_pos <= q_pos and, with
-// window > 0, k_pos > q_pos - window.
+// Computes, for each sequence b and kv head h, the attention of the W*G
+// grouped query rows (row r = w*G + g, query head h*G + g at position
+// lengths[b] + w) over the keys reached through the block table
+// tables[b, :], where the W fresh window rows k_new/v_new[b] take the place
+// of the pool slots at logical positions [lengths[b], lengths[b] + W).
+// Those rows are also committed to their physical blocks, so one launch
+// per layer both attends and writes the window. Masks: causal
+// k_pos <= q_pos and, with window > 0, k_pos > q_pos - window; keys at or
+// past the table's span nb * bs are never attended, and window rows there
+// never written (the reference sends them to the sink block 0, whose
+// contents are garbage by design). q is read and the output written in the
+// model's (B, W, H, d) layout in place: no copy on either side.
 //
-// Bound on the H100: memory, at the serving shapes. Per (b, h) the kernel
-// must read the visible K and V blocks once (2 * len * d elements) and the
-// G*W query rows, and write the window rows and the output; the arithmetic
-// (4 * G*W * len * d flops) is a small fraction of the card's rate even in
-// float32. At B = 2 and KV = 8 the grid is only 16 blocks.
+// Bound on the H100: latency, then bytes. Per (b, h) a call must read the
+// visible cached K and V rows once, the W fresh rows and the query rows,
+// and write the window rows and the output: at the serving verify shape
+// (B = 2, W = 8, lengths 100 and 37, 8 kv heads of 128, bf16) ~0.8 MB,
+// 0.25 us at 3.35 TB/s, and the arithmetic (4 * G * W * visible * d flops)
+// is a small fraction of even the CUDA cores' float32 rate. What bounds a
+// call is how many CTAs share the keys, how many bytes each keeps in
+// flight and how many dependent global loads each waits for in a row.
 //
-// Design (simple first): one block per (kv head, sequence). The reference's
-// sequential grid axis over logical blocks becomes a loop inside the block
-// that reads tables[b, j] itself, from the first block the sliding window
-// can see to the block holding the last query position (tiles past it and
-// below the window are skipped). Each block is taken 16 key slots at a
-// time: the slots are loaded into shared memory as float32, window slots
-// from k_new/v_new (and stored into the pool, which is what makes the
-// writeback fused), then the scores of all G*W rows against the 16 keys,
-// an online-softmax update of the running max and sum per row, and the
-// rescaled accumulation of p @ V. The query rows, the accumulator and the
-// softmax state stay in shared memory in float32 for the whole sweep, so
-// the G query heads of one kv head share every K/V tile and the cache is
-// never repeated. At the prefill width (W = 64, G = 2, d = 128) the
-// accumulator alone is 64 KB, so the launch raises the dynamic shared-memory
-// limit. Every block merges the window rows of its own (b, h) itself, and
-// no two blocks write the same pool rows, except rows of empty batch slots,
-// whose all-zero tables send them all to the sink block 0 (its contents are
-// garbage by design and their outputs are discarded).
+// Design: split-key paged flash-decoding in one launch, the body shared
+// with the dense decode kernel (flash_decode.cuh). The grid is (row tile x
+// key split, kv head, sequence): at the verify shape 5 splits of one
+// 16-row tile, 80 CTAs; at a 64-wide prefill chunk (B = 1) 8 tiles x 3
+// splits, 192 CTAs. Each CTA computes its tile's visible key range from
+// lengths[b] on the device, capped at nb * bs - 1, and takes its even
+// share; the number of splits comes from the host's plan (split.py:
+// split_plan over the span nb * bs, never the lengths). Before its key
+// loop the CTA stages, by 4-byte cp.async, the table entries of the blocks
+// its share covers (at most ceil(share / bs) + 1), alongside the query
+// rows; after that no key address waits on a global load. A key at
+// position p in [len, len + W) is read from k_new/v_new[b, p - len, h],
+// any other from pool[tab[p / bs], p % bs, h]: both have the row stride
+// KV * d, so the double-buffered 32-key stages are filled by 16-byte
+// cp.async from a per-key row pointer. Partials go to the float32
+// workspace and the last CTA of a group merges them (split_merge.cuh).
+//
+// The writeback needs no ordering against the attention: window keys are
+// read from k_new/v_new, never from the pool, and the pool slots read are
+// at positions below len, the ones written at or above it. The CTAs of
+// each (sequence, kv head) share out that head's W window rows (row w by
+// the CTA w mod their count), 16 bytes a thread, stored before the key
+// loop; each in-table window slot is written exactly once. Empty batch
+// slots have all-zero tables: they write into block 0 and their outputs
+// are discarded.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <cmath>
+#include <cstdint>
+
+#include "flash_decode.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kKeys = 16;          // key slots per shared-memory tile
-constexpr float kNeg = -1.0e30f;   // running-max start, as the reference
+using namespace flash_decode;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// K and V rows of kv head h of sequence b: window positions from the fresh
+// rows, the rest from the pool through the table entries staged in shared
+// memory (tab[i] is logical block blk0 + i)
 template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+struct PagedKeys {
+  static constexpr bool kStaged = true;    // addresses from the staged tab
+  const T* k_pool;                  // at kv head h
+  const T* v_pool;
+  const T* k_new;                   // window row 0 of sequence b, kv head h
+  const T* v_new;
+  const int* tab;
+  int blk0, bs, len, W;
+  size_t stride;                    // elements between rows: KV * D
+  __device__ __forceinline__ const T* row(int pos, bool is_v) const {
+    const int o = pos - len;
+    if (o >= 0 && o < W) return (is_v ? v_new : k_new) + (size_t)o * stride;
+    const int j = pos / bs;
+    return (is_v ? v_pool : k_pool) +
+           ((size_t)tab[j - blk0] * bs + (pos - j * bs)) * stride;
+  }
+};
 
-__device__ __forceinline__ bool visible(int kpos, int qpos, int window) {
-  return kpos <= qpos && (window <= 0 || kpos > qpos - window);
-}
-
-template <int D>
-constexpr size_t smem_floats(int R) {
-  return 2 * (size_t)R * D + kKeys * (D + 1) + kKeys * D + (size_t)R * kKeys +
-         3 * (size_t)R;
+// This CTA's share of kv head h's W window rows (row w by the CTA w mod
+// n_ctas), K and V, one 16-byte word a thread; rows at or past the table's
+// span are not written.
+template <typename T, int D>
+__device__ __forceinline__ void write_window(
+    T* __restrict__ k_pool, T* __restrict__ v_pool,
+    const T* __restrict__ k_new, const T* __restrict__ v_new,
+    const int* __restrict__ tb, int b, int h, int KV, int W, int bs, int nb,
+    int len, int cta, int n_ctas) {
+  using L = Layout<T, D>;
+  constexpr int kWords = 2 * L::kPieces;          // K and V words of a row
+  const int mine = cta < W ? (W - cta + n_ctas - 1) / n_ctas : 0;
+  for (int i = threadIdx.x; i < mine * kWords; i += kThreads) {
+    const int w = cta + (i / kWords) * n_ctas;
+    const int j = i % kWords;
+    const bool is_v = j >= L::kPieces;
+    const int col = (is_v ? j - L::kPieces : j) * L::kVec;
+    const int pos = len + w, blk = pos / bs;
+    if (blk >= nb) continue;
+    const uint4 word = *reinterpret_cast<const uint4*>(
+        (is_v ? v_new : k_new) + (((size_t)b * W + w) * KV + h) * D + col);
+    const size_t slot = (size_t)tb[blk] * bs + (pos - blk * bs);
+    *reinterpret_cast<uint4*>((is_v ? v_pool : k_pool) +
+                              (slot * KV + h) * D + col) = word;
+  }
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, T* __restrict__ k_pool,
-                    T* __restrict__ v_pool, const T* __restrict__ k_new,
-                    const T* __restrict__ v_new,
+paged_decode_kernel(const T* __restrict__ q, T* k_pool, T* v_pool,
+                    const T* __restrict__ k_new, const T* __restrict__ v_new,
                     const int* __restrict__ tables,
                     const int* __restrict__ lengths, T* __restrict__ out,
-                    int KV, int R, int W, int bs, int nb, int window,
-                    float scale) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  extern __shared__ float smem[];
-  float* q_s = smem;                       // R x D query rows
-  float* acc_s = q_s + (size_t)R * D;      // R x D running p @ V
-  float* k_s = acc_s + (size_t)R * D;      // kKeys x (D + 1), padded
-  float* v_s = k_s + kKeys * (D + 1);      // kKeys x D
-  float* p_s = v_s + kKeys * D;            // R x kKeys scores, then p
-  float* m_s = p_s + (size_t)R * kKeys;    // R running max
-  float* l_s = m_s + R;                    // R running sum
-  float* a_s = l_s + R;                    // R rescale factor of this tile
-
-  const int base = lengths[b];
-  const T* qb = q + ((size_t)b * KV + h) * R * D;
-  for (int i = tid; i < R * D; i += kThreads) {
-    q_s[i] = to_f(qb[i]);
-    acc_s[i] = 0.f;
-  }
-  for (int r = tid; r < R; r += kThreads) {
-    m_s[r] = kNeg;
-    l_s[r] = 0.f;
-  }
-  const int last_pos = base + W - 1;       // the last query position
-  const int first_vis = window > 0 ? base - window + 1 : 0;
-  const int j_hi = min(last_pos / bs, nb - 1);
-  const int j_lo = first_vis > 0 ? first_vis / bs : 0;
+                    float* ws_acc, float2* ws_ml, unsigned* counters, int W,
+                    int H, int KV, int bs, int nb, int window, float scale,
+                    int n_tiles, int n_splits) {
+  const int split = blockIdx.x % n_splits;
+  const int tile = blockIdx.x / n_splits;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KV;
+  const int r0 = tile * kRows;
+  const int nr = min(kRows, W * G - r0);
+  const int len = lengths[b];
+  const Chunk c = chunk_of(len, r0, nr, G, nb * bs, window, split, n_splits);
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* tab_s = reinterpret_cast<int*>(smem + Layout<T, D>::kSmem);
   const int* tb = tables + (size_t)b * nb;
-  __syncthreads();
-
-  for (int j = j_lo; j <= j_hi; ++j) {
-    const int phys = tb[j];
-    for (int s0 = 0; s0 < bs; s0 += kKeys) {
-      const int k0 = j * bs + s0;          // logical position of slot s0
-      const int nk = min(kKeys, bs - s0);
-      if (k0 > last_pos) break;            // past every query: skip
-      if (k0 + nk - 1 < first_vis) continue;   // below the sliding window
-      // load the tile; window slots come from the fresh rows and are
-      // committed to the pool (the fused writeback)
-      for (int i = tid; i < nk * D; i += kThreads) {
-        const int t = i / D, c = i % D;
-        const int s = s0 + t;
-        const int off = k0 + t - base;
-        const size_t pidx = (((size_t)phys * bs + s) * KV + h) * D + c;
-        T kv, vv;
-        if (off >= 0 && off < W) {
-          const size_t nidx = (((size_t)b * W + off) * KV + h) * D + c;
-          kv = k_new[nidx];
-          vv = v_new[nidx];
-          k_pool[pidx] = kv;
-          v_pool[pidx] = vv;
-        } else {
-          kv = k_pool[pidx];
-          vv = v_pool[pidx];
-        }
-        k_s[t * (D + 1) + c] = to_f(kv);
-        v_s[t * D + c] = to_f(vv);
-      }
-      __syncthreads();
-      // scores of every grouped query row against the tile's keys
-      for (int i = tid; i < R * kKeys; i += kThreads) {
-        const int r = i / kKeys, t = i % kKeys;
-        const int qpos = base + r % W;
-        float sc = kNeg;
-        if (t < nk && visible(k0 + t, qpos, window)) {
-          const float* qr = q_s + (size_t)r * D;
-          const float* kr = k_s + t * (D + 1);
-          float dot = 0.f;
-#pragma unroll 16
-          for (int c = 0; c < D; ++c) dot += qr[c] * kr[c];
-          sc = dot * scale;
-        }
-        p_s[i] = sc;
-      }
-      __syncthreads();
-      // online softmax: new running max, rescale factor, probabilities
-      for (int r = tid; r < R; r += kThreads) {
-        const int qpos = base + r % W;
-        float* pr = p_s + (size_t)r * kKeys;
-        float mc = kNeg;
-        for (int t = 0; t < nk; ++t)
-          if (visible(k0 + t, qpos, window)) mc = fmaxf(mc, pr[t]);
-        const float m_prev = m_s[r];
-        const float m_new = fmaxf(m_prev, mc);
-        const float alpha = expf(m_prev - m_new);
-        float sum = 0.f;
-        for (int t = 0; t < kKeys; ++t) {
-          const bool vis = t < nk && visible(k0 + t, qpos, window);
-          const float p = vis ? expf(pr[t] - m_new) : 0.f;
-          pr[t] = p;
-          sum += p;
-        }
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
-        a_s[r] = alpha;
-      }
-      __syncthreads();
-      for (int i = tid; i < R * D; i += kThreads) {
-        const int r = i / D, c = i % D;
-        const float* pr = p_s + (size_t)r * kKeys;
-        float a = acc_s[i] * a_s[r];
-        for (int t = 0; t < nk; ++t) a += pr[t] * v_s[t * D + c];
-        acc_s[i] = a;
-      }
-      __syncthreads();
-    }
-  }
-  T* ob = out + ((size_t)b * KV + h) * R * D;
-  for (int i = tid; i < R * D; i += kThreads) {
-    const int r = i / D;
-    ob[i] = from_f<T>(acc_s[i] / fmaxf(l_s[r], 1e-30f));
-  }
+  const int blk0 = c.lo / bs;
+  // the table entries of the chunk's blocks, once (attend waits for them;
+  // a cp.async loop strides by blockDim.x, as stage_keys says)
+  if (c.lo <= c.hi)
+    for (int i = threadIdx.x; i <= c.hi / bs - blk0; i += blockDim.x)
+      cp_async4(tab_s + i, tb + blk0 + i);
+  cp_async_commit();
+  write_window<T, D>(k_pool, v_pool, k_new, v_new, tb, b, h, KV, W, bs, nb,
+                     len, blockIdx.x, n_tiles * n_splits);
+  const size_t row = (size_t)KV * D;
+  const PagedKeys<T> keys{k_pool + (size_t)h * D,
+                          v_pool + (size_t)h * D,
+                          k_new + (size_t)b * W * row + (size_t)h * D,
+                          v_new + (size_t)b * W * row + (size_t)h * D,
+                          tab_s, blk0, bs, len, W, row};
+  attend<T, D>(q, out, keys, split_merge::Rows{b, W, H, h, G, r0}, nr, len,
+               c, window, scale, ws_acc, ws_ml, counters,
+               (b * KV + h) * n_tiles + tile, split, n_splits, smem);
 }
 
 template <typename T, int D>
 int launch(const void* q, void* k_pool, void* v_pool, const void* k_new,
            const void* v_new, const int* tables, const int* lengths,
-           void* out, int B, int KV, int R, int W, int bs, int nb, int window,
-           float scale, cudaStream_t stream) {
-  const size_t bytes = smem_floats<D>(R) * sizeof(float);
+           void* out, void* ws, unsigned* counters, int B, int W, int H,
+           int KV, int bs, int nb, int window, float scale, int n_tiles,
+           int n_splits, cudaStream_t stream) {
+  using L = Layout<T, D>;
+  // the merge keeps 2 (n_splits + 1) kRows floats in the K/V stages
+  if (2 * (n_splits + 1) * kRows * 4 > 2 * L::kStageBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a share of at most ceil(nb bs / n_splits) keys covers at most this
+  // many blocks, whatever its first key
+  const int per = (nb * bs + n_splits - 1) / n_splits;
+  const size_t smem =
+      L::kSmem + (size_t)((per + bs - 2) / bs + 1) * sizeof(int);
   auto kern = paged_decode_kernel<T, D>;
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) {      // more than a block may hold: report it
-      cudaGetLastError();           // and leave no stale error behind
-      return static_cast<int>(err);
-    }
-  }
-  dim3 grid(KV, B);
-  kern<<<grid, kThreads, bytes, stream>>>(
+  if (const int err = allow_smem(kern, smem)) return err;
+  dim3 grid(n_tiles * n_splits, KV, B);
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<T*>(k_pool),
       static_cast<T*>(v_pool), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), tables, lengths, static_cast<T*>(out),
-      KV, R, W, bs, nb, window, scale);
+      static_cast<float*>(ws), ws_pairs<D>(ws, B * KV * n_tiles, n_splits),
+      counters, W, H, KV, bs, nb, window, scale, n_tiles, n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. D must be 64 or 128.
+// q, out: (B, W, H, D); pools (P, bs, KV, D), written in place; k_new,
+// v_new (B, W, KV, D); tables (B, nb) and lengths (B,) int32; all
+// contiguous and 16-byte aligned. dtype: 0 = float32, 1 = bfloat16; D 64
+// or 128; H a multiple of KV; n_tiles = ceil(W * H / KV / 16). With
+// n_splits > 1, ws holds B * KV * n_tiles * n_splits * 16 * (D + 2) floats
+// and counters B * KV * n_tiles zeros (zeros again when the call ends).
 extern "C" int paged_decode_launch(const void* q, void* k_pool, void* v_pool,
                                    const void* k_new, const void* v_new,
                                    const int* tables, const int* lengths,
-                                   void* out, int B, int KV, int R, int W,
-                                   int D, int bs, int nb, int window,
-                                   float scale, int dtype,
+                                   void* out, void* ws, unsigned* counters,
+                                   int B, int W, int H, int KV, int D, int bs,
+                                   int nb, int window, float scale, int dtype,
+                                   int n_tiles, int n_splits,
                                    cudaStream_t stream) {
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k_pool, v_pool, k_new, v_new, tables,
-                             lengths, out, B, KV, R, W, bs, nb, window, scale,
-                             stream);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k_pool, v_pool, k_new, v_new, tables,
-                              lengths, out, B, KV, R, W, bs, nb, window,
-                              scale, stream);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k_pool, v_pool, k_new, v_new, tables,
-                                     lengths, out, B, KV, R, W, bs, nb,
-                                     window, scale, stream);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k_pool, v_pool, k_new, v_new,
-                                      tables, lengths, out, B, KV, R, W, bs,
-                                      nb, window, scale, stream);
+  if (W < 1 || KV < 1 || H % KV != 0 || bs < 1 || nb < 1 || n_tiles < 1 ||
+      n_splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define PAGED_ARGS                                                          \
+  q, k_pool, v_pool, k_new, v_new, tables, lengths, out, ws, counters, B, W, \
+      H, KV, bs, nb, window, scale, n_tiles, n_splits, stream
+  if (dtype == 0 && D == 64) return launch<float, 64>(PAGED_ARGS);
+  if (dtype == 0 && D == 128) return launch<float, 128>(PAGED_ARGS);
+  if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(PAGED_ARGS);
+  if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(PAGED_ARGS);
+#undef PAGED_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

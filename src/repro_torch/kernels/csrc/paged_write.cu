@@ -4,59 +4,64 @@
 // paged_write_kernel (_write_kernel_body), the writeback epilogue alone.
 //
 // Commits new[b, 0:W] into the pool (P, bs, ...) at logical positions
-// [start[b], start[b] + W) through tables[b, :]: slot t of logical block
-// blk takes new[b, blk*bs + t - start[b]] when that offset lies in [0, W)
-// and the row is active. The reference routes inactive rows and blocks
-// past the table to the sink block 0, whose contents are garbage by
-// design; this kernel skips those writes instead, so the pool matches the
-// reference bitwise on every block but 0.
+// [start[b], start[b] + W) through tables[b, :]: row w goes to slot
+// (start[b] + w) % bs of physical block tables[b, (start[b] + w) / bs].
+// The reference routes inactive rows and blocks past the table to the sink
+// block 0, whose contents are garbage by design; this kernel skips those
+// writes instead, so the pool matches the reference bitwise on every block
+// but 0. The copy is pure data movement: no rounding enters.
 //
-// Bound on the H100: memory, and tiny: W rows of the trailing width are
-// read and written per active row. Launch latency dominates at the serving
-// shapes.
+// Bound on the H100: launch and dependent-load latency, not bytes. At the
+// serving verify shape (B = 2, W = 8, 2048-byte K/V rows) a call moves
+// 64 KB, 0.02 us at 3.35 TB/s; what it waits for is the launch and, per
+// thread, the table entry, which depends on start[b].
 //
-// Design: one block per (row, straddled block), over the
-// T = (W + bs - 2) / bs + 1 blocks a W-wide span can straddle, as the
-// reference's grid. Threads copy (slot, word) pairs of the valid lanes in
-// 16-byte words. The copy is pure data movement, so no rounding enters.
+// Design: one thread per (sequence, window row, 16-byte word), in CTAs of
+// 256: every thread does useful work, with no loop over a block's slots.
+// Each thread issues its independent loads together (its fresh word,
+// start[b], active[b]) and only then the dependent table entry and the
+// store, so its chain is two loads deep.
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void paged_write_kernel(uint4* __restrict__ pool,
-                                   const uint4* __restrict__ fresh,
-                                   const int* __restrict__ tables,
-                                   const int* __restrict__ start,
-                                   const int* __restrict__ active, int W,
-                                   int nb, int bs, int words) {
-  const int t = blockIdx.x;
-  const int b = blockIdx.y;
-  const int st = start[b];
-  const int blk = st / bs + t;
-  const int last = (st + W - 1) / bs;
-  if (blk >= nb || blk > last || active[b] == 0) return;
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+paged_write_kernel(uint4* __restrict__ pool, const uint4* __restrict__ fresh,
+                   const int* __restrict__ tables,
+                   const int* __restrict__ start,
+                   const int* __restrict__ active, int B, int W, int nb,
+                   int bs, int words) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= (long long)B * W * words) return;
+  const int word = static_cast<int>(i % words);
+  const int row = static_cast<int>(i / words);     // b * W + w
+  const int b = row / W, w = row % W;
+  const uint4 v = fresh[i];
+  const int pos = start[b] + w;
+  const bool on = active == nullptr || active[b] != 0;
+  const int blk = pos / bs;
+  if (!on || blk >= nb) return;
   const int phys = tables[(size_t)b * nb + blk];
-  for (int i = threadIdx.x; i < bs * words; i += blockDim.x) {
-    const int s = i / words, w = i % words;
-    const int off = blk * bs + s - st;
-    if (off < 0 || off >= W) continue;
-    pool[((size_t)phys * bs + s) * words + w] =
-        fresh[((size_t)b * W + off) * words + w];
-  }
+  pool[((size_t)phys * bs + (pos - blk * bs)) * words + word] = v;
 }
 
 }  // namespace
 
 // row_bytes must be a multiple of 16 and both pointers 16-byte aligned (the
-// wrapper checks): every pool of the port has rows of 64 or 128 values.
+// wrapper checks): every pool of the port has rows of 64 or more values.
+// active may be null: every row is active.
 extern "C" int paged_write_launch(void* pool, const void* fresh,
                                   const int* tables, const int* start,
                                   const int* active, int B, int W, int nb,
                                   int bs, int row_bytes, cudaStream_t stream) {
-  const int T = (W + bs - 2) / bs + 1;
-  dim3 grid(T, B);
-  paged_write_kernel<<<grid, 128, 0, stream>>>(
+  const int words = row_bytes / 16;
+  const long long n = (long long)B * W * words;
+  if (n == 0) return 0;
+  paged_write_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                       kThreads, 0, stream>>>(
       static_cast<uint4*>(pool), static_cast<const uint4*>(fresh), tables,
-      start, active, W, nb, bs, row_bytes / 16);
+      start, active, B, W, nb, bs, words);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,28 +12,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.decode_attention.kernel import (ROWS,
-                                                         decode_attention_cuda)
+from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.split import split_plan
 
 HEAD_DIMS = (64, 128)   # the widths the kernel is compiled for
-SPLIT_TARGET = 132      # CTAs a call aims for: one per SM of the H100
-MIN_SPLIT_KEYS = 64     # the fewest keys per split of a tile's widest span
-MAX_SPLITS = 64         # the kernel's merge holds this many partials a row
-
-
-def split_plan(S: int, W: int, G: int, KV: int, B: int, window: int = 0):
-    """(n_tiles, n_splits) of a call: its ``W * G`` query rows per kv head
-    in tiles of ``ROWS``, and the number of key splits each tile's visible
-    keys are shared out over (each split takes an even share of them,
-    counted on the device from the lengths). Chosen from what the host
-    knows, never from the lengths: enough CTAs to fill the card, and no
-    more splits than a tile's widest possible span (all S keys, or the
-    window plus the tile's positions) fills at ``MIN_SPLIT_KEYS`` each."""
-    n_tiles = -(-W * G // ROWS)
-    span = S if window <= 0 else min(S, window + 15 // G + 1)
-    want = -(-SPLIT_TARGET // (n_tiles * KV * B))
-    return n_tiles, max(1, min(want, -(-span // MIN_SPLIT_KEYS), MAX_SPLITS))
 
 
 def decode_attention(q, k, v, lengths, window: int = 0):

@@ -2,7 +2,9 @@
 ``csrc/paged_latent.cu``, ``csrc/paged_write.cu``).
 
 Imports nothing GPU-only at module import; the library is built and loaded
-at the first launch."""
+at the first launch. The paged decode's split-key workspace and ticket
+counters come from ``kernels/split.py``, shared with the dense decode
+kernel."""
 from __future__ import annotations
 
 import ctypes
@@ -10,29 +12,33 @@ import ctypes
 import torch
 
 from repro_torch.kernels import bind, check_status, count_launch, stream_ptr
+from repro_torch.kernels.split import split_buffers
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def paged_decode_cuda(q, k_pool, v_pool, k_new, v_new, tables, lengths, *,
-                      W: int, window: int, scale: float):
-    """q: (B, KV, G*W, d) grouped rows (row = g*W + w); pools
-    (P, bs, KV, d), written in place; k_new/v_new (B, W, KV, d); tables
-    (B, nb) and lengths (B,) int32. All contiguous CUDA tensors, checked by
-    the caller. Returns out (B, KV, G*W, d). Too many query rows for one
-    block's shared memory fail the launch, which raises."""
-    B, KV, R, d = q.shape
-    bs = k_pool.shape[1]
+                      window: int, scale: float, n_tiles: int,
+                      n_splits: int):
+    """q: (B, W, H, d) window queries, read in place; pools (P, bs, KV, d),
+    written in place; k_new/v_new (B, W, KV, d); tables (B, nb) and lengths
+    (B,) int32. All contiguous, 16-byte aligned CUDA tensors, checked by
+    the caller; ``n_tiles`` and ``n_splits`` from ``split.split_plan`` over
+    the span nb * bs. Returns out (B, W, H, d)."""
+    B, W, H, d = q.shape
+    bs, KV = k_pool.shape[1], k_pool.shape[2]
     nb = tables.shape[1]
     out = torch.empty_like(q)
-    fn = bind("paged_decode_launch", [ctypes.c_void_p] * 8
+    ws, ws_ptr, ctr_ptr = split_buffers("paged_decode", q.device,
+                                        B * KV * n_tiles, n_splits, d)
+    fn = bind("paged_decode_launch", [ctypes.c_void_p] * 10
               + [ctypes.c_int] * 8
-              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+              + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     status = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 k_new.data_ptr(), v_new.data_ptr(), tables.data_ptr(),
-                lengths.data_ptr(), out.data_ptr(), B, KV, R, W, d, bs, nb,
-                int(window), float(scale), _DTYPES[q.dtype],
-                stream_ptr(q.device))
+                lengths.data_ptr(), out.data_ptr(), ws_ptr, ctr_ptr, B, W, H,
+                KV, d, bs, nb, int(window), float(scale), _DTYPES[q.dtype],
+                n_tiles, n_splits, stream_ptr(q.device))
     check_status("paged_decode", status)
     count_launch("paged_decode")
     return out
@@ -74,10 +80,10 @@ def paged_latent_cuda(q_lat, q_rope, c_pool, kr_pool, c_new, kr_new, tables,
 
 def paged_write_cuda(pool, new, tables, start, active):
     """pool (P, bs, ...) written in place; new (B, W, ...) of the pool's
-    dtype and trailing shape; tables (B, nb), start (B,), active (B,)
-    int32. All contiguous CUDA tensors, checked by the caller. The kernel
-    copies 16-byte words: rows whose width or start is not a multiple of 16
-    bytes raise."""
+    dtype and trailing shape; tables (B, nb), start (B,) and active (B,)
+    int32, or active None: every row is active. All contiguous CUDA
+    tensors, checked by the caller. The kernel copies 16-byte words: rows
+    whose width or start is not a multiple of 16 bytes raise."""
     B, W = new.shape[:2]
     bs = pool.shape[1]
     nb = tables.shape[1]
@@ -89,7 +95,8 @@ def paged_write_cuda(pool, new, tables, start, active):
     fn = bind("paged_write_launch", [ctypes.c_void_p] * 5
               + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     status = fn(pool.data_ptr(), new.data_ptr(), tables.data_ptr(),
-                start.data_ptr(), active.data_ptr(), B, W, nb, bs, row_bytes,
+                start.data_ptr(), None if active is None
+                else active.data_ptr(), B, W, nb, bs, row_bytes,
                 stream_ptr(pool.device))
     check_status("paged_write", status)
     count_launch("paged_write")

@@ -3,8 +3,10 @@ through block tables, each with the window writeback fused in, and the
 writeback alone.
 
 GQA is handled by grouping the query heads of one kv head into rows
-``g*W + w``, so the pool is never expanded or copied; MLA's single latent
-"kv head" serves all H heads as rows ``h*W + w``. The pools are updated in
+``w*G + g``, read and written by the kernel in the model's ``(B, W, H, d)``
+layout, so neither the queries, the output nor the pool is copied or
+expanded; MLA's single latent "kv head" serves all H heads as rows
+``h*W + w``. The pools are updated in
 place on every path (the reference donates them).
 
 CPU tensors take the plain versions in ``ref.py``. CUDA tensors launch the
@@ -19,6 +21,7 @@ from repro_torch.kernels.paged_attention.kernel import (paged_decode_cuda,
                                                         paged_write_cuda)
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_fused_ref, paged_latent_fused_ref, write_window_paged)
+from repro_torch.kernels.split import split_plan
 
 
 def _all_cpu(*ts) -> bool:
@@ -71,14 +74,16 @@ def paged_attention(q, k_pool, v_pool, k_new, v_new, tables, lengths,
             f"paged_attention: unsupported shapes q {tuple(q.shape)}, pools "
             f"{tuple(k_pool.shape)}, new {tuple(k_new.shape)}, tables "
             f"{tuple(tables.shape)}, lengths {tuple(lengths.shape)}")
-    G = H // KV
-    qg = (q.reshape(B, W, KV, G, d).permute(0, 2, 3, 1, 4)
-          .reshape(B, KV, G * W, d).contiguous())
-    out = paged_decode_cuda(qg, k_pool, v_pool, k_new, v_new, tables,
-                            lengths, W=W, window=window,
-                            scale=1.0 / d ** 0.5)
-    out = (out.reshape(B, KV, G, W, d).permute(0, 3, 1, 2, 4)
-           .reshape(B, W, H, d))
+    ptrs = [t.data_ptr() for t in (q, k_pool, v_pool, k_new, v_new)]
+    if any(p % 16 for p in ptrs):
+        raise ValueError(f"paged_attention: tensors at addresses "
+                         f"{[hex(p) for p in ptrs]}; the kernel wants "
+                         "16-byte alignment")
+    n_tiles, n_splits = split_plan(tables.shape[1] * bs, W, H // KV, KV, B,
+                                   window)
+    out = paged_decode_cuda(q, k_pool, v_pool, k_new, v_new, tables,
+                            lengths, window=window, scale=1.0 / d ** 0.5,
+                            n_tiles=n_tiles, n_splits=n_splits)
     return out, k_pool, v_pool
 
 
@@ -134,18 +139,16 @@ def paged_window_write(pool, new, tables, start, active=None):
     if _all_cpu(pool, new, tables, start) and (
             active is None or active.device.type == "cpu"):
         return write_window_paged(pool, new, tables, start, active)
-    if active is None:
-        active = torch.ones(new.shape[:1], dtype=torch.int32,
-                            device=new.device)
-    _check_cuda("paged_window_write", pool, new, tables, start, active)
-    _check_int32("paged_window_write", tables, start, active)
+    idx = (tables, start) if active is None else (tables, start, active)
+    _check_cuda("paged_window_write", pool, new, *idx)
+    _check_int32("paged_window_write", *idx)
     B = new.shape[0]
     if (new.dtype != pool.dtype or new.shape[2:] != pool.shape[2:]
             or tables.shape[0] != B or start.shape != (B,)
-            or active.shape != (B,)):
+            or (active is not None and active.shape != (B,))):
         raise ValueError(
             f"paged_window_write: pool {tuple(pool.shape)} {pool.dtype}, "
             f"new {tuple(new.shape)} {new.dtype}, tables "
             f"{tuple(tables.shape)}, start {tuple(start.shape)}, active "
-            f"{tuple(active.shape)}")
+            f"{None if active is None else tuple(active.shape)}")
     return paged_write_cuda(pool, new, tables, start, active)

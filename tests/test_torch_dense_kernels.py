@@ -18,7 +18,7 @@ attention outputs 2e-5 (float32 softmax sums in another order); the
 sampler's ``row_stats``, tokens and windows bitwise under the same noise,
 whole generations under the margin rule with tolerance 1e-4.
 
-The dense flash-decode kernel's split-key plan (``ops.split_plan``) and
+The dense flash-decode kernel's split-key plan (``split.split_plan``) and
 its chunk-and-merge arithmetic are emulated in float32 torch ops and held
 within 1e-6 against the plain version and the Pallas kernel: chunks with no
 visible key, a row of length 0, several row tiles, chunks that do not
@@ -46,10 +46,9 @@ from repro_torch.checkpoint.io import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.engine.agreement import check_token_agreement, top2_margin
 from repro_torch.engine.spec_decode import PredictiveSampler, verify_round
-from repro_torch.kernels.decode_attention.kernel import ROWS
-from repro_torch.kernels.decode_attention.ops import (decode_attention,
-                                                      split_plan)
+from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.rwkv_wkv.ops import rwkv_wkv
+from repro_torch.kernels.split import ROWS, split_plan
 
 CPU = torch.device("cpu")
 EPS_KEY = jax.random.PRNGKey(9)

@@ -26,7 +26,9 @@ multiply-add in the state update, carried through up to 1000 steps), and
 bfloat16 outputs 2^-7 relative plus 1e-3 of the largest (both carry the
 state in float32 and round each output once, so they part by at most one
 bf16 ulp beyond the float32 drift). The dense flash-decode output as the
-paged decode's: 1e-5 in float32 and 1e-2 in bfloat16.
+paged decode's: 1e-5 in float32 and 1e-2 in bfloat16. Both split-key
+decode kernels give the same output bitwise on repeated calls and in CUDA
+graph replay, and leave their shared ticket counters at 0.
 """
 import numpy as np
 import pytest
@@ -296,7 +298,7 @@ def test_decode_attention_ticket_counters_reset_on_gpu(cuda):
     replayed three times: each gives the first call's output bitwise (the
     merge order is fixed), and the ticket counters are all 0 after. The
     lengths are int64, as the solo sampler passes them."""
-    from repro_torch.kernels.decode_attention.kernel import _COUNTER_BUFS
+    from repro_torch.kernels.split import COUNTER_BUFS
     g = torch.Generator(device=cuda).manual_seed(5)
     rn = lambda *s: torch.randn(s, generator=g, device=cuda).to(  # noqa
         torch.bfloat16)
@@ -315,6 +317,92 @@ def test_decode_attention_ticket_counters_reset_on_gpu(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(captured, first)
-    assert int(_COUNTER_BUFS[q.device].abs().sum()) == 0
+    assert int(COUNTER_BUFS[q.device].abs().sum()) == 0
     torch.testing.assert_close(first.float(), decode_attention_ref(
         q, k, v, lens).float(), rtol=1e-2, atol=1e-2)
+
+
+def _paged_case(cuda, dtype, B, W, lengths, seed, H=16, KV=8, d=128, bs=16,
+                nb=17):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    P = 1 + B * nb + 2
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda).to(  # noqa
+        dtype)
+    tables = (torch.randperm(P - 1, generator=g, device=cuda)[:B * nb]
+              + 1).reshape(B, nb).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    return (rn(B, W, H, d), rn(P, bs, KV, d), rn(P, bs, KV, d),
+            rn(B, W, KV, d), rn(B, W, KV, d), tables, lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,lengths", [
+    (1, 64, (16,)),           # the engine's 64-wide prefill chunk
+    (2, 8, (269, 0))])        # past the table's 272 keys; length 0
+def test_paged_decode_kernel_shapes_on_gpu(cuda, dtype, B, W, lengths):
+    q, kp, vp, kn, vn, tables, lens = _paged_case(cuda, dtype, B, W,
+                                                  lengths, W + B)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    reset_launches()
+    got, k1, v1 = paged_attention(q, k1, v1, kn, vn, tables, lens)
+    assert LAUNCHES["paged_decode"] == 1
+    want, k2, v2 = paged_attention_fused_ref(q, k2, v2, kn, vn, tables,
+                                             lens)
+    assert torch.equal(k1[1:], k2[1:]) and torch.equal(v1[1:], v2[1:])
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_paged_decode_ticket_counters_reset_on_gpu(cuda):
+    """Two calls in a row, then the call captured in a CUDA graph and
+    replayed three times: each gives the first call's output bitwise and
+    the same pools (the window rows are written again, with the same
+    values), and the ticket counters, shared with the dense decode kernel,
+    are all 0 after."""
+    from repro_torch.kernels.split import COUNTER_BUFS
+    q, kp, vp, kn, vn, tables, lens = _paged_case(
+        cuda, torch.bfloat16, 2, 8, (100, 37), 7)
+    reset_launches()
+    first, kp, vp = paged_attention(q, kp, vp, kn, vn, tables, lens)
+    k_first, v_first = kp.clone(), vp.clone()
+    second, kp, vp = paged_attention(q, kp, vp, kn, vn, tables, lens)
+    assert LAUNCHES["paged_decode"] == 2
+    assert torch.equal(first, second)
+    assert torch.equal(kp, k_first) and torch.equal(vp, v_first)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured, _, _ = paged_attention(q, kp, vp, kn, vn, tables, lens)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+        assert torch.equal(kp, k_first) and torch.equal(vp, v_first)
+    assert int(COUNTER_BUFS[q.device].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("W", [1, 8, 64])
+@pytest.mark.parametrize("row", [(8, 128), (512,), (64,)])
+def test_paged_write_kernel_bitwise_on_gpu(cuda, W, row):
+    """Rows of 2048 (qwen3-1.7b's K/V), 1024 (DeepSeek-V3's c_kv) and 128
+    bytes (its k_rope), bf16, with an inactive row and with every row
+    active (``active`` None); bitwise on every block but the sink 0."""
+    g = torch.Generator(device=cuda).manual_seed(W + row[0])
+    B, bs, nb = 2, 16, 17
+    P = 1 + B * nb + 2
+    pool = torch.randn((P, bs) + row, generator=g, device=cuda).to(
+        torch.bfloat16)
+    new = torch.randn((B, W) + row, generator=g, device=cuda).to(
+        torch.bfloat16)
+    tables = (torch.randperm(P - 1, generator=g, device=cuda)[:B * nb]
+              + 1).reshape(B, nb).to(torch.int32)
+    start = torch.tensor([5, nb * bs - W // 2 - 1], dtype=torch.int32,
+                         device=cuda)
+    for active in (torch.tensor([1, 0], dtype=torch.int32, device=cuda),
+                   None):
+        p1, p2 = pool.clone(), pool.clone()
+        reset_launches()
+        paged_window_write(p1, new, tables, start, active)
+        assert LAUNCHES["paged_write"] == 1
+        write_window_paged(p2, new, tables, start, active)
+        assert torch.equal(p1[1:], p2[1:])

@@ -7,6 +7,15 @@ but the sink 0; the fused paged decode and the fused MLA latent decode
 with pools bitwise (sink excluded) and outputs within 2e-5 (float32 softmax
 sums in another order).
 
+The paged decode kernel's split-key design (``csrc/paged_decode.cu``) is
+emulated in float32 torch ops on the plan ``split_plan`` gives the wrapper:
+row tiles and key splits, each key read from the window rows or through
+the block table entries its CTA staged, the cap at the table's span, the
+32-key stages and the merge, and the writeback shared out over the CTAs of
+a kv head. It is held within 1e-6 against the plain version and the Pallas
+kernel, its pools bitwise (sink excluded), and its writeback must write
+every in-table window slot exactly once and no slot the attention reads.
+
 The CUDA kernels are held against these plain versions on the card by
 ``tests/test_torch_gpu.py``.
 """
@@ -25,6 +34,7 @@ from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_latent_attention,
                                                      paged_window_write)
 from repro_torch.kernels.spec_verify.ops import spec_verify
+from repro_torch.kernels.split import ROWS, split_plan
 
 
 def _t(a):
@@ -130,3 +140,138 @@ def test_paged_latent_plain_matches_pallas(W):
     np.testing.assert_array_equal(gk.numpy()[1:], np.asarray(wk)[1:])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                atol=2e-5)
+
+
+def _split_paged_decode(q, kp, vp, kn, vn, tables, lengths, window):
+    """paged_decode.cu's arithmetic in float32 torch ops, on the plan
+    ``split_plan`` gives the wrapper over the span nb * bs. Per (sequence,
+    kv head, row tile of ``ROWS`` w-major rows) the keys some row sees,
+    [lo, hi], capped at nb * bs - 1; each split's even share, its table
+    entries staged once, each key from k_new/v_new inside the window and
+    through the staged entries elsewhere, scored 32 keys at a time with an
+    online softmax; the partials merged by weighing those with l > 0. The
+    pools are read as they were before the call; the writeback (row w of a
+    head by its CTA w mod the head's CTA count) goes to copies. Returns
+    (out, k_pool, v_pool, writes, reads): the pool slots (block, slot,
+    head) written with their write counts and those read."""
+    B, W, H, d = q.shape
+    bs, KV = kp.shape[1], kp.shape[2]
+    nb = tables.shape[1]
+    G, S = H // KV, nb * bs
+    n_tiles, n_splits = split_plan(S, W, G, KV, B, window)
+    per_max = -(-S // n_splits)
+    out = torch.zeros((B, W, H, d))
+    k_out, v_out = kp.clone(), vp.clone()
+    writes, reads = {}, set()
+    for b in range(B):
+        L = int(lengths[b])
+        for h in range(KV):
+            for cta in range(n_tiles * n_splits):          # the writeback
+                for w in range(cta, W, n_tiles * n_splits):
+                    blk = (L + w) // bs
+                    if blk < nb:
+                        slot = (int(tables[b, blk]), (L + w) % bs, h)
+                        writes[slot] = writes.get(slot, 0) + 1
+                        k_out[slot] = kn[b, w, h]
+                        v_out[slot] = vn[b, w, h]
+            for tile in range(n_tiles):
+                r0 = tile * ROWS
+                nr = min(ROWS, W * G - r0)
+                rows = torch.arange(r0, r0 + nr)
+                w, hq = rows // G, h * G + rows % G
+                qr, qpos = q[b, w, hq].float(), L + w
+                hi = min(L + (r0 + nr - 1) // G, S - 1)
+                lo = max(0, L + r0 // G - window + 1) if window > 0 else 0
+                per = -(-max(0, hi - lo + 1) // n_splits)
+                ms, ls, accs = [], [], []
+                for s in range(n_splits):
+                    c_lo = lo + s * per
+                    c_hi = min(hi, c_lo + per - 1)
+                    blk0 = c_lo // bs
+                    tab = tables[b, blk0:c_hi // bs + 1].tolist()
+                    assert len(tab) <= (per_max + bs - 2) // bs + 1
+                    m = torch.full((nr,), -1e30)
+                    l, acc = torch.zeros(nr), torch.zeros((nr, d))
+                    for k0 in range(c_lo, c_hi + 1, 32):
+                        kpos = list(range(k0, min(k0 + 32, c_hi + 1)))
+                        kr, vr = [], []
+                        for p in kpos:
+                            if L <= p < L + W:
+                                kr.append(kn[b, p - L, h])
+                                vr.append(vn[b, p - L, h])
+                            else:
+                                slot = (tab[p // bs - blk0], p % bs, h)
+                                reads.add(slot)
+                                kr.append(kp[slot])
+                                vr.append(vp[slot])
+                        kr = torch.stack(kr).float()
+                        vr = torch.stack(vr).float()
+                        kt = torch.tensor(kpos)
+                        vis = kt[None] <= qpos[:, None]
+                        if window > 0:
+                            vis &= kt[None] > qpos[:, None] - window
+                        x = torch.where(vis, (qr @ kr.T) / d ** 0.5,
+                                        torch.tensor(-1e30))
+                        m_new = torch.maximum(m, x.amax(1))
+                        p = torch.where(vis, torch.exp(x - m_new[:, None]),
+                                        0.0)
+                        alpha = torch.exp(m - m_new)
+                        l = alpha * l + p.sum(1)
+                        acc = acc * alpha[:, None] + p @ vr
+                        m = m_new
+                    ms.append(m if c_lo <= c_hi
+                              else torch.full((nr,), -float("inf")))
+                    ls.append(l)
+                    accs.append(acc)
+                m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+                live = l > 0
+                top = torch.where(live, m, -float("inf")).amax(0)
+                wt = torch.where(live, torch.exp(m - top), 0.0)
+                out[b, w, hq] = (wt[..., None] * acc).sum(0) / torch.clamp(
+                    (wt * l).sum(0), min=1e-30)[:, None]
+    return out.to(q.dtype), k_out, v_out, writes, reads
+
+
+@pytest.mark.parametrize("W,window,lengths,empty,plan", [
+    (1, 0, (0, 37), False, (1, 2)),        # a row of length 0
+    (8, 0, (70, 3), False, (1, 2)),        # shares of 39 keys: two stages
+    (64, 0, (16, 20), False, (8, 2)),      # 8 row tiles
+    (8, 24, (70, 3), False, (1, 1)),       # a window: one split, no merge
+    (8, 0, (93, 5), False, (1, 2)),        # rows past the table's span
+    (8, 0, (37, 0), True, (1, 2))])        # an empty slot: all-zero table
+def test_paged_split_decode_matches_plain_and_pallas(W, window, lengths,
+                                                     empty, plan):
+    rng = np.random.default_rng(300 + W + window + lengths[0])
+    B, H, KV, d, bs, nb = 2, 4, 2, 64, 16, 6
+    P = 1 + B * nb
+    q = rng.standard_normal((B, W, H, d)).astype(np.float32)
+    kp = rng.standard_normal((P, bs, KV, d)).astype(np.float32)
+    vp = rng.standard_normal((P, bs, KV, d)).astype(np.float32)
+    kn = rng.standard_normal((B, W, KV, d)).astype(np.float32)
+    vn = rng.standard_normal((B, W, KV, d)).astype(np.float32)
+    lens = np.array(lengths, np.int32)
+    alloc = [min(nb, -(-(L + W) // bs)) for L in lengths]
+    tables = _tables(rng, B, nb, P, alloc)
+    if empty:
+        tables[1] = 0
+    ins = (q, kp, vp, kn, vn, tables, lens)
+    assert split_plan(nb * bs, W, H // KV, KV, B, window) == plan
+    got, gk, gv, writes, reads = _split_paged_decode(*map(_t, ins), window)
+    # every in-table window slot written once, none the attention reads
+    want_writes = {(int(tables[b, (L + w) // bs]), (L + w) % bs, h)
+                   for b, L in enumerate(lengths) for w in range(W)
+                   for h in range(KV) if L + w < nb * bs}
+    assert set(writes) == want_writes
+    assert set(writes.values()) == {1}
+    assert not reads & set(writes)
+    plain, pk, pv = paged_attention(*map(_t, ins), window=window)
+    np.testing.assert_array_equal(gk.numpy()[1:], pk.numpy()[1:])
+    np.testing.assert_array_equal(gv.numpy()[1:], pv.numpy()[1:])
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    want, wk, wv = jax_paged(*map(jnp.asarray, ins), window=window,
+                             interpret=True)
+    np.testing.assert_array_equal(gk.numpy()[1:], np.asarray(wk)[1:])
+    np.testing.assert_array_equal(gv.numpy()[1:], np.asarray(wv)[1:])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
