@@ -17,10 +17,10 @@ which fails the script when it fails:
    64 for the latent kernel, the writeback kernel on both latent pools,
    the verify kernel at vocab 129,280), with times of the kernel, the
    plain version and one library call; it also logs ptxas's registers,
-   shared memory and spills for the flash, dense-decode, paged-decode and
-   paged-write kernels (``build.log``) and the tensor-core (HGMMA, HMMA)
-   instruction count of the flash kernels (``cuobjdump -sass``, or "not
-   available");
+   shared memory and spills for the flash, dense-decode, paged-decode,
+   paged-write, latent and WKV kernels (``build.log``) and the tensor-core
+   (HGMMA, HMMA) instruction count of the flash kernels (``cuobjdump
+   -sass``, or "not available");
 3. serve 4 requests of qwen3-1.7b through ``ServingEngine`` at full width
    (28 layers, bf16, random weights from a seed) on the kernel path, with
    the launch counts of that run (one paged_decode launch per layer per
@@ -32,7 +32,8 @@ which fails the script when it fails:
 6. DeepSeek-V3 at its published widths, cut to its three dense-prefix MLA
    layers (its MoE layers are not ported): the same 4 requests served on
    the latent kernel's path with fixed-point forecasts and again with the
-   learned forecast (MTP) heads, a profile, one request on the gather
+   learned forecast (MTP) heads, a profile (with the latent kernel's
+   device time and launches), one request on the gather
    fallback (the writeback kernel on both latent pools), and every request
    against the solo sampler under the margin rule;
 7. train qwen3-1.7b at full width: 3 steps of ``make_train_step`` (AdamW,
@@ -47,7 +48,8 @@ which fails the script when it fails:
    with the forecast heads;
 9. rwkv6-7b at full width (32 layers, bf16, 7.58 B random parameters from
    seed 0): phase 3's 4 requests served with every layer's WKV recurrence
-   on the WKV kernel (32 launches per verify pass and per prefill chunk),
+   on the WKV kernel (32 launches per verify pass, all in its verify form,
+   and 32 per prefill chunk, all in its prefill form),
    a profile, every request against the solo sampler on the plain scan
    under the margin rule, and ``TransformerLM.apply`` at T = 1024 on the
    kernel route against the plain route, gated beside two planted faults;
@@ -65,7 +67,8 @@ zero-state forms at rwkv6-7b's widths; and the dense flash-decode kernel at
 qwen3-1.7b's solo verify and prefill shapes and a 512-key sliding window.
 
 The second line from the end is a JSON object with one entry per kernel
-(seven; paged_decode's also carries its 64-wide prefill row);
+(seven; paged_decode's also carries its 64-wide prefill row, paged_latent's
+its prefill and decode rows, rwkv_wkv's its prefill and zero-state rows);
 the last line is ``{"ok": true, "device": {...}}``. ``--report PATH``
 also writes every number measured to PATH as JSON.
 """
@@ -161,7 +164,8 @@ def times(kernel, plain, library, plain_iters=20):
 
 def ptxas_lines(build_log, sources=("flash_attention.cu",
                                      "decode_attention.cu", "paged_decode.cu",
-                                     "paged_write.cu")):
+                                     "paged_write.cu", "paged_latent.cu",
+                                     "rwkv_wkv.cu")):
     """ptxas's lines for the kernels of ``sources`` in ``build.log``:
     entry functions, registers, shared memory, spills and warnings."""
     keep, current = [], None
@@ -505,8 +509,15 @@ def check_paged_write(dev, gen):
 
 
 def check_paged_latent(dev, gen):
+    """The latent kernel against its plain version at DeepSeek-V3's
+    widths (bf16): the verify round (B = 2, W = 8), a 64-wide prefill
+    chunk (B = 1, length 16) and a decode step (W = 1), q_lat and q_rope
+    passed as the model's non-contiguous views; pools bitwise, the output
+    within 1e-2 + 2 bf16 ulps, one kernel a call in the profile. The
+    yardstick is SDPA over the gathered view."""
     import torch
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.paged_attention.ops import paged_latent_attention
     from repro_torch.kernels.paged_attention.ref import (
         gather_view, paged_latent_fused_ref)
@@ -525,7 +536,10 @@ def check_paged_latent(dev, gen):
         perm = torch.randperm(P - 1, generator=gen, device=dev)[:B * nb] + 1
         tables = perm.reshape(B, nb).to(torch.int32)
         c_new, kr_new = rn(B, W, R_LAT), rn(B, W, DR)
-        q_lat, q_rope = rn(B, W, H_MLA, R_LAT), rn(B, W, H_MLA, DR)
+        # the model's views, read in place: q_lat a permutation (as the
+        # absorbing einsum may give it), q_rope the rope slice of q's rows
+        q_lat = rn(H_MLA, B, W, R_LAT).permute(1, 2, 0, 3)
+        q_rope = rn(B, W, H_MLA, 128 + DR)[..., 128:]
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         c1, k1 = c_pool.clone(), kr_pool.clone()
         c2, k2 = c_pool.clone(), kr_pool.clone()
@@ -546,6 +560,22 @@ def check_paged_latent(dev, gen):
             raise AssertionError(f"paged_latent {name}: max err "
                                  f"{float(err.max())} beyond tolerance")
         worst = max(worst, float(err.max()))
+        # one kernel a call, no copy of q or of the output around it: the
+        # call allocates only its output, and the profile shows one kernel
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            paged_latent_attention(q_lat, q_rope, c1, k1, c_new, kr_new,
+                                   tables, lens, scale=scale)
+            torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        kern = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if extra != got.numel() * 2 or (
+                kern and (len(kern) != 1 or "paged_latent_" not in kern[0])):
+            raise AssertionError(f"paged_latent {name}: a call allocated "
+                                 f"{extra} B and ran {kern}")
         # library yardstick: SDPA over the gathered, already written view,
         # q = [q_lat, q_rope], k = [c_kv, k_rope], v = c_kv, one kv head
         c = gather_view(c2, tables)                          # (B, S, r)
@@ -574,7 +604,7 @@ def check_paged_latent(dev, gen):
         b_ms, b_by = bound(nbytes, nops, "bfloat16")
         rows[name] = {
             "max_abs_err": float(err.max()), "library_max_abs_err": lib_err,
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "kernels_per_call": kern,
             **times(lambda: paged_latent_attention(
                         q_lat, q_rope, c1, k1, c_new, kr_new, tables, lens,
                         scale=scale),
@@ -752,7 +782,7 @@ def make_requests(cfg, lens, new_tokens):
 
 def serve(cfg, params, dev, reqs, **kw):
     import torch
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import LAUNCHES, WKV_FORMS, reset_launches
     from repro_torch.serving.engine import ServingEngine
     eng = ServingEngine(cfg, params, batch=2, window_max=8, block_size=16,
                         max_len=256, eps_key=1, use_verify_kernel=True,
@@ -766,7 +796,7 @@ def serve(cfg, params, dev, reqs, **kw):
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches = dict(LAUNCHES, rwkv_wkv_forms=dict(WKV_FORMS))
     m = eng.export_metrics()
     if len(done) != len(reqs):
         raise AssertionError(f"served {len(done)} of {len(reqs)} requests")
@@ -951,6 +981,11 @@ def serve_deepseek(dev, tol):
                                                   tol, **kw)}
         fpi_launches = fpi_launches or launches
     out["profile"] = profile_serve(cfg, params, dev)
+    pl = out["profile"]["port_kernels"]["paged_latent"]
+    out["paged_latent_profiled"] = pl
+    log(f"paged_latent in the profiled run: {pl['us']:.1f} device us over "
+        f"{pl['count']} launches"
+        + (f" ({pl['us'] / pl['count']:.2f} us each)" if pl["count"] else ""))
     fb_reqs = make_requests(cfg, PROMPT_LENS[:1], 8)
     fb_done, fm, fwall, fb_launches = serve(cfg, params, dev, fb_reqs,
                                             use_attention_kernel=False)
@@ -1343,6 +1378,17 @@ def serve_rwkv(dev, cfg, tol, route_T=1024):
             or launches["spec_verify"] <= 0:
         raise AssertionError(f"rwkv_wkv launches {launches['rwkv_wkv']}, "
                              f"want {cfg.n_layers} x {passes} passes")
+    # by form: every position's state in a verify pass, the last state in
+    # a prefill chunk
+    forms = launches["rwkv_wkv_forms"]
+    want = {"none": 0, "all": cfg.n_layers * m["verify_passes"],
+            "last": cfg.n_layers * m["prefill_calls"]}
+    log(f"rwkv_wkv launches by form: {forms} (verify form = {cfg.n_layers} "
+        f"x {m['verify_passes']} verify passes, prefill form = "
+        f"{cfg.n_layers} x {m['prefill_calls']} prefill chunks)")
+    if forms != want:
+        raise AssertionError(f"rwkv_wkv launches by form {forms}, want "
+                             f"{want}")
     out["serve"] = {"metrics": m, "wall_s": wall, "launches": launches,
                     "ms_per_token": wall / tok * 1e3,
                     "ms_per_pass": wall / passes * 1e3}
@@ -1496,8 +1542,8 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("  " + line.strip())
     report["ptxas"] = ptxas_lines(lib.parent / "build.log")
-    log("ptxas, flash_attention, decode_attention, paged_decode and "
-        "paged_write:")
+    log("ptxas, flash_attention, decode_attention, paged_decode, "
+        "paged_write, paged_latent and rwkv_wkv:")
     for line in report["ptxas"]:
         log("  " + line)
     report["sass"] = sass_counts(lib)
@@ -1635,10 +1681,16 @@ def main(argv=None) -> int:
             "library_ms": row["library_ms"],
             "eager_ms": row["eager_ms"], "eager_plain_ms": row["eager_plain_ms"],
             "eager_library_ms": row["eager_library_ms"]})
-    pd_entry = next(e for e in entries if e["name"] == "paged_decode")
-    pd_entry["prefill"] = {k: pd["prefill"][k] for k in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-        "max_abs_err")}
+    # the other shapes of the path's kernels, beside their main row
+    for name, rows, keys in (("paged_decode", pd, ("prefill",)),
+                             ("paged_latent", pl, ("prefill", "decode")),
+                             ("rwkv_wkv", rw, ("prefill",
+                                               "zero_state_T1024"))):
+        entry = next(e for e in entries if e["name"] == name)
+        for key in keys:
+            entry[key] = {k: rows[key][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err")}
     report["kernels"] = entries
     if args.report:
         path = Path(args.report)

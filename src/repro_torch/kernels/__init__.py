@@ -15,7 +15,9 @@ module import: the CPU tests import every module on a machine without
 call, where the wrapper launches and nowhere else (a ``spec_verify`` call
 launches two kernels, its split pass and its final reduction, and counts
 one). A run can so show that its path went through the kernels
-(``reset_launches`` before, read after).
+(``reset_launches`` before, read after). ``WKV_FORMS`` splits
+``rwkv_wkv``'s count by the form launched: "none" (zero state), "all"
+(every position's state, the verify window) and "last" (prefill).
 """
 from __future__ import annotations
 
@@ -36,14 +38,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"spec_verify": 0, "paged_decode": 0, "paged_write": 0,
             "paged_latent": 0, "flash_attention": 0, "rwkv_wkv": 0,
             "decode_attention": 0}
+WKV_FORMS = {"none": 0, "all": 0, "last": 0}
 
 _LIB = None
 _FNS: dict = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, WKV_FORMS):
+        for name in counts:
+            counts[name] = 0
 
 
 def count_launch(name: str) -> None:

@@ -12,7 +12,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import bind, check_status, count_launch, stream_ptr
-from repro_torch.kernels.split import split_buffers
+from repro_torch.kernels.split import SPLIT_TARGET, split_buffers
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,34 +44,51 @@ def paged_decode_cuda(q, k_pool, v_pool, k_new, v_new, tables, lengths, *,
     return out
 
 
+LATENT_ROWS = 64        # query rows per CTA of the bf16 latent kernel
+# n-blocks of 8 value columns a warp of the bf16 latent kernel holds, by
+# (latent, rope) width, the fewest column splits first
+# (csrc/paged_latent.cu)
+LATENT_NB = {(512, 64): (16, 8), (32, 16): (2,)}
+
+
+def latent_plan(R: int, B: int, r: int, dr: int):
+    """(row tiles, column splits) of a bf16 latent call with ``R`` query
+    rows a sequence, ``B`` sequences and widths ``r``, ``dr``: 64-row tiles,
+    and the fewest column splits whose CTAs fill the card (``SPLIT_TARGET``,
+    one per SM), else the most the kernel is compiled for. Chosen from what
+    the host knows, never from the lengths."""
+    n_tiles = -(-R // LATENT_ROWS)
+    for nb in LATENT_NB[r, dr]:
+        splits = r // (16 * nb)
+        if n_tiles * B * splits >= SPLIT_TARGET:
+            break
+    return n_tiles, splits
+
+
 def paged_latent_cuda(q_lat, q_rope, c_pool, kr_pool, c_new, kr_new, tables,
-                      lengths, *, W: int, scale: float):
-    """q_lat: (B, H*W, r) and q_rope: (B, H*W, dr), rows h*W + w; pools
+                      lengths, *, scale: float):
+    """q_lat: (B, W, H, r) and q_rope: (B, W, H, dr), read in place through
+    their strides (last axis contiguous, rows 16-byte aligned); pools
     (P, bs, r) and (P, bs, dr), written in place; c_new (B, W, r), kr_new
-    (B, W, dr); tables (B, nb) and lengths (B,) int32. All contiguous CUDA
-    tensors of one dtype, checked by the caller. Returns the attention-
-    weighted latent (B, H*W, r). The kernel moves rows in 16-byte words:
-    rows of r or dr values that are not a multiple of 16 bytes, or
-    pointers that are not 16-byte aligned, raise."""
-    B, R, r = q_lat.shape
+    (B, W, dr); tables (B, nb) and lengths (B,) int32. All CUDA tensors of
+    one dtype, checked by the caller; bf16 wants (r, dr) among
+    ``LATENT_NB``'s. Returns the attention-weighted latent
+    (B, W, H, r)."""
+    B, W, H, r = q_lat.shape
     dr = q_rope.shape[-1]
     bs = c_pool.shape[1]
     nb = tables.shape[1]
-    size = q_lat.element_size()
-    ptrs = [t.data_ptr() for t in (q_lat, q_rope, c_pool, kr_pool, c_new,
-                                   kr_new)]
-    if (r * size) % 16 or (dr * size) % 16 or any(p % 16 for p in ptrs):
-        raise ValueError(f"paged_latent: rows of {r * size} and {dr * size} "
-                         f"B at addresses {[hex(p) for p in ptrs]}; the "
-                         "kernel wants 16-byte multiples")
-    out = torch.empty_like(q_lat)
+    out = q_lat.new_empty((B, W, H, r))
+    splits = (latent_plan(H * W, B, r, dr)[1] if q_lat.dtype == torch.bfloat16
+              else 1)
     fn = bind("paged_latent_launch", [ctypes.c_void_p] * 9
-              + [ctypes.c_int] * 7
-              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+              + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
+              + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p])
     status = fn(q_lat.data_ptr(), q_rope.data_ptr(), c_pool.data_ptr(),
                 kr_pool.data_ptr(), c_new.data_ptr(), kr_new.data_ptr(),
-                tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, R,
-                W, r, dr, bs, nb, float(scale), _DTYPES[q_lat.dtype],
+                tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, W,
+                H, r, dr, bs, nb, float(scale), _DTYPES[q_lat.dtype],
+                *q_lat.stride()[:3], *q_rope.stride()[:3], splits,
                 stream_ptr(q_lat.device))
     check_status("paged_latent", status)
     count_launch("paged_latent")

@@ -6,8 +6,8 @@ GQA is handled by grouping the query heads of one kv head into rows
 ``w*G + g``, read and written by the kernel in the model's ``(B, W, H, d)``
 layout, so neither the queries, the output nor the pool is copied or
 expanded; MLA's single latent "kv head" serves all H heads as rows
-``h*W + w``. The pools are updated in
-place on every path (the reference donates them).
+``w*H + h``, read in place through the queries' strides. The pools are
+updated in place on every path (the reference donates them).
 
 CPU tensors take the plain versions in ``ref.py``. CUDA tensors launch the
 kernels or raise: there is no fallback.
@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.paged_attention.kernel import (paged_decode_cuda,
+from repro_torch.kernels.paged_attention.kernel import (LATENT_NB,
+                                                        paged_decode_cuda,
                                                         paged_latent_cuda,
                                                         paged_write_cuda)
 from repro_torch.kernels.paged_attention.ref import (
@@ -112,23 +113,47 @@ def paged_latent_attention(q_lat, q_rope, c_pool, kr_pool, c_new, kr_new,
     if (r > 512 or q_rope.shape != (B, W, H, dr)
             or c_pool.shape != (P, bs, r) or kr_pool.shape != (P, bs, dr)
             or c_new.shape != (B, W, r) or kr_new.shape != (B, W, dr)
-            or tables.shape[0] != B or lengths.shape != (B,)):
+            or tables.shape[0] != B or lengths.shape != (B,)
+            or (q_lat.dtype == torch.bfloat16
+                and (r, dr) not in LATENT_NB)):
         raise ValueError(
             f"paged_latent_attention: unsupported shapes q_lat "
             f"{tuple(q_lat.shape)}, q_rope {tuple(q_rope.shape)}, pools "
             f"{tuple(c_pool.shape)}, {tuple(kr_pool.shape)}, new "
             f"{tuple(c_new.shape)}, {tuple(kr_new.shape)}, tables "
             f"{tuple(tables.shape)}, lengths {tuple(lengths.shape)}")
-    # all H heads share the single latent "kv head": rows h*W + w
-    ql = q_lat.transpose(1, 2).reshape(B, H * W, r).contiguous()
-    qr = q_rope.transpose(1, 2).reshape(B, H * W, dr).contiguous()
+    # the queries are read in place, through their strides: copied only
+    # when a row is not contiguous or not 16-byte aligned
+    q_lat, q_rope = _rows_16(q_lat), _rows_16(q_rope)
     c_new, kr_new = c_new.contiguous(), kr_new.contiguous()
     _check_cuda("paged_latent_attention", c_pool, kr_pool, c_new, kr_new,
-                tables, lengths, ql, qr)
+                tables, lengths)
+    for t in (q_lat, q_rope):
+        if t.device != c_pool.device:
+            raise ValueError(f"paged_latent_attention: queries on "
+                             f"{t.device}, pools on {c_pool.device}")
     _check_int32("paged_latent_attention", tables, lengths)
-    out = paged_latent_cuda(ql, qr, c_pool, kr_pool, c_new, kr_new, tables,
-                            lengths, W=W, scale=scale)
-    return out.reshape(B, H, W, r).transpose(1, 2), c_pool, kr_pool
+    size = q_lat.element_size()
+    ptrs = [t.data_ptr() for t in (c_pool, kr_pool, c_new, kr_new)]
+    if (r * size) % 16 or (dr * size) % 16 or any(p % 16 for p in ptrs):
+        raise ValueError(f"paged_latent_attention: rows of {r * size} and "
+                         f"{dr * size} B at addresses "
+                         f"{[hex(p) for p in ptrs]}; the kernel wants "
+                         "16-byte multiples")
+    out = paged_latent_cuda(q_lat, q_rope, c_pool, kr_pool, c_new, kr_new,
+                            tables, lengths, scale=scale)
+    return out, c_pool, kr_pool
+
+
+def _rows_16(q):
+    """``q`` if its last axis is contiguous and every row starts on a
+    16-byte boundary (the latent kernel reads rows in 16-byte words through
+    the other strides), else a contiguous copy."""
+    size = q.element_size()
+    if (q.stride(-1) == 1 and q.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s in q.stride()[:-1])):
+        return q
+    return q.contiguous()
 
 
 def paged_window_write(pool, new, tables, start, active=None):

@@ -8,7 +8,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import bind, check_status, count_launch, stream_ptr
+from repro_torch.kernels import (WKV_FORMS, bind, check_status, count_launch,
+                                 stream_ptr)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"none": 0, "all": 1, "last": 2}
@@ -36,4 +37,5 @@ def rwkv_wkv_cuda(r, k, v, w, u, state0, states: str):
                 stream_ptr(r.device))
     check_status("rwkv_wkv", status)
     count_launch("rwkv_wkv")
+    WKV_FORMS[states] += 1
     return y if s_out is None else (y, s_out)

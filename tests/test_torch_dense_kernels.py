@@ -24,6 +24,12 @@ within 1e-6 against the plain version and the Pallas kernel: chunks with no
 visible key, a row of length 0, several row tiles, chunks that do not
 divide the keys.
 
+The WKV kernel's prefill and zero-state schedule (the state in 8-row
+groups by column, each group's partial of y summed in the thread's order,
+the groups added once per chunk) is emulated in float32 torch ops and
+held within 2e-5 against the Pallas kernel, the model scan and the plain
+version.
+
 The CUDA kernels are held against these plain versions on the card by
 ``tests/test_torch_gpu.py``.
 """
@@ -259,3 +265,57 @@ def test_solo_sampler_on_the_decode_op_matches_jax(qwen):
             return top2_margin(np.asarray(logits[0, -1] + e[0, 0]))
         check_token_agreement(ref, toks[b, :25].numpy(), margin_at, tol=1e-4,
                               start=5)
+
+
+def _spread_wkv(r, k, v, w, u, s0):
+    """rwkv_wkv.cu's form 0 and 2 schedule in float32 torch ops: the state
+    in row groups of 8 (a warp's) by column; per step each group's partial
+    of y_t summed as the thread sums it (even rows into one accumulator,
+    odd rows into another, the two added), the groups' partials added in
+    order once per chunk, and S <- w S + k v per element. Columns are
+    independent, so the CTAs' column halves and the 16-step chunks change
+    no value. Returns (y, the state after the last position)."""
+    B, T, H, hd = r.shape
+    r, k, v, w = (a.float() for a in (r, k, v, w))
+    uu = u.float()[None, :, :, None]                    # (1, H, hd, 1)
+    S = s0.clone() if s0 is not None else torch.zeros((B, H, hd, hd))
+    y = torch.zeros((B, T, H, hd))
+    for t in range(T):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # (B, H, hd, hd)
+        part = (r[:, t, :, :, None] * (S + uu * kv)).reshape(
+            B, H, hd // 8, 8, hd)
+        ya, yb = part[:, :, :, 0], part[:, :, :, 1]
+        for m in range(2, 8, 2):
+            ya = ya + part[:, :, :, m]
+            yb = yb + part[:, :, :, m + 1]
+        groups = ya + yb                                # (B, H, hd/8, hd)
+        acc = groups[:, :, 0]
+        for g in range(1, hd // 8):
+            acc = acc + groups[:, :, g]
+        y[:, t] = acc
+        S = w[:, t, :, :, None] * S + kv
+    return y, S
+
+
+@pytest.mark.parametrize("B,T,hd", [(2, 1, 64), (1, 17, 64), (2, 33, 32),
+                                    (3, 100, 32)])
+def test_wkv_spread_schedule_matches_pallas_and_model_scan(B, T, hd):
+    """The spread kernel's schedule from the zero state against the Pallas
+    kernel, and from a random float32 state (the prefill form) against the
+    model scan, at T = 1, past one and two 16-step chunks, hd 32 and 64,
+    B up to 3; within 2e-5 relative to the largest value, as the plain
+    version."""
+    rng = np.random.default_rng(500 + T + hd + B)
+    r, k, v, w, u = _wkv_inputs(rng, B, T, 4, hd)
+    y0, _ = _spread_wkv(*map(_t, (r, k, v, w, u)), None)
+    want = jax_rwkv_wkv(*map(jnp.asarray, (r, k, v, w, u)), use_kernel=True,
+                        interpret=True)
+    _close_rel(y0, want, 2e-5)
+    s0 = rng.standard_normal((B, 4, hd, hd)).astype(np.float32)
+    y, S = _spread_wkv(*map(_t, (r, k, v, w, u, s0)))
+    jy, jS = JaxTMix._wkv_scan(*map(jnp.asarray, (r, k, v, w, u, s0)))
+    _close_rel(y, jy, 2e-5)
+    _close_rel(S, np.asarray(jS)[:, -1], 2e-5)
+    py, pS = rwkv_wkv(*map(_t, (r, k, v, w, u, s0)), states="last")
+    _close_rel(y, py, 2e-5)
+    _close_rel(S, pS, 2e-5)

@@ -28,7 +28,9 @@ state in float32 and round each output once, so they part by at most one
 bf16 ulp beyond the float32 drift). The dense flash-decode output as the
 paged decode's: 1e-5 in float32 and 1e-2 in bfloat16. Both split-key
 decode kernels give the same output bitwise on repeated calls and in CUDA
-graph replay, and leave their shared ticket counters at 0.
+graph replay, and leave their shared ticket counters at 0; so does the
+latent kernel, which also reads q_lat and q_rope as the model's
+non-contiguous views without a copy (the call allocates only its output).
 """
 import numpy as np
 import pytest
@@ -132,6 +134,92 @@ def test_paged_latent_kernel_matches_plain_on_gpu(cuda, dtype, W, H, r, dr):
     assert torch.equal(c1[1:], c2[1:]) and torch.equal(k1[1:], k2[1:])
     tol = 2e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _latent_case(cuda, dtype, B, W, lengths, seed, H=128, r=512, dr=64,
+                 bs=16, nb=17, empty=()):
+    """Inputs of a latent call; q_lat and q_rope are the model's views:
+    q_lat a (B, W, H, r) permutation of an (H, B, W, r) tensor, as
+    ``MLAttention._absorb_query``'s einsum may give it, and q_rope the
+    trailing dr values of (B, W, H, 128 + dr) rows, as ``MLAttention._q``
+    slices them. Sequences in ``empty`` have all-zero tables."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    P = 1 + B * nb + 2
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda).to(  # noqa
+        dtype)
+    ql = rn(H, B, W, r).permute(1, 2, 0, 3)
+    qr = rn(B, W, H, 128 + dr)[..., 128:]
+    tables = (torch.randperm(P - 1, generator=g, device=cuda)[:B * nb]
+              + 1).reshape(B, nb).to(torch.int32)
+    for b in empty:
+        tables[b] = 0
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    return (ql, qr, rn(P, bs, r), rn(P, bs, dr), rn(B, W, r), rn(B, W, dr),
+            tables, lens, 1.0 / (128 + dr) ** 0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,lengths,empty,H,r,dr", [
+    (2, 8, (264, 37), (), 128, 512, 64),     # 9 key tiles, to the span
+    (1, 64, (16,), (), 128, 512, 64),        # the 64-wide prefill chunk
+    (2, 1, (271, 0), (1,), 128, 512, 64),    # the last slot; an empty slot
+    (3, 8, (40, 0, 17), (1,), 4, 32, 16)])   # reduced widths, empty slot
+def test_paged_latent_kernel_reads_model_views_on_gpu(
+        cuda, dtype, B, W, lengths, empty, H, r, dr):
+    """q_lat and q_rope as the model's non-contiguous views, read in place:
+    the call launches the kernel once and allocates nothing but its
+    (B, W, H, r) output (a copy of q or of the output would allocate), it
+    writes the pools as the plain version does (block 0 excluded) and its
+    output is within the kernel test's tolerance."""
+    ql, qr, cp, krp, cn, krn, tables, lens, scale = _latent_case(
+        cuda, dtype, B, W, lengths, W + B, H, r, dr, empty=empty)
+    assert not ql.is_contiguous() and not qr.is_contiguous()
+    c1, k1, c2, k2 = cp.clone(), krp.clone(), cp.clone(), krp.clone()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    reset_launches()
+    got, c1, k1 = paged_latent_attention(ql, qr, c1, k1, cn, krn, tables,
+                                         lens, scale=scale)
+    assert LAUNCHES["paged_latent"] == 1
+    out_bytes = -(-got.numel() * got.element_size() // 512) * 512
+    assert torch.cuda.max_memory_allocated(cuda) - before == out_bytes
+    assert got.shape == (B, W, H, r) and got.is_contiguous()
+    want, c2, k2 = paged_latent_fused_ref(ql, qr, c2, k2, cn, krn, tables,
+                                          lens, scale=scale)
+    assert torch.equal(c1[1:], c2[1:]) and torch.equal(k1[1:], k2[1:])
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    live = [b for b in range(B) if b not in empty]
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               rtol=tol, atol=tol)
+
+
+def test_paged_latent_repeats_and_replays_bitwise_on_gpu(cuda):
+    """bf16 at the verify shape: two calls in a row, then the call
+    captured in a CUDA graph and replayed three times, each give the first
+    call's output bitwise and the same pools (the window rows written
+    again with the same values)."""
+    ql, qr, cp, krp, cn, krn, tables, lens, scale = _latent_case(
+        cuda, torch.bfloat16, 2, 8, (100, 37), 11)
+    reset_launches()
+    first, cp, krp = paged_latent_attention(ql, qr, cp, krp, cn, krn,
+                                            tables, lens, scale=scale)
+    c_first, k_first = cp.clone(), krp.clone()
+    second, cp, krp = paged_latent_attention(ql, qr, cp, krp, cn, krn,
+                                             tables, lens, scale=scale)
+    assert LAUNCHES["paged_latent"] == 2
+    assert torch.equal(first, second)
+    assert torch.equal(cp, c_first) and torch.equal(krp, k_first)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured, _, _ = paged_latent_attention(ql, qr, cp, krp, cn, krn,
+                                                tables, lens, scale=scale)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+        assert torch.equal(cp, c_first) and torch.equal(krp, k_first)
 
 
 def _flash_inputs(cuda, B, T, H, KV, d, dtype, seed):
@@ -246,6 +334,36 @@ def test_rwkv_wkv_kernel_matches_plain_on_gpu(cuda, dtype, B, T, H, hd,
         got, want = (got,), (want,)
     assert got[0].dtype == dtype
     assert all(a.dtype == torch.float32 for a in got[1:])
+    for a, b in zip(got, want):
+        _wkv_close(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("states", ["none", "all", "last"])
+@pytest.mark.parametrize("B,T,H,hd", [
+    (2, 1, 64, 64),            # one position
+    (1, 17, 64, 64),           # one step past the spread kernel's chunk
+    (1, 33, 64, 64),           # one step past the verify kernel's chunk
+    (3, 70, 8, 32)])           # the reduced config's head width, B = 3
+def test_rwkv_wkv_kernel_edges_on_gpu(cuda, dtype, states, B, T, H, hd):
+    """Every form at T = 1, one step past each kernel's chunk (16 steps
+    for the zero-state and last-state forms, 32 for every-state) and at
+    hd = 32 with B = 3, from a random float32 state where the form takes
+    one."""
+    g = torch.Generator(device=cuda).manual_seed(T + hd + B)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    r, k, v = (rn(B, T, H, hd).to(dtype) for _ in range(3))
+    w = (1 - 0.02 * torch.rand((B, T, H, hd), generator=g,
+                               device=cuda)).to(dtype)
+    u = rn(H, hd).to(dtype)
+    s0 = None if states == "none" else rn(B, H, hd, hd)
+    reset_launches()
+    got = rwkv_wkv(r, k, v, w, u, s0, states)
+    assert LAUNCHES["rwkv_wkv"] == 1
+    want = rwkv_wkv_ref(r, k, v, w, u, s0, states)
+    torch.cuda.synchronize()
+    if states == "none":
+        got, want = (got,), (want,)
     for a, b in zip(got, want):
         _wkv_close(a, b)
 

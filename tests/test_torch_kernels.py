@@ -16,6 +16,16 @@ a kv head. It is held within 1e-6 against the plain version and the Pallas
 kernel, its pools bitwise (sink excluded), and its writeback must write
 every in-table window slot exactly once and no slot the attention reads.
 
+The latent kernel's bf16 tensor-core arithmetic (``csrc/paged_latent.cu``)
+is emulated in float32 torch ops on bf16-valued inputs, on the plan
+``latent_plan`` gives the wrapper: 64-row tiles of rows w * H + h, q read
+through the model's views, column splits, 32-key tiles from the window
+rows or the table, the score K-sliced in k16 steps over r then dr in two
+halves, the softmax in log2 units and P split hi + lo. It is held within
+1e-4 against the Pallas kernel and the plain version (P keeps 16 bits of
+mantissa), its pools bitwise (sink excluded), and its commit must write
+every in-table window slot once and no slot the attention reads.
+
 The CUDA kernels are held against these plain versions on the card by
 ``tests/test_torch_gpu.py``.
 """
@@ -30,6 +40,7 @@ from repro.kernels.paged_attention.ops import paged_attention as jax_paged
 from repro.kernels.paged_attention.ops import \
     paged_latent_attention as jax_paged_latent
 from repro.kernels.spec_verify.kernel import spec_verify_kernel
+from repro_torch.kernels.paged_attention.kernel import latent_plan
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_latent_attention,
                                                      paged_window_write)
@@ -275,3 +286,158 @@ def test_paged_split_decode_matches_plain_and_pallas(W, window, lengths,
     np.testing.assert_array_equal(gv.numpy()[1:], np.asarray(wv)[1:])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
+
+
+def test_latent_plan_fills_the_card_from_the_shapes():
+    """64-row tiles, and the fewest column splits whose CTAs reach one per
+    SM, else the most the kernel is compiled for: 4 at the verify (B = 2,
+    W = 8) and decode shapes, 2 at a 64-wide prefill chunk, 1 at the
+    reduced widths."""
+    assert latent_plan(128 * 8, 2, 512, 64) == (16, 4)
+    assert latent_plan(128 * 64, 1, 512, 64) == (128, 2)
+    assert latent_plan(128, 2, 512, 64) == (2, 4)
+    assert latent_plan(4 * 8, 2, 32, 16) == (1, 1)
+    assert latent_plan(4 * 64, 1, 32, 16) == (4, 1)
+    assert latent_plan(8 * 8, 3, 512, 64) == (1, 4)
+
+
+def _bf16(a):
+    """float32 values that bfloat16 holds exactly (the kernel's operands)."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _tc_latent(ql, qr, cp, kp, cn, kn, tables, lengths, scale):
+    """paged_latent.cu's bf16 tensor-core arithmetic in float32 torch ops,
+    on the plan ``latent_plan`` gives the wrapper: per sequence, 64-row
+    tiles of rows w * H + h, each query row read from q_lat and q_rope
+    through their (b, w, h) indexing (the kernel's strides); per column
+    split, the tile's visible keys in 32-key tiles, each key from
+    c_new/kr_new inside the window and through the table elsewhere; the
+    score of a k16 step as a float32 product of bf16 values (exact), summed
+    over the steps of each half of the 576-deep product (r, then dr), the
+    halves added; the online softmax in log2 units (exp2); P split into
+    hi = bf16(p) and lo = bf16(p - hi), each multiplied by the tile's
+    c_kv rows (its split's columns) 16 keys at a time. The pools are read
+    as they were before the call; the window commit (row w by the CTA
+    w mod the sequence's CTA count) goes to copies. Returns (out, c_pool,
+    kr_pool, writes, reads): the slots written with their counts and those
+    read."""
+    B, W, H, r = ql.shape
+    dr = qr.shape[-1]
+    bs, nb = cp.shape[1], tables.shape[1]
+    span, R = nb * bs, H * W
+    n_tiles, splits = latent_plan(R, B, r, dr)
+    steps = (r + dr) // 16
+    scale2 = scale * 1.4426950408889634
+    out = torch.zeros((B, W, H, r))
+    c_out, k_out = cp.clone(), kp.clone()
+    writes, reads = {}, set()
+    for b in range(B):
+        L = int(lengths[b])
+        n_ctas = n_tiles * splits
+        for cta in range(n_ctas):                      # the commit
+            for w in range(cta, W, n_ctas):
+                if L + w < span:
+                    slot = (int(tables[b, (L + w) // bs]), (L + w) % bs)
+                    writes[slot] = writes.get(slot, 0) + 1
+                    c_out[slot], k_out[slot] = cn[b, w], kn[b, w]
+        for tile in range(n_tiles):
+            row0 = tile * 64
+            nr = min(64, R - row0)
+            rows = torch.arange(row0, row0 + nr)
+            w, h = rows // H, rows % H
+            q = torch.cat([ql[b, w, h], qr[b, w, h]], -1).float()
+            n_keys = min(L + (row0 + nr - 1) // H + 1, span)
+            last = torch.clamp(L + w, max=n_keys - 1)
+            for cq in range(splits):
+                cols = slice(cq * r // splits, (cq + 1) * r // splits)
+                m = torch.full((nr,), -1e30)
+                l, acc = torch.zeros(nr), torch.zeros((nr, r // splits))
+                for k0 in range(0, n_keys, 32):
+                    kr_ = []
+                    for p in range(k0, min(k0 + 32, n_keys)):
+                        if p >= L:
+                            kr_.append(torch.cat([cn[b, p - L], kn[b, p - L]]))
+                        else:
+                            slot = (int(tables[b, p // bs]), p % bs)
+                            reads.add(slot)
+                            kr_.append(torch.cat([cp[slot], kp[slot]]))
+                    K = torch.stack(kr_).float()
+                    halves = []
+                    for lo_, hi_ in ((0, steps // 2), (steps // 2, steps)):
+                        part = torch.zeros((nr, K.shape[0]))
+                        for st in range(lo_, hi_):
+                            ks = slice(16 * st, 16 * st + 16)
+                            part = part + q[:, ks] @ K[:, ks].T
+                        halves.append(part)
+                    s = halves[0] + halves[1]
+                    vis = (torch.arange(k0, k0 + K.shape[0])[None]
+                           <= last[:, None])
+                    x = torch.where(vis, s * scale2, torch.tensor(-1e30))
+                    m_new = torch.maximum(m, x.amax(1))
+                    p = torch.where(vis, torch.exp2(x - m_new[:, None]), 0.0)
+                    alpha = torch.exp2(m - m_new)
+                    l = alpha * l + p.sum(1)
+                    m = m_new
+                    hi = p.to(torch.bfloat16).float()
+                    lo = (p - hi).to(torch.bfloat16).float()
+                    acc = acc * alpha[:, None]
+                    V = K[:, cols]
+                    for j0 in range(0, K.shape[0], 16):
+                        js = slice(j0, j0 + 16)
+                        acc = acc + hi[:, js] @ V[js]
+                        acc = acc + lo[:, js] @ V[js]
+                out[b, w, h, cols] = acc / torch.clamp(l, min=1e-30)[:, None]
+    return out, c_out, k_out, writes, reads
+
+
+@pytest.mark.parametrize("W,H,r,dr,lengths,empty", [
+    (1, 4, 32, 16, (60, 3), False),         # decode, reduced widths
+    (8, 4, 32, 16, (83, 0), True),          # verify; an empty slot
+    (64, 4, 32, 16, (16, 20), False),       # a prefill chunk: 4 row tiles
+    (8, 16, 32, 16, (45, 9), False),        # tiles spanning several w
+    (8, 8, 512, 64, (50, 7), False)])       # the full latent: 4 splits
+def test_latent_tensor_core_arithmetic_matches_plain_and_pallas(
+        W, H, r, dr, lengths, empty):
+    """The emulated kernel on bf16-valued inputs, q_lat and q_rope as the
+    model's views (a permutation; the rope slice of q's rows): pools
+    bitwise against the Pallas kernel (sink excluded), every in-table
+    window slot written once and none the attention reads, and the output
+    within 1e-4 of the Pallas kernel's and the plain version's (float32
+    sums in another order, and P kept to 16 bits of mantissa: p - hi - lo
+    is below 2^-16 p)."""
+    rng = np.random.default_rng(400 + W + H + r)
+    B, bs, nb = 2, 16, 6
+    P = 1 + B * nb
+    ql = _bf16(rng.standard_normal((H, B, W, r)).astype(np.float32))
+    qr = _bf16(rng.standard_normal((B, W, H, 128 + dr)).astype(np.float32))
+    cp, kp, cn, kn = (_bf16(rng.standard_normal(s).astype(np.float32))
+                      for s in ((P, bs, r), (P, bs, dr), (B, W, r),
+                                (B, W, dr)))
+    lens = np.array(lengths, np.int32)
+    alloc = [min(nb, -(-(L + W) // bs)) for L in lengths]
+    tables = _tables(rng, B, nb, P, alloc)
+    if empty:
+        tables[1] = 0
+    scale = 1.0 / (128 + dr) ** 0.5
+    ql_v = _t(ql).permute(1, 2, 0, 3)           # (B, W, H, r), strided
+    qr_v = _t(qr)[..., 128:]                     # the rope slice
+    ins = (cp, kp, cn, kn, tables, lens)
+    got, gc, gk, writes, reads = _tc_latent(ql_v, qr_v, *map(_t, ins),
+                                            scale)
+    want_writes = {(int(tables[b, (L + w) // bs]), (L + w) % bs)
+                   for b, L in enumerate(lengths) for w in range(W)
+                   if L + w < nb * bs}
+    assert set(writes) == want_writes and set(writes.values()) == {1}
+    assert not reads & set(writes)
+    want, wc, wk = jax_paged_latent(
+        jnp.asarray(ql.transpose(1, 2, 0, 3)), jnp.asarray(qr[..., 128:]),
+        *map(jnp.asarray, ins), scale=scale, interpret=True)
+    np.testing.assert_array_equal(gc.numpy()[1:], np.asarray(wc)[1:])
+    np.testing.assert_array_equal(gk.numpy()[1:], np.asarray(wk)[1:])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    plain, _, _ = paged_latent_attention(
+        ql_v, qr_v, *map(_t, ins), scale=scale)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-4,
+                               atol=1e-4)
