@@ -57,7 +57,31 @@ which fails the script when it fails:
    full width with its attention on the dense flash-decode kernel in the
    prompt prefill and every round (28 launches per pass), its tokens
    against the plain solo sampler and against phase 3's served tokens
-   under the margin rule.
+   under the margin rule;
+11. the samplers of the paper's Table 1 at its full widths, in float32
+   with TF32 off, on briefly trained models (their % of ARM calls check
+   the path, not the paper's numbers): binary_mnist's PixelCNN (28x28x1,
+   K = 2, 60 filters, 2 blocks) with a T = 20 forecast, trained jointly
+   (bits/dim + 0.01 x KL, AdamW, batch 32 of synthetic strokes) until
+   bits/dim falls, its strict triangular dependence checked bitwise, then
+   sampled at batch 1 and 16 by ancestral sampling, the zeros,
+   predict-last, fpi and learned forecasts and Algorithm 2, every sample
+   bitwise equal to ancestral sampling's, with % ARM calls, seconds per
+   batch, ms per ARM call beside its float32 FLOP bound, the busy share
+   of a profiled fpi run, and how far the samples rest on their context;
+   the same on a control whose samples demonstrably do (the untrained
+   ARM, its logits sharpened); then cifar10_8bit's (32x32x3, K = 256, 162
+   filters, 5 blocks, T = 5) on synthetic textures, sampled by ancestral,
+   fpi and learned forecasts;
+12. the samplers of the paper's Table 2 at its full widths: the discrete
+   autoencoder (32x32x3, width 512, 8x8x4 latents of K = 128) trained on
+   MSE (AdamW 3e-4) until it falls, twice under cuDNN's deterministic
+   algorithms, the two bitwise equal; frozen, its latents encoded, and
+   the latent PixelCNN (160 filters, 5 blocks, T = 1) trained on them
+   and sampled as in phase 11.
+
+Phases 11-12 run no kernel of the port's own: the reference's image path
+reaches no Pallas kernel.
 
 Phase 2 also holds the flash-attention kernel (the training path's) against
 its plain version at qwen3-1.7b's training shape, a ragged length and
@@ -1506,6 +1530,394 @@ def solo_dense(dev, cfg, served, tol):
     return out, total
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-12: the samplers of the paper's Tables 1 and 2 at full width
+# ---------------------------------------------------------------------------
+
+# the samplers of the paper's Table 1 (benchmarks/table1_image.py's
+# methods, with Algorithm 2 beside them); "baseline" is ancestral sampling
+IMAGE_METHODS = ("baseline", "zeros", "last", "fpi", "alg2", "learned")
+# training steps at batch 32: enough for the loss to fall well clear of its
+# noise, few enough that both phases stay near 300 s on the card
+MNIST_STEPS, CIFAR_STEPS, AE_STEPS, LATENT_STEPS = 300, 150, 400, 200
+# the autoencoder's rate: at the ARMs' 2e-3 (the reference's, which trains
+# it at reduced widths) the full-width encoder collapses onto one code per
+# latent position, and the latent ARM then has nothing to model
+AE_LR = 3e-4
+# the equality gate's control: briefly trained ARMs barely read their
+# context, and every sampler equals ancestral sampling trivially where the
+# context decides no sample. Untrained binary_mnist with its logits x16
+# (the output layer's weights) lets the context decide far more samples
+# than the noise alone; at least CONTROL_MIN_SHARE of them must change
+# with another sample's context (``context_report``)
+CONTROL_SHARPEN, CONTROL_MIN_SHARE = 16.0, 0.2
+
+
+def arm_flops(cfg) -> int:
+    """Operations of one PixelCNN forward per image, 2·H·W·Σ k²·c_in·c_out
+    over its convolutions (masked weights included: the convolutions
+    compute them)."""
+    C, K, F = cfg.channels, cfg.categories, cfg.filters
+    taps = (cfg.first_kernel ** 2 * C * K * F
+            + cfg.n_res * cfg.kernel ** 2 * (2 * F * F + 2 * F * 2 * F)
+            + 2 * F * C * K)
+    return 2 * cfg.height * cfg.width * taps
+
+
+def assert_on_card(*tensors):
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise AssertionError(f"a tensor of the paper's path is on "
+                                 f"{t.device}, not the card")
+
+
+def train_loop(label, tree, loss_fn, data, steps, lr=2e-3, batch=32,
+               seed=0):
+    """``steps`` AdamW(``lr``) steps of ``loss_fn(tree, batch) -> loss`` on
+    random batches of the on-card ``data``, the frozen leaves (``_mask``)
+    zeroed, as the reference's ``benchmarks/common.py`` trains; the mean
+    loss of the last 10 steps must fall below 0.95 x the first 10's.
+    Returns the trained tree and a report (losses, seconds)."""
+    import numpy as np
+    import torch
+    from repro_torch import optim
+    from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
+    opt = optim.adamw(lr)
+    state = opt.init(tree)
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.integers(0, data.shape[0],
+                                        size=(steps, batch))).to(data.device)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(steps):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(tree)]
+        loss = loss_fn(tree_unflatten(tree, leaves), data[idx[s]])
+        grads = optim.zero_frozen(tree_unflatten(
+            tree, torch.autograd.grad(loss, leaves)))
+        tree, state = opt.step(grads, state, tree)
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses = torch.stack(losses).cpu().tolist()
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    log(f"train {label}: {steps} steps at batch {batch} in {secs:.2f} s "
+        f"({secs / steps * 1e3:.2f} ms per step); loss, mean of the first "
+        f"10 steps {first:.5f}, of the last 10 {last:.5f}")
+    if not last < 0.95 * first:
+        raise AssertionError(f"{label}: the loss did not fall ({first} -> "
+                             f"{last})")
+    return tree, {"steps": steps, "batch": batch, "seconds": secs,
+                  "first10": first, "last10": last}
+
+
+def init_pixelcnn(cfg, fcfg, dev):
+    """The ARM and its forecast, drawn from seed 0."""
+    import torch
+    from repro_torch.core.forecasting import PixelForecast
+    from repro_torch.models.pixelcnn import PixelCNN
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return {"arm": PixelCNN.init(gen, cfg, device=dev),
+            "forecast": PixelForecast.init(gen, fcfg, device=dev)}
+
+
+def train_pixelcnn(label, cfg, fcfg, data, steps, dev):
+    """The ARM and its forecast trained jointly on the on-card ``data``
+    (bits/dim + 0.01 x the forecast KL, ``models/losses.py:
+    pixelcnn_loss``)."""
+    from repro_torch.models.losses import pixelcnn_loss
+    tree = init_pixelcnn(cfg, fcfg, dev)
+    assert_on_card(data, tree["arm"]["in_conv"]["w"])
+    return train_loop(
+        label, tree, lambda t, b: pixelcnn_loss(t["arm"], t["forecast"], b,
+                                                cfg, fcfg)[0], data, steps)
+
+
+def busy_union_s(prof):
+    """Seconds in which at least one kernel ran: the union of the device
+    events' intervals (kernels on several streams, as cuDNN's FFT
+    convolutions run, overlap, so their summed times can exceed the
+    wall)."""
+    iv = sorted((e.time_range.start, e.time_range.end)
+                for e in prof.events()
+                if "CUDA" in str(getattr(e, "device_type", "")))
+    total, end = 0.0, -math.inf
+    for a, b in iv:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e6
+
+
+def triangular_check(arm, cfg, dev, B=2):
+    """Strict triangular dependence, bitwise, at full width: for j in 0,
+    d/2 and d-1, changing x[:, j], and separately redrawing every input
+    from j on, leaves logits[:, :j+1] unchanged to the bit."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randint(0, cfg.categories, (B, cfg.d), generator=gen,
+                      device=dev)
+    base, _ = arm(x)
+    js = (0, cfg.d // 2, cfg.d - 1)
+    for j in js:
+        one = x.clone()
+        one[:, j] = (one[:, j] + 1) % cfg.categories
+        rest = x.clone()
+        rest[:, j:] = torch.randint(0, cfg.categories, (B, cfg.d - j),
+                                    generator=gen, device=dev)
+        for what, x2 in (("x[:, j]", one), ("x[:, j:]", rest)):
+            pert, _ = arm(x2)
+            if not torch.equal(pert[:, :j + 1], base[:, :j + 1]):
+                bad = (pert[:, :j + 1] != base[:, :j + 1]).any(-1)
+                raise AssertionError(
+                    f"changing {what} at j = {j} moved the logits of "
+                    f"positions {bad.nonzero()[:4, 1].tolist()}...")
+    log(f"strict triangular dependence bitwise at full width (d = "
+        f"{cfg.d}, B = {B}, j in {js}, one input and every input from j)")
+    return {"j": list(js), "B": B, "bitwise": True}
+
+
+def context_report(label, cfg, arm, params, data, eps, x):
+    """How far the ARM's samples rest on their context: its bits/dim on 64
+    of its training ``data`` beside the data's per-position marginal
+    entropy (the bits/dim of the best model that ignores the context), and
+    the share of the ancestral samples ``x``'s positions whose sample
+    changes, under the same ``eps``, when the context is another sample's
+    (0 for an ARM that ignores its context: every sampler then equals
+    ancestral sampling whatever its forecasts)."""
+    import torch
+    from repro_torch.core.reparam import reparam_argmax
+    from repro_torch.models.pixelcnn import PixelCNN
+    K, d, n = cfg.categories, cfg.d, data.shape[0]
+    with torch.no_grad():
+        bpd = float(PixelCNN.bpd(params, data[:64], cfg))
+        other, _ = arm(x.roll(1, 0))
+        share = float((reparam_argmax(other, eps) != x).float().mean())
+    at = data.reshape(n, d).long() + K * torch.arange(d, device=data.device)
+    p = torch.bincount(at.reshape(-1), minlength=d * K).reshape(
+        d, K).double() / n
+    marginal = float(-(p * torch.log2(p.clamp_min(1e-300))).sum() / d)
+    log(f"  {label}: {bpd:.4f} bits/dim on 64 training images, "
+        f"{marginal:.4f} under the data's per-position marginals; "
+        f"another sample's context changes {share:.4f} of the samples "
+        f"(B = {x.shape[0]})")
+    return {"bpd": bpd, "marginal_bpd": marginal, "context_share": share}
+
+
+def sample_table(label, cfg, tree, fcfg, methods, dev, data):
+    """Each method at batch 1 and 16 with one shared eps per batch (the
+    port's threefry Gumbel noise), after a warm-up of two ARM calls per
+    method; every method's samples must equal ancestral sampling's
+    bitwise. Returns a row per (batch, method): % ARM calls, wall seconds
+    per sampled batch, ms per ARM call and its float32 FLOP bound. Each
+    method's timed run is its only full run (ancestral sampling's warm-up
+    is the others': it runs the same ARM calls). One fpi run at batch 16
+    is profiled for the device's busy share; ``context_report`` of the
+    ancestral samples at batch 16 on the ``data``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import predictive_sampling as ps
+    from repro_torch.core import random as jr
+    from repro_torch.core import reparam
+    from repro_torch.core.forecasting import PixelForecast
+    from repro_torch.models.pixelcnn import PixelCNN
+    arm = PixelCNN.make_arm_fn(tree["arm"], cfg)
+    learned = ps.make_learned_forecast(
+        PixelForecast.module_fn(tree["forecast"], fcfg),
+        window=fcfg.horizon * cfg.channels, group=cfg.channels)
+    fc = {"zeros": ps.zeros_forecast, "last": ps.predict_last_forecast,
+          "fpi": ps.fpi_forecast, "learned": learned}
+
+    def run(method, eps, max_iters=None):
+        if method == "baseline":
+            return ps.ancestral_sample(arm, eps)
+        if method == "alg2":
+            return ps.fixed_point_sample(arm, eps, max_iters)
+        return ps.predictive_sample(arm, fc[method], eps, max_iters)
+
+    flops = arm_flops(cfg)
+    rows, out = [], {"arm_gflop_per_image": flops / 1e9}
+    for B in (1, 16):
+        eps = reparam.gumbel(jr.fold_in(jr.prng_key(7, device=dev), B),
+                             (B, cfg.d, cfg.categories))
+        assert_on_card(eps)
+        for m in methods:
+            if m != "baseline":
+                run(m, eps, max_iters=2)
+        ref = None
+        for m in methods:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, stats = run(m, eps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            assert_on_card(x)
+            if m == "baseline":
+                ref = x
+                if not ((x >= 0) & (x < cfg.categories)).all():
+                    raise AssertionError(f"{label}: samples out of range")
+                if B == 16:
+                    out["context"] = context_report(label, cfg, arm,
+                                                    tree["arm"], data, eps,
+                                                    x)
+            elif not torch.equal(x, ref):
+                n_bad = int((x != ref).sum())
+                raise AssertionError(
+                    f"{label} B={B}: {m} differs from ancestral sampling at "
+                    f"{n_bad} positions")
+            if (stats.per_sample_calls > stats.arm_calls).any():
+                raise AssertionError(f"{label} {m}: per-sample calls")
+            calls = stats.arm_calls
+            row = {"batch": B, "method": m, "arm_calls": calls,
+                   "calls_pct": 100.0 * calls / cfg.d, "wall_s": wall,
+                   "ms_per_call": wall / calls * 1e3,
+                   "bound_ms_per_call": flops * B / PEAK_OPS["float32"]
+                   * 1e3,
+                   "per_sample_calls_mean": float(
+                       stats.per_sample_calls.float().mean())}
+            rows.append(row)
+            log(f"  {label} B={B:<2d} {m:8s} {calls:5d} ARM calls "
+                f"({row['calls_pct']:6.2f}% of d = {cfg.d}), {wall:8.3f} s "
+                f"per batch, {row['ms_per_call']:7.3f} ms per call (float32 "
+                f"bound {row['bound_ms_per_call']:.3f} ms), equal to "
+                f"ancestral: {'reference' if m == 'baseline' else 'bitwise'}")
+        if B == 16:
+            fpi_wall = next(r["wall_s"] for r in rows
+                            if r["batch"] == B and r["method"] == "fpi")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run("fpi", eps)
+                torch.cuda.synchronize()
+            kern = kernel_times(prof)
+            busy = busy_union_s(prof)
+            out["fpi_profile"] = {
+                "batch": B, "device_busy_s": busy, "wall_s": fpi_wall,
+                "kernel_time_sum_s": sum(k[0] for k in kern) / 1e6,
+                "busy_share": busy / fpi_wall if kern else None,
+                "top_kernels": [{"ms": us / 1e3, "count": n,
+                                 "name": name[:90]}
+                                for us, n, name in kern[:8]]}
+            if not kern:
+                log("profile: the profiler recorded no device time")
+            else:
+                log(f"  {label} fpi B={B} profiled: device busy {busy:.4f} s "
+                    f"of {fpi_wall:.4f} s unprofiled, busy share "
+                    f"{busy / fpi_wall:.4f}")
+                for k in out["fpi_profile"]["top_kernels"][:5]:
+                    log(f"    {k['ms']:9.3f} ms  x{k['count']:<6d} "
+                        f"{k['name']}")
+    out["rows"] = rows
+    return out
+
+
+def table1(dev):
+    """Phase 11: Table 1's samplers at full width. binary_mnist (28x28x1,
+    K = 2, 60 filters, 2 blocks; T = 20) and cifar10_8bit (32x32x3, K =
+    256, 162 filters, 5 blocks; T = 5), each trained jointly with its
+    forecast on the synthetic stand-ins, then sampled by every method at
+    batch 1 and 16, bitwise against ancestral sampling; between them the
+    control (``CONTROL_SHARPEN``)."""
+    import torch
+    from repro_torch.configs.paper import PIXELCNN_FULL, forecast_cfg
+    from repro_torch.data.synthetic import binary_strokes, quantized_textures
+    from repro_torch.models.pixelcnn import PixelCNN
+    out = {}
+    t0 = time.perf_counter()
+    cfg = PIXELCNN_FULL["binary_mnist"]
+    fcfg = forecast_cfg(cfg, 20)
+    data = torch.from_numpy(binary_strokes(2048, 28, 28, seed=0)).to(dev)
+    tree, out["mnist_train"] = train_pixelcnn(
+        "binary_mnist", cfg, fcfg, data, MNIST_STEPS, dev)
+    out["mnist_triangular"] = triangular_check(
+        PixelCNN.make_arm_fn(tree["arm"], cfg), cfg, dev)
+    out["mnist"] = sample_table("binary_mnist", cfg, tree, fcfg,
+                                IMAGE_METHODS, dev, data)
+    tree = init_pixelcnn(cfg, fcfg, dev)
+    tree["arm"]["out_conv"]["w"] *= CONTROL_SHARPEN
+    out["control"] = sample_table("control", cfg, tree, fcfg, IMAGE_METHODS,
+                                  dev, data)
+    share = out["control"]["context"]["context_share"]
+    if share < CONTROL_MIN_SHARE:
+        raise AssertionError(f"the control's samples rest on their context "
+                             f"at {share} of positions, below "
+                             f"{CONTROL_MIN_SHARE}: its gate is weak")
+    cfg = PIXELCNN_FULL["cifar10_8bit"]
+    fcfg = forecast_cfg(cfg, 5)
+    data = torch.from_numpy(quantized_textures(1024, 32, 32, 3, 256,
+                                               seed=1)).to(dev)
+    tree, out["cifar_train"] = train_pixelcnn(
+        "cifar10_8bit", cfg, fcfg, data, CIFAR_STEPS, dev)
+    out["cifar"] = sample_table("cifar10_8bit", cfg, tree, fcfg,
+                                ("baseline", "fpi", "learned"), dev, data)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 11 took {out['seconds']:.1f} s")
+    return out
+
+
+def table2(dev):
+    """Phase 12: Table 2's samplers at full width. The discrete
+    autoencoder (32x32x3, width 512, 8x8x4 latents of K = 128) trained on
+    MSE twice from one seed, the two bitwise equal (the codes the encoder
+    comes to use, and all that follows, hang on the last bit: ``main``
+    sets cuDNN's deterministic algorithms), frozen, its latents encoded;
+    the latent PixelCNN (160 filters, 5 blocks) trained with a T = 1
+    forecast on them and sampled as in phase 11."""
+    import torch
+    from repro_torch.configs.paper import (AE_FULL, LATENT_ARM_FULL,
+                                           forecast_cfg)
+    from repro_torch.data.synthetic import quantized_textures
+    from repro_torch.models.autoencoder import DiscreteAutoencoder as AE
+    from repro_torch.optim.optimizers import tree_leaves
+    out = {}
+    t0 = time.perf_counter()
+    imgs = torch.from_numpy(quantized_textures(1024, 32, 32, 3, 256,
+                                               seed=3)).to(dev)
+    x = imgs.float() / 127.5 - 1.0
+
+    def train_ae():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return train_loop(
+            "autoencoder (MSE)", AE.init(gen, AE_FULL, device=dev),
+            lambda p, b: AE.mse_loss(p, b, AE_FULL), x, AE_STEPS, AE_LR)
+
+    ae, out["ae_train"] = train_ae()
+    again, _ = train_ae()
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(ae),
+                                                  tree_leaves(again))):
+        raise AssertionError("two trainings of the autoencoder from one "
+                             "seed part")
+    log("the autoencoder trained twice from one seed: bitwise equal")
+    with torch.no_grad():
+        xhat, z = AE.reconstruct(ae, x[:16], AE_FULL)
+        h, w = AE_FULL.latent_hw
+        if xhat.shape != x[:16].shape or z.shape != (
+                16, h, w, AE_FULL.latent_channels):
+            raise AssertionError(f"decode(encode): {tuple(xhat.shape)}, "
+                                 f"{tuple(z.shape)}")
+        if not torch.isfinite(xhat).all():
+            raise AssertionError("non-finite reconstruction")
+        # the frozen encoder's latent dataset
+        z = torch.cat([AE.quantize(AE.encode_logits(ae, x[s:s + 256],
+                                                    AE_FULL))[0]
+                       for s in range(0, x.shape[0], 256)])
+        assert_on_card(z)
+        out["ae_mse_eval"] = float(torch.mean(torch.square(
+            x[:16] - xhat)))
+    out["latent_codes_used"] = int(torch.unique(z).numel())
+    log(f"latents {tuple(z.shape)}, {out['latent_codes_used']} of "
+        f"{AE_FULL.latent_categories} codes used; reconstruction MSE "
+        f"{out['ae_mse_eval']:.5f}")
+    lat = LATENT_ARM_FULL
+    fcfg = forecast_cfg(lat, 1)
+    tree, out["arm_train"] = train_pixelcnn(
+        "latent ARM", lat, fcfg, z, LATENT_STEPS, dev)
+    out["latent"] = sample_table("latent ARM", lat, tree, fcfg,
+                                 ("baseline", "fpi", "learned"), dev, z)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -1523,6 +1935,10 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuDNN runs only plain convolutions of phases 11-12 (the autoencoder's,
+    # the forecasts' 1x1 output layers), whose default backward algorithms
+    # are not deterministic: a training would end elsewhere from run to run
+    torch.backends.cudnn.deterministic = True
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1638,6 +2054,10 @@ def main(argv=None) -> int:
 
     # ---- phase 10: the solo sampler's dense cache on its kernel ----------
     report["solo_dense"], sd_launches = solo_dense(dev, cfg, done, tol)
+
+    # ---- phases 11-12: the samplers of Tables 1 and 2 at full width -----
+    report["table1"] = table1(dev)
+    report["table2"] = table2(dev)
 
     entries = []
     for name, rows, key, n, path, extra in (

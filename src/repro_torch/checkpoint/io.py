@@ -16,7 +16,10 @@ repeating block) between the ``prefix`` and ``suffix`` lists; the port's
 tree lists one dict per layer under ``params["layers"]``, in layer order.
 ``params_from_numpy`` and ``params_to_numpy`` convert between the two;
 every other subtree (the untied ``head``, the forecast heads
-``forecast.heads[t]``) has the same layout in both.
+``forecast.heads[t]``) has the same layout in both. A tree with no
+stacked blocks (PixelCNN, PixelForecast, the discrete autoencoder, their
+``_mask`` leaves included) has one layout in both packages and converts
+leaf for leaf with ``tree_from_numpy`` and ``tree_to_numpy``.
 """
 from __future__ import annotations
 
@@ -133,6 +136,21 @@ def _to_tensor(x, dtype, device):
     else:
         t = torch.from_numpy(np.array(a))
     return t.to(dtype=dtype or t.dtype, device=device)
+
+
+def tree_from_numpy(tree, dtype=None, device=None):
+    """A nested dict/list tree of numpy arrays as tensors of ``dtype``
+    (None: each leaf's own) on ``device``."""
+    return _map(tree, lambda a: _to_tensor(a, dtype, device))
+
+
+def tree_to_numpy(tree):
+    """Inverse of ``tree_from_numpy``: numpy arrays of the tensors' dtypes
+    (bfloat16 leaves as float32, which numpy can compute with)."""
+    def conv(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return _map(tree, conv)
 
 
 def params_from_numpy(tree, cfg, device=None):

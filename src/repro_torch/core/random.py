@@ -8,8 +8,13 @@ same noise, this module reproduces JAX's bit path with
 
 * a key is a pair of uint32 words; ``PRNGKey(seed)`` is ``(0, seed)``;
 * ``fold_in(key, d)`` hashes the counter pair ``(0, d)`` under ``key``;
+* ``split(key, n)`` gives the keys ``fold_in(key, i)`` for ``i < n``: with
+  partitionable threefry, JAX's split hashes the flat index ``i`` as the
+  counter pair ``(0, i)``, as ``fold_in`` hashes its data;
 * ``random_bits(key, (V,))`` hashes the counters ``(0, i)`` for
-  ``i < V`` and XORs the two output words;
+  ``i < V`` and XORs the two output words; a shaped draw such as
+  ``(B, d, K)`` counts the flat index, so the flat draw of ``B * d * K``
+  values reshaped is JAX's shaped one;
 * ``uniform`` keeps the top 23 bits as a mantissa in ``[1, 2)``, subtracts
   one, scales and clamps to ``minval``;
 * ``gumbel`` is ``-log(-log(uniform(minval=tiny, maxval=1)))``.
@@ -61,6 +66,12 @@ def fold_in(key, data):
     the key words broadcast against it."""
     data = torch.as_tensor(data).to(torch.int64) & M32
     return threefry2x32(key[0], key[1], torch.zeros_like(data), data)
+
+
+def split(key, num: int = 2):
+    """``jax.random.split(key, num)`` as a list of ``num`` keys."""
+    k1, k2 = fold_in(key, torch.arange(num, device=key[0].device))
+    return [(k1[i], k2[i]) for i in range(num)]
 
 
 def random_bits(key, n: int):

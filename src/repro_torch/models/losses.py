@@ -1,6 +1,8 @@
-"""Language-model losses: next-token cross-entropy plus, for a model with
-forecast heads, the paper's forecast-KL objective (Eq. 9, weight
-``cfg.forecast_loss_weight``, 0.01). Both are computed in float32.
+"""Training losses. Language models: next-token cross-entropy plus, for a
+model with forecast heads, the paper's forecast-KL objective (Eq. 9,
+weight ``cfg.forecast_loss_weight``, 0.01), both in float32. The image
+ARM: bits per dimension plus the same KL of its ``PixelForecast`` at
+weight 0.01 (``pixelcnn_loss``, the joint training of the paper's §4.1).
 
 The reference also adds its MoE load-balancing loss; no MoE layer is
 ported (ROADMAP.md §1 item 14), so ``moe_aux`` is 0 and the metrics keep
@@ -8,10 +10,13 @@ the reference's keys.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.forecasting import TokenForecast
+from repro_torch.core.forecasting import PixelForecast, TokenForecast
+from repro_torch.models.pixelcnn import PixelCNN
 from repro_torch.models.transformer import TransformerLM, forecast_config
 
 
@@ -45,3 +50,26 @@ def lm_loss(params, cfg, tokens, remat: bool = False,
         metrics["forecast_kl"] = kl
     metrics["loss"] = loss
     return loss, metrics
+
+
+# the image ARM's forecast-KL weight, as the reference's
+# ``benchmarks/common.py:train_pixelcnn`` trains
+PIXEL_FORECAST_WEIGHT = 0.01
+
+
+def pixelcnn_loss(params, fparams, images, cfg, fcfg):
+    """Bits per dimension of int ``images`` (B, H, W, C) under the PixelCNN
+    ``params``, plus ``PIXEL_FORECAST_WEIGHT`` times the KL of the
+    ``PixelForecast`` ``fparams`` over the shared ``h``. Returns (loss,
+    metrics) with ``bpd``, ``forecast_kl`` and ``loss``."""
+    logits, h = PixelCNN.forward_int(params, images, cfg)
+    logp = F.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, images.long()[..., None])
+    bpd = -torch.mean(torch.sum(ll, dim=(1, 2, 3, 4))) / (
+        cfg.d * math.log(2.0))
+    arm = logits.reshape(images.shape[0], cfg.height * cfg.width,
+                         cfg.channels, cfg.categories)
+    kl = PixelForecast.kl_loss(PixelForecast.apply(fparams, h, fcfg), arm,
+                               fcfg)
+    loss = bpd + PIXEL_FORECAST_WEIGHT * kl
+    return loss, {"bpd": bpd, "forecast_kl": kl, "loss": loss}

@@ -31,6 +31,13 @@ decode kernels give the same output bitwise on repeated calls and in CUDA
 graph replay, and leave their shared ticket counters at 0; so does the
 latent kernel, which also reads q_lat and q_rope as the model's
 non-contiguous views without a copy (the call allocates only its output).
+The paper's image path, which has no kernel of its own, with TF32 off:
+the full-width masked convolutions on the card within 1e-4 of the CPU's;
+strict triangular dependence of full-width binary_mnist, and every
+sampler's output against ancestral sampling's, bitwise; the masked
+convolution leaks no later pixel into an earlier output where cuDNN's
+route is measured beside it; the reparametrized noise is drawn on the
+logits' device.
 """
 import numpy as np
 import pytest
@@ -524,3 +531,176 @@ def test_paged_write_kernel_bitwise_on_gpu(cuda, W, row):
         assert LAUNCHES["paged_write"] == 1
         write_window_paged(p2, new, tables, start, active)
         assert torch.equal(p1[1:], p2[1:])
+
+
+# ---------------------------------------------------------------------------
+# The paper's image path. The reference's reaches no Pallas kernel, so the
+# port has none of its own there; its exactness on the card rests on the
+# masked convolutions' arithmetic, held here with TF32 off: logits at a
+# position must not change, to the bit, with the inputs from it on.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def no_tf32():
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = old
+
+
+def _paper_cfg(name):
+    from repro_torch.configs import paper
+    kind, arch = name.split(":")
+    return (paper.PIXELCNN_FULL if kind == "full"
+            else paper.PIXELCNN_REDUCED)[arch]
+
+
+def _pixelcnn_on(cuda, cfg, T=2, seed=0):
+    from repro_torch.configs.paper import forecast_cfg
+    from repro_torch.core.forecasting import PixelForecast
+    from repro_torch.models.pixelcnn import PixelCNN
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    fcfg = forecast_cfg(cfg, T)
+    return (PixelCNN.init(gen, cfg, device=cuda),
+            PixelForecast.init(gen, fcfg, device=cuda), fcfg)
+
+
+@pytest.mark.parametrize("name,B", [
+    ("full:binary_mnist", 1), ("full:binary_mnist", 16),
+    ("full:cifar10_8bit", 16), ("latent", 16)])
+def test_pixelcnn_full_width_triangular_bitwise_on_gpu(cuda, no_tf32, name,
+                                                       B):
+    """cifar10_8bit at B = 16 is the shape where cuDNN's FFT algorithm
+    leaked later pixels into earlier logits before the masked
+    convolutions ran as one matmul over the input's windows."""
+    from repro_torch.configs.paper import LATENT_ARM_FULL
+    from repro_torch.models.pixelcnn import PixelCNN
+    cfg = LATENT_ARM_FULL if name == "latent" else _paper_cfg(name)
+    arm = PixelCNN.make_arm_fn(_pixelcnn_on(cuda, cfg)[0], cfg)
+    g = torch.Generator(device=cuda).manual_seed(B)
+    K = cfg.categories
+    x = torch.randint(0, K, (B, cfg.d), generator=g, device=cuda)
+    base, _ = arm(x)
+    row = cfg.width * cfg.channels
+    for j in sorted({0, 1, row - 1, row, row + 1, cfg.d // 2, cfg.d - 2,
+                     cfg.d - 1}):
+        one = x.clone()
+        one[:, j] = (one[:, j] + 1) % K
+        rest = x.clone()
+        rest[:, j:] = torch.randint(0, K, (B, cfg.d - j), generator=g,
+                                    device=cuda)
+        for x2 in (one, rest):
+            assert torch.equal(arm(x2)[0][:, :j + 1], base[:, :j + 1]), j
+
+
+@pytest.mark.parametrize("name", [
+    "reduced:binary_mnist", "reduced:svhn_8bit", "reduced:cifar10_5bit",
+    "reduced:cifar10_8bit", "full:binary_mnist"])
+def test_predictive_sampling_equals_ancestral_bitwise_on_gpu(cuda, no_tf32,
+                                                             name):
+    from repro_torch.core import predictive_sampling as ps
+    from repro_torch.core.forecasting import PixelForecast
+    from repro_torch.models.pixelcnn import PixelCNN
+    cfg = _paper_cfg(name)
+    params, fparams, fcfg = _pixelcnn_on(cuda, cfg)
+    arm = PixelCNN.make_arm_fn(params, cfg)
+    learned = ps.make_learned_forecast(
+        PixelForecast.module_fn(fparams, fcfg),
+        window=fcfg.horizon * cfg.channels, group=cfg.channels)
+    for B in (1, 4):
+        eps = -torch.log(-torch.log(torch.rand(
+            (B, cfg.d, cfg.categories), generator=torch.Generator(
+                device=cuda).manual_seed(B), device=cuda).clamp_min(1e-30)))
+        x_ref, _ = ps.ancestral_sample(arm, eps)
+        runs = [ps.fixed_point_sample(arm, eps)] + [
+            ps.predictive_sample(arm, fc, eps)
+            for fc in (ps.fpi_forecast, ps.zeros_forecast,
+                       ps.predict_last_forecast, learned)]
+        for x, stats in runs:
+            assert x.is_cuda and torch.equal(x, x_ref), name
+            assert stats.arm_calls <= cfg.d + 1
+
+
+@pytest.mark.parametrize("hw,n_in,n_out,k,mask_type", [
+    (28, 2, 60, 7, "A"), (28, 120, 60, 3, "B"), (28, 120, 120, 3, "B"),
+    (32, 768, 162, 7, "A"), (32, 324, 324, 3, "B"), (8, 512, 160, 7, "A"),
+    (32, 162, 162, 3, "T")])
+def test_masked_conv2d_on_gpu_matches_cpu(cuda, no_tf32, hw, n_in, n_out, k,
+                                          mask_type):
+    """The paper's full-width masked convolutions, float32: the card
+    against the CPU within 1e-4 absolute (sums of up to 37,632 products of
+    unit-scale values in another order)."""
+    from repro_torch.nn.core import MaskedConv2D
+    groups = 3 if n_in % 3 == 0 and n_out % 3 == 0 else 1
+    g = torch.Generator().manual_seed(k + n_in)
+    p = MaskedConv2D.init(g, n_in, n_out, (k, k), mask_type=mask_type,
+                          groups_in=groups, groups_out=groups, device="cpu")
+    p["b"] = torch.randn(n_out, generator=g)
+    x = torch.randn((2, hw, hw, n_in), generator=g)
+    want = MaskedConv2D.apply(p, x)
+    got = MaskedConv2D.apply({k_: v.to(cuda) for k_, v in p.items()},
+                             x.to(cuda))
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("hw,n_in,n_out,k,mask_type,groups", [
+    (32, 768, 162, 7, "A", 3), (32, 324, 324, 3, "B", 3),
+    (28, 120, 120, 3, "B", 1)])
+def test_masked_conv2d_leaks_nothing_beside_cudnn_on_gpu(
+        cuda, no_tf32, record_property, hw, n_in, n_out, k, mask_type,
+        groups):
+    """The port's masked convolution (one matmul over the input's windows)
+    beside cuDNN's ``F.conv2d`` of the same masked weights, at B = 16 on
+    cifar10_8bit's input layer and a residual one and binary_mnist's
+    residual one: the largest change of the outputs at pixels <= p when
+    every pixel after p is redrawn. The port's must be 0. cuDNN's is
+    recorded (``cudnn_leak`` in the JUnit XML), not asserted: it depends
+    on the algorithm cuDNN picks, and it is why ``MaskedConv2D`` does not
+    run on cuDNN."""
+    from repro_torch.nn.core import MaskedConv2D, _conv
+    B = 16
+    g = torch.Generator(device=cuda).manual_seed(n_in + n_out)
+    p = MaskedConv2D.init(g, n_in, n_out, (k, k), mask_type=mask_type,
+                          groups_in=groups, groups_out=groups, device=cuda)
+    x = torch.randn((B, hw, hw, n_in), generator=g, device=cuda)
+    routes = {"port": lambda t: MaskedConv2D.apply(p, t),
+              "cudnn": lambda t: _conv(t, p["w"] * p["_mask"], (1, 1))}
+    leaks = {}
+    for name, fn in routes.items():
+        y = fn(x).reshape(B, hw * hw, n_out)
+        leaks[name] = 0.0
+        for pix in (0, hw * hw // 2, hw * hw - 2):
+            x2 = x.reshape(B, hw * hw, n_in).clone()
+            x2[:, pix + 1:] = torch.randn(x2[:, pix + 1:].shape, generator=g,
+                                          device=cuda)
+            y2 = fn(x2.reshape(x.shape)).reshape(B, hw * hw, n_out)
+            leaks[name] = max(leaks[name], float(
+                (y2[:, :pix + 1] - y[:, :pix + 1]).abs().max()))
+        record_property(f"{name}_leak", leaks[name])
+    assert leaks["port"] == 0.0
+
+
+def test_reparam_noise_is_drawn_on_the_logits_device(cuda, monkeypatch):
+    """A key made on the CPU (``prng_key``'s default) draws its noise on
+    the card when the logits lie there: threefry runs on the card, and
+    nothing is copied over from the host."""
+    from repro_torch.core import random as jr
+    from repro_torch.core import reparam
+    drawn = []
+    gumbel = jr.gumbel
+
+    def spy(key, n):
+        drawn.append(key[0].device.type)
+        return gumbel(key, n)
+
+    monkeypatch.setattr(jr, "gumbel", spy)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    logits = torch.randn((4, 5, 7), generator=g, device=cuda)
+    x = reparam.categorical_sample(jr.prng_key(1), logits)
+    eps = reparam.posterior_gumbel(jr.prng_key(2), logits, x)
+    assert x.is_cuda and eps.is_cuda and drawn == ["cuda"] * 3
+    assert torch.equal(reparam.reparam_argmax(logits, eps), x)
