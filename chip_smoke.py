@@ -30,7 +30,7 @@ which fails the script when it fails:
 5. token agreement of phase 3's requests with the port's solo sampler under
    the margin rule;
 6. DeepSeek-V3 at its published widths, cut to its three dense-prefix MLA
-   layers (its MoE layers are not ported): the same 4 requests served on
+   layers (phase 13 adds an MoE layer): the same 4 requests served on
    the latent kernel's path with fixed-point forecasts and again with the
    learned forecast (MTP) heads, a profile (with the latent kernel's
    device time and launches), one request on the gather
@@ -80,8 +80,34 @@ which fails the script when it fails:
    the latent PixelCNN (160 filters, 5 blocks, T = 1) trained on them
    and sampled as in phase 11.
 
+13. the mixture-of-experts layer at published widths, each model freed
+   before the next: (a) DeepSeek-V3 cut to its 3 dense-prefix layers plus
+   1 MoE layer (256 routed experts + 1 shared, top-8, sigmoid; 17.0 B
+   parameters), phase 6's 4 requests served on the latent kernel's path
+   with fixed-point forecasts and with the forecast heads, profiled, once
+   on the gather fallback, every request against the plain solo sampler;
+   (b) dbrx-132b cut to 4 (attn, moe) layers (16 experts, top-4, softmax;
+   14.3 B), served on paged_decode (dbrx's 6 query heads per kv head) and
+   on the gather fallback, held against the solo sampler on
+   decode_attention; for each, one MoE call's device ms at the verify and
+   prefill shapes beside the byte bound of the expert weights it reads,
+   the MoE layers' device ms per pass in the profile, and the distinct
+   experts each call's tokens hit. On an MoE model a split past the
+   margin is explained only where the served run (its routing recorded by
+   position, ``RouteLog``) sent some position up to it to other experts
+   than the reference recomputation did, and the reference recomputed
+   with the served routing pinned gives the served token or a margin
+   below the tolerance. (c) dbrx cut to 2 layers trained 3
+   Adafactor steps at B = 2, S = 2048, capacity 1.25, on the flash-
+   attention kernel: its logits and per-position losses against the plain
+   attention route within ``ROUTE_LIMITS`` with the routing pinned to the
+   plain route's (``MoETap``), beside the two planted faults; the unpinned
+   routes' differences, ``moe_aux``, the share of token-slots dropped and
+   the peak memory.
+
 Phases 11-12 run no kernel of the port's own: the reference's image path
-reaches no Pallas kernel.
+reaches no Pallas kernel; phase 13's MoE layer neither (the reference's is
+XLA ops), but its models run four of the port's kernels at new shapes.
 
 Phase 2 also holds the flash-attention kernel (the training path's) against
 its plain version at qwen3-1.7b's training shape, a ragged length and
@@ -89,10 +115,15 @@ gemma3-1b's 512-key sliding window, and its backward against autograd
 through the plain version; the WKV kernel in its verify, prefill and
 zero-state forms at rwkv6-7b's widths; and the dense flash-decode kernel at
 qwen3-1.7b's solo verify and prefill shapes and a 512-key sliding window.
+The two flash-decode kernels and the flash kernel are also held at
+dbrx-132b's 48 query heads over 8 kv heads (G = 6), at the verify shape
+and over 2048 positions.
 
 The second line from the end is a JSON object with one entry per kernel
 (seven; paged_decode's also carries its 64-wide prefill row, paged_latent's
-its prefill and decode rows, rwkv_wkv's its prefill and zero-state rows);
+its prefill and decode rows, rwkv_wkv's its prefill and zero-state rows,
+and paged_decode's, decode_attention's and flash_attention's their dbrx
+rows, with the launches of phase 13's paths);
 the last line is ``{"ok": true, "device": {...}}``. ``--report PATH``
 also writes every number measured to PATH as JSON.
 """
@@ -113,6 +144,7 @@ MEM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12,    # dense tensor-core rate
             "float32": 67e12}      # float32 outside the tensor cores
 KV, G, D, BS, V = 8, 2, 128, 16, 151936
+G_DBRX = 6                         # dbrx-132b: 48 query heads over 8 kv heads
 H_MLA, R_LAT, DR = 128, 512, 64    # DeepSeek-V3's heads, latent, rope key
 V_DS = 129280                      # DeepSeek-V3's vocab
 
@@ -276,18 +308,20 @@ def check_spec_verify(dev, gen):
 
 def check_flash_attention(dev, gen):
     """The flash-attention kernel against its plain version (bf16, qwen3-
-    1.7b's 16 query heads over 8 kv heads of width 128), and the op's
-    backward against autograd through the plain version."""
+    1.7b's 16 query heads over 8 kv heads of width 128, and dbrx-132b's 48
+    over 8), and the op's backward against autograd through the plain
+    version."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_bwd, flash_attention_fwd)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    H, KVH = 16, 8
+    KVH = 8
     rows, worst = {}, {"o": 0.0, "lse": 0.0}
-    for name, B, T, window in (("qwen_train", 2, 2048, 0),
-                               ("ragged", 2, 1000, 0),
-                               ("sliding_window", 2, 2048, 512)):
+    for name, B, T, window, H in (("qwen_train", 2, 2048, 0, 16),
+                                  ("ragged", 2, 1000, 0, 16),
+                                  ("sliding_window", 2, 2048, 512, 16),
+                                  ("dbrx_train", 2, 2048, 0, 48)):
         q = torch.randn((B, T, H, D), generator=gen, device=dev).to(
             torch.bfloat16)
         k = torch.randn((B, T, KVH, D), generator=gen, device=dev).to(
@@ -333,7 +367,8 @@ def check_flash_attention(dev, gen):
             + lse.numel() * 4
         b_ms, b_by = bound(nbytes, nops, "bfloat16")
         rows[name] = {
-            "B": B, "T": T, "window": window, "max_abs_err": float(err.max()),
+            "B": B, "T": T, "H": H, "window": window,
+            "max_abs_err": float(err.max()),
             "lse_max_abs_err": float(lse_err.max()),
             "library_max_abs_err": lib_err, "gflop": nops / 1e9,
             "mbytes": nbytes / 1e6, "bound_ms": b_ms, "bound_by": b_by,
@@ -351,7 +386,7 @@ def check_flash_attention(dev, gen):
     # the backward: the op's hand-written VJP against autograd through the
     # plain version, bf16, B = 1, T = 512
     q, k, v = (torch.randn((1, 512, h, D), generator=gen, device=dev).to(
-        torch.bfloat16) for h in (H, KVH, KVH))
+        torch.bfloat16) for h in (16, KVH, KVH))
     do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     got = torch.autograd.grad(flash_attention(*leaves), leaves, do)
@@ -379,7 +414,7 @@ def check_flash_attention(dev, gen):
     return rows, worst
 
 
-def _paged_inputs(dev, gen, B, W, nb, lengths, dtype):
+def _paged_inputs(dev, gen, B, W, nb, lengths, dtype, g=G):
     import torch
     P = 1 + B * nb + 3
     k_pool = torch.randn((P, BS, KV, D), generator=gen, device=dev).to(dtype)
@@ -388,7 +423,7 @@ def _paged_inputs(dev, gen, B, W, nb, lengths, dtype):
     tables = perm.reshape(B, nb).to(torch.int32)
     k_new = torch.randn((B, W, KV, D), generator=gen, device=dev).to(dtype)
     v_new = torch.randn((B, W, KV, D), generator=gen, device=dev).to(dtype)
-    q = torch.randn((B, W, KV * G, D), generator=gen, device=dev).to(dtype)
+    q = torch.randn((B, W, KV * g, D), generator=gen, device=dev).to(dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return q, k_pool, v_pool, k_new, v_new, tables, lens
 
@@ -408,13 +443,16 @@ def check_paged_decode(dev, gen):
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import (
         gather_view, paged_attention_fused_ref)
-    nb = 17                                # (max_len 256 + W 8) / 16
-    cases = [("verify", 2, 8, [100, 37], 0),      # a verify round
-             ("prefill", 1, 64, [16], 0),         # a 64-wide prefill chunk
-             ("verify_sliding", 2, 8, [200, 61], 32)]
+    # nb 17 = (max_len 256 + W 8) / 16; dbrx-132b's group of 6 query heads
+    # per kv head at the verify shape and over a 2048-token table
+    cases = [("verify", 2, 8, [100, 37], 0, G, 17),       # a verify round
+             ("prefill", 1, 64, [16], 0, G, 17),          # a prefill chunk
+             ("verify_sliding", 2, 8, [200, 61], 32, G, 17),
+             ("dbrx_verify", 2, 8, [100, 37], 0, G_DBRX, 17),
+             ("dbrx_S2048", 2, 8, [2030, 1500], 0, G_DBRX, 128)]
     rows, worst = {}, 0.0
-    for name, B, W, lengths, window in cases:
-        ins = _paged_inputs(dev, gen, B, W, nb, lengths, torch.bfloat16)
+    for name, B, W, lengths, window, g, nb in cases:
+        ins = _paged_inputs(dev, gen, B, W, nb, lengths, torch.bfloat16, g)
         q, k_pool, v_pool, k_new, v_new, tables, lens = ins
         kp1, vp1 = k_pool.clone(), v_pool.clone()
         kp2, vp2 = k_pool.clone(), v_pool.clone()
@@ -461,9 +499,9 @@ def check_paged_decode(dev, gen):
                   + nblk * 4 + B * 4)
         vis = sum(min(L + w + 1, window) if window else L + w + 1
                   for L in lengths for w in range(W))
-        b_ms, b_by = bound(nbytes, 4 * G * KV * D * vis, "bfloat16")
+        b_ms, b_by = bound(nbytes, 4 * g * KV * D * vis, "bfloat16")
         rows[name] = {
-            "max_abs_err": float(err.max()), "bound_ms": b_ms,
+            "G": g, "max_abs_err": float(err.max()), "bound_ms": b_ms,
             "bound_by": b_by,
             **times(lambda: paged_attention(q, kp1, vp1, k_new, v_new,
                                             tables, lens, window=window),
@@ -471,7 +509,7 @@ def check_paged_decode(dev, gen):
                         q, kp2, vp2, k_new, v_new, tables, lens,
                         window=window),
                     lib)}
-        log(f"paged_decode {name} B={B} W={W} lengths={lengths} "
+        log(f"paged_decode {name} B={B} W={W} G={g} lengths={lengths} "
             f"window={window}: pools bitwise (block 0 excluded); "
             f"{rows[name]}")
     return rows, worst
@@ -728,18 +766,21 @@ def check_decode_attention(dev, gen):
     qwen3-1.7b's widths (16 query heads over 8 kv heads of 128, bf16): the
     solo sampler's verify round (B = 2, W = 8 over a 264-slot cache,
     lengths 100 and 37), its prompt prefill (W = 79 from length 0) and a
-    512-key sliding window at S = 2048; the yardstick is SDPA with a
-    boolean mask and ``enable_gqa``."""
+    512-key sliding window at S = 2048; and at dbrx-132b's 48 query heads
+    over 8 (G = 6), its verify round and a 2048-slot cache; the yardstick
+    is SDPA with a boolean mask and ``enable_gqa``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    H = KV * G
     rows, worst = {}, 0.0
-    for name, B, W, S, lengths, window in (
-            ("verify", 2, 8, 264, [100, 37], 0),
-            ("prefill", 1, 79, 264, [0], 0),
-            ("sliding_window", 2, 8, 2048, [1500, 700], 512)):
+    for name, B, W, S, lengths, window, g in (
+            ("verify", 2, 8, 264, [100, 37], 0, G),
+            ("prefill", 1, 79, 264, [0], 0, G),
+            ("sliding_window", 2, 8, 2048, [1500, 700], 512, G),
+            ("dbrx_verify", 2, 8, 264, [100, 37], 0, G_DBRX),
+            ("dbrx_S2048", 2, 8, 2048, [2030, 1500], 0, G_DBRX)):
+        H = KV * g
         def rn(*shape):
             return torch.randn(shape, generator=gen, device=dev).to(
                 torch.bfloat16)
@@ -777,7 +818,8 @@ def check_decode_attention(dev, gen):
                   for L in lengths for w in range(W))
         b_ms, b_by = bound(nbytes, 4 * H * D * vis, "bfloat16")
         rows[name] = {
-            "B": B, "W": W, "S": S, "lengths": lengths, "window": window,
+            "B": B, "W": W, "S": S, "G": g, "lengths": lengths,
+            "window": window,
             "max_abs_err": float(err.max()), "library_max_abs_err": lib_err,
             "bound_ms": b_ms, "bound_by": b_by,
             **times(lambda: decode_attention(q, k, v, lens, window),
@@ -839,7 +881,9 @@ def kernel_times(prof):
     run recorded, longest first."""
     kern = []
     for evt in prof.key_averages():
-        if "CUDA" not in str(getattr(evt, "device_type", "")):
+        # the ranges MoETap opens have a device-side span too: not a kernel
+        if ("CUDA" not in str(getattr(evt, "device_type", ""))
+                or evt.key == "moe_layer"):
             continue
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0))
@@ -874,7 +918,13 @@ def profile_serve(cfg, params, dev):
         own[name] = {"us": sum(h[0] for h in hits),
                      "count": sum(h[1] for h in hits)}
     passes = m["rounds"] + m["prefill_calls"]
+    # the MoE layers' device time: the kernels launched inside the ranges
+    # ``MoETap`` opens around each ``MoE.apply`` (none without one)
+    moe = [e for e in prof.events() if e.name == "moe_layer"
+           and "CPU" in str(e.device_type)]
     out = {"wall_s": wall, "profiled_wall_s": pwall, "device_busy_s": busy_s,
+           "moe_layer_device_us": sum(e.device_time_total for e in moe),
+           "moe_layer_calls": len(moe),
            "idle_share": (1 - busy_s / wall) if kern else None,
            "profiled_idle_share": (1 - busy_s / pwall) if kern else None,
            "rounds": m["rounds"], "prefill_calls": m["prefill_calls"],
@@ -901,7 +951,7 @@ def profile_serve(cfg, params, dev):
     return out
 
 
-def solo_agreement(cfg, params, dev, done, tol, **kw):
+def solo_agreement(cfg, params, dev, done, tol, routes=None, **kw):
     """Each served request against the port's solo sampler (dense cache,
     plain attention or plain WKV scan, plain argmax: none of the port's
     kernels unless ``kw`` asks for them) on the card, under the margin
@@ -909,7 +959,15 @@ def solo_agreement(cfg, params, dev, done, tol, **kw):
     ``use_attention_kernel``). Where the streams split within
     the tolerance, the solo sampler starts again from the engine's tokens
     up to and including that position (the noise depends only on the
-    sequence and the position), so every new token is compared."""
+    sequence and the position), so every new token is compared.
+
+    An MoE model's routing is a discrete choice that a rounding can move:
+    ``routes`` (the ``RouteLog`` of the served run) is then required, and a
+    split whose reference margin is not below ``tol`` is also explained
+    where ``routing_check`` finds a position up to it that the served run
+    sent to other experts than the reference did, and the reference with
+    the served routing pinned gives the served token or a margin below
+    ``tol``."""
     import torch
     from repro_torch.engine.agreement import (check_token_agreement,
                                               top2_margin)
@@ -917,10 +975,14 @@ def solo_agreement(cfg, params, dev, done, tol, **kw):
     from repro_torch.models.transformer import TransformerLM
     eps_fn = make_eps_fn(1, cfg.vocab)
     kw.setdefault("use_attention_kernel", False)
+    moe = any(f == "moe" for _, f in cfg.layer_specs())
+    if moe and routes is None:
+        raise ValueError("an MoE model's agreement needs the served routing")
     out = []
     for r in sorted(done, key=lambda r: r.uid):
         end = len(r.prompt) + r.new_tokens
         start, splits = len(r.prompt), []
+        served = routes.routes(r.seq_id, r.result) if moe else None
         while start < end:
             s = PredictiveSampler(cfg, params, window=8, max_len=256,
                                   eps_key=1, device=dev, **kw)
@@ -937,19 +999,48 @@ def solo_agreement(cfg, params, dev, done, tol, **kw):
                 e = eps_fn(torch.tensor([sid], device=dev),
                            torch.tensor([[p]], device=dev))
                 return top2_margin((logits[0, -1].float() + e[0, 0]).cpu())
-            res = check_token_agreement(ref, r.result, margin_at, tol,
+            # an MoE split past the margin is judged by its routing below
+            res = check_token_agreement(ref, r.result, margin_at,
+                                        math.inf if moe else tol,
                                         start=start)
             if res is None:
                 break
+            if not res["margin"] < tol:
+                p = res["position"]
+                chk = routing_check(cfg, params, dev, eps_fn,
+                                    r.result[:p + 1], r.seq_id, served)
+                res.update(chk)
+                if not (chk["routing_differs_at"]
+                        and (chk["pinned_token"] == int(r.result[p])
+                             or chk["pinned_margin"] < tol)):
+                    raise AssertionError(
+                        f"request {r.uid}: streams differ at position {p} "
+                        f"where the reference's top-2 margin "
+                        f"{res['margin']:.4g} is not below {tol}, and the "
+                        f"routing does not explain it: {chk}")
             splits.append(res)
             start = res["position"] + 1
         out.append({"uid": r.uid, "equal": not splits,
                     "compared": r.new_tokens, "splits": splits})
-        log(f"  request {r.uid}: {r.new_tokens} new tokens compared, "
-            + ("equal to solo" if not splits else "split within tolerance "
-               "at " + ", ".join(f"{d['position']} (reference margin "
-                                 f"{d['margin']:.4g} < {tol})"
-                                 for d in splits)))
+        routed = ""
+        if moe:
+            # the positions the two route differently, whole stream
+            out[-1]["routing_differs_at"] = routing_check(
+                cfg, params, dev, eps_fn, r.result, r.seq_id,
+                served)["routing_differs_at"]
+            routed = (f"; served routing differs from the reference's at "
+                      f"{len(out[-1]['routing_differs_at'])} of {end - 1} "
+                      f"positions")
+        log(f"  request {r.uid}: {r.new_tokens} new tokens compared{routed}, "
+            + ("equal to solo" if not splits else "split at " + ", ".join(
+                f"{d['position']} (reference margin {d['margin']:.4g}, "
+                f"tolerance {tol}"
+                + (f"; served routing differs from the reference's at "
+                   f"positions {d['routing_differs_at']}, pinned to it the "
+                   f"reference gives token {d['pinned_token']} (served "
+                   f"{int(r.result[d['position']])}), margin "
+                   f"{d['pinned_margin']:.4g}" if "pinned_token" in d
+                   else "") + ")" for d in splits)))
     return out
 
 
@@ -1125,6 +1216,7 @@ def route_diffs(params, cfg, tokens, module, name, faults, plain_op=None):
         out[route] = {"logits_mean_abs_diff": float(dl.mean()),
                       "logits_max_abs_diff": float(dl.max()),
                       "xent_per_position_max_abs_diff": float(dx.max()),
+                      "xent_mean_diff": float((per_pos - plain_pos).mean()),
                       "xent_positions_differing": int((dx > 0).sum())}
         del logits, per_pos, dl, dx
     return out
@@ -1918,6 +2010,463 @@ def table2(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the mixture-of-experts layer at published widths
+# ---------------------------------------------------------------------------
+
+class MoETap:
+    """Within ``with``: each ``MoE.apply`` call runs in a profiler range
+    "moe_layer", each ``MoE.route`` call's expert ids are kept in ``ids``
+    and, with ``keep``, each ``MoE.plan`` call's keep mask in ``keeps``.
+    With ``pin`` (ids recorded by another tap) the route calls take those
+    ids in call order instead of their own top-k, and their weights from
+    their own scores at those ids: two forwards then make the same
+    discrete routing choices. The port's code is not changed: the class's
+    functions are swapped here and put back on exit."""
+
+    def __init__(self, pin=None, keep=False):
+        self.pin, self.record_keep = pin, keep
+        self.ids, self.keeps = [], []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models.moe import MoE
+        route, plan, apply = MoE.route, MoE.plan, MoE.apply
+        self.saved = (route, plan, apply)
+        tap = self
+
+        def route_(p, x, cfg):
+            ids, w, probs = route(p, x, cfg)
+            if tap.pin is not None:
+                ids = tap.pin[len(tap.ids) % len(tap.pin)]
+                logits = (x @ p["router"]["w"]).float()
+                scores = (torch.sigmoid(logits)
+                          if cfg.router_score == "sigmoid"
+                          else torch.softmax(logits, -1))
+                w = torch.gather(scores, 1, ids.long())
+                w = w / (w.sum(-1, keepdim=True) + 1e-9)
+            tap.ids.append(ids)
+            return ids, w, probs
+
+        def plan_(ids, C):
+            out = plan(ids, C)
+            if tap.record_keep:
+                tap.keeps.append(out[3])
+            return out
+
+        def apply_(*a, **kw):
+            with torch.profiler.record_function("moe_layer"):
+                return apply(*a, **kw)
+        MoE.route, MoE.plan, MoE.apply = (staticmethod(route_),
+                                          staticmethod(plan_),
+                                          staticmethod(apply_))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models.moe import MoE
+        MoE.route, MoE.plan, MoE.apply = (staticmethod(f)
+                                          for f in self.saved)
+        return False
+
+
+class RouteLog:
+    """Within ``with``: the expert ids every MoE layer chose in the serving
+    engine's and the solo sampler's passes, to be read by (sequence,
+    position) with ``routes``. ``verify_round`` (as the engine and the
+    sampler call it) and the two prefills are wrapped to learn each row's
+    sequence and whether it is active, ``TransformerLM.decode_window`` to
+    learn each row's tokens and first position, and ``MoE.route`` to keep
+    its ids, all on the device: the run gains a few small copies a pass
+    and no host sync. The port's code is not changed: its functions are
+    put back on exit."""
+
+    def __init__(self):
+        self.calls, self.ctx, self.cur, self.host = [], None, None, None
+
+    def __enter__(self):
+        import torch
+        import repro_torch.engine.spec_decode as sd
+        import repro_torch.serving.engine as se
+        from repro_torch.models.moe import MoE
+        from repro_torch.models.transformer import TransformerLM
+        tap = self
+        verify = sd.verify_round
+        prefill = se.ServingEngine._prefill
+        init_state = sd.PredictiveSampler.init_state
+        window, route = TransformerLM.decode_window, MoE.route
+        self.saved = [(sd, "verify_round", verify),
+                      (se, "verify_round", se.verify_round),
+                      (se.ServingEngine, "_prefill", prefill),
+                      (sd.PredictiveSampler, "init_state", init_state),
+                      (TransformerLM, "decode_window",
+                       TransformerLM.__dict__["decode_window"]),
+                      (MoE, "route", MoE.__dict__["route"])]
+
+        def within(ctx, fn, *a, **kw):
+            tap.ctx = ctx
+            try:
+                return fn(*a, **kw)
+            finally:
+                tap.ctx = None
+
+        def verify_(params, cfg, eps_fn, state, target_len, **kw):
+            return within((state.seq_ids, state.n < target_len), verify,
+                          params, cfg, eps_fn, state, target_len, **kw)
+
+        def prefill_(eng, table_row, b, chunk, start):
+            return within((torch.tensor([int(eng.seq_ids[b])]),
+                           torch.ones(1, dtype=torch.bool)), prefill,
+                          eng, table_row, b, chunk, start)
+
+        def init_state_(smp, prompts, batch, seq_ids=None):
+            seq = (torch.arange(batch) if seq_ids is None
+                   else torch.as_tensor(seq_ids))
+            return within((seq, torch.ones(batch, dtype=torch.bool)),
+                          init_state, smp, prompts, batch, seq_ids=seq_ids)
+
+        def window_(params, cfg, tokens, cache, cache_len, *a, **kw):
+            if tap.ctx is None:
+                return window(params, cfg, tokens, cache, cache_len, *a,
+                              **kw)
+            seq, active = tap.ctx
+            tap.cur = {"seq": seq.clone(), "active": active.clone(),
+                       "pos0": cache_len.clone(), "tokens": tokens.clone(),
+                       "ids": []}
+            tap.calls.append(tap.cur)
+            try:
+                return window(params, cfg, tokens, cache, cache_len, *a,
+                              **kw)
+            finally:
+                tap.cur = None
+
+        def route_(p, x, cfg):
+            out = route(p, x, cfg)
+            if tap.cur is not None:
+                tap.cur["ids"].append(out[0].clone())
+            return out
+        sd.verify_round = se.verify_round = verify_
+        se.ServingEngine._prefill = prefill_
+        sd.PredictiveSampler.init_state = init_state_
+        TransformerLM.decode_window = staticmethod(window_)
+        MoE.route = staticmethod(route_)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, f in self.saved:
+            setattr(obj, name, f)
+        return False
+
+    def routes(self, seq, stream):
+        """{position q: (MoE layers, k) expert ids} of sequence ``seq``,
+        whose final tokens are ``stream``: from the first pass that
+        computed q with every window input up to q equal to the stream's.
+        That is the pass whose logits at q chose token q + 1: a prefill's
+        inputs are the prompt, and the next verify pass starts past the
+        positions whose inputs this one had right."""
+        import torch
+        if self.host is None:
+            self.host = [{k: ([i.cpu() for i in v] if k == "ids"
+                              else v.cpu()) for k, v in c.items()}
+                         for c in self.calls]
+        out = {}
+        for c in self.host:
+            if not c["ids"]:
+                continue
+            B, W = c["tokens"].shape
+            ids = torch.stack(c["ids"]).view(len(c["ids"]), B, W, -1)
+            for b in ((c["seq"] == seq) & c["active"]).nonzero()[:, 0]:
+                p0 = int(c["pos0"][b])
+                for j in range(W):
+                    q = p0 + j
+                    if q >= len(stream) or int(c["tokens"][b, j]) != int(
+                            stream[q]):
+                        break
+                    out.setdefault(q, ids[:, b, j])
+        return out
+
+
+def routing_check(cfg, params, dev, eps_fn, stream, seq, served):
+    """The served token ``stream[p]`` (p = len(stream) - 1) against the
+    reference's routing: the reference recomputes positions 0..p-1 in one
+    window on the plain routes, once with its own routing and once with
+    every MoE layer pinned (``MoETap``) to ``served``, the served run's ids
+    by position (``RouteLog.routes``). Returns the positions whose expert
+    sets differ in some MoE layer (``routing_differs_at``), and the token
+    and top-2 margin of ``logits + eps`` at p with the routing pinned
+    (``pinned_token``, ``pinned_margin``)."""
+    import torch
+    from repro_torch.engine.agreement import top2_margin
+    from repro_torch.models.transformer import TransformerLM
+    p = len(stream) - 1
+    missing = [q for q in range(p) if q not in served]
+    if missing:
+        raise AssertionError(f"served routing not recorded at {missing}")
+    pins = torch.stack([served[q] for q in range(p)], 1).to(dev)
+    toks = torch.as_tensor(stream[:p], device=dev)[None]
+    e = eps_fn(torch.tensor([seq], device=dev),
+               torch.tensor([[p]], device=dev))[0, 0]
+
+    def last_scores(tap):
+        cache = TransformerLM.init_cache(cfg, 1, p, device=dev)
+        with tap:
+            logits, _, _ = TransformerLM.decode_window(
+                params, cfg, toks, cache,
+                torch.zeros(1, dtype=torch.int64, device=dev))
+        return (logits[0, -1].float() + e).cpu()
+    own = MoETap()
+    last_scores(own)
+    pinned = last_scores(MoETap(pin=list(pins)))
+    same = (torch.stack(own.ids).sort(-1).values
+            == pins.sort(-1).values).all(-1).all(0)
+    return {"routing_differs_at": (~same).nonzero()[:, 0].tolist(),
+            "pinned_token": int(torch.argmax(pinned)),
+            "pinned_margin": top2_margin(pinned)}
+
+
+def moe_layer_times(cfg, p, dev):
+    """Device ms of one ``MoE.apply`` call (no-drop, as serving runs it)
+    at the verify shape (B = 2, W = 8) and a 64-token prefill chunk, on
+    the layer's parameters ``p``, beside the byte bound of the expert
+    weights every call reads (the batched products read all E experts'
+    up, gate and down, whichever slots are filled) and the operations of
+    the (E, C, D) products."""
+    import torch
+    from repro_torch.models.moe import MoE
+    E, k, D, F_ = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.moe_d_ff
+    n_mats = len(p["experts"])
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in p["experts"].values())
+    out = {"expert_bytes": w_bytes,
+           "expert_byte_bound_ms": w_bytes / MEM_BYTES_PER_S * 1e3}
+    for name, B, W in (("verify", 2, 8), ("prefill", 1, 64)):
+        x = torch.randn((B, W, D), device=dev).to(cfg.param_dtype)
+        N = B * W
+        C = MoE.capacity(N, cfg, None)
+        flops = 2 * n_mats * E * C * D * F_
+        useful = 2 * n_mats * N * k * D * F_
+        ms = device_ms(lambda: MoE.apply(p, x, cfg, capacity_factor=None),
+                       iters=5, reps=3)
+        out[name] = {"N": N, "C": C, "ms": ms, "tflop": flops / 1e12,
+                     "useful_gflop": useful / 1e9,
+                     "op_bound_ms": flops / PEAK_OPS["bfloat16"] * 1e3}
+    log(f"MoE layer (E {E}, k {k}, D {D}, F {F_}), no-drop: expert weights "
+        f"{w_bytes / 1e9:.3f} GB, byte bound "
+        f"{out['expert_byte_bound_ms']:.4g} ms; verify (N 16, C "
+        f"{out['verify']['C']}): {out['verify']['ms']:.4g} device ms, "
+        f"{out['verify']['tflop']:.4g} TFLOP (useful "
+        f"{out['verify']['useful_gflop']:.4g} GFLOP); prefill (N 64, C "
+        f"{out['prefill']['C']}): {out['prefill']['ms']:.4g} ms, "
+        f"{out['prefill']['tflop']:.4g} TFLOP")
+    return out
+
+
+def experts_hit(ids_list):
+    """Distinct experts a call's tokens were routed to, by the call's
+    token count: {N: [min, mean, max]}."""
+    import torch
+    by_n = {}
+    for ids in ids_list:
+        by_n.setdefault(int(ids.shape[0]), []).append(
+            int(torch.unique(ids).numel()))
+    return {n: [min(v), sum(v) / len(v), max(v)] for n, v in
+            sorted(by_n.items())}
+
+
+def serve_moe(dev, tol, arch, n_layers, latent):
+    """Phase 13 (a) or (b): ``arch`` at its published widths cut to
+    ``n_layers``, served on the attention kernel's path (the latent kernel
+    with FPI and with the forecast heads, or paged_decode), profiled with
+    the MoE layers' device time and the experts each call hits, once on the
+    gather fallback (the writeback kernel), and every request held against
+    the solo sampler under the margin rule (on decode_attention for a GQA
+    model, the plain solo sampler for the latent one), a split past the
+    margin judged by the served routing (``RouteLog``, kept during the
+    served runs, their walls included). Returns the report and the
+    launches of the path's main run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.transformer import TransformerLM
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_moe = sum(f == "moe" for _, f in cfg.layer_specs())
+    out = {"layers": [list(sp) for sp in cfg.layer_specs()],
+           "params_b": count_params(params) / 1e9,
+           "param_gb": torch.cuda.memory_allocated() / 1e9}
+    log(f"{cfg.name} cut to {cfg.n_layers} layers {cfg.layer_specs()}: "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+        f"{cfg.n_experts} experts + {cfg.n_shared_experts} shared, top "
+        f"{cfg.top_k} ({cfg.router_score}), expert d_ff {cfg.moe_d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}, {out['params_b']:.3f} B params "
+        f"({out['param_gb']:.2f} GB), init {time.perf_counter() - t0:.1f} s")
+    moe_p = params["layers"][[f for _, f in cfg.layer_specs()].index("moe")]
+    out["moe_layer"] = moe_layer_times(cfg, moe_p["ffn"], dev)
+    serve(cfg, params, dev, make_requests(cfg, (17,), 4))       # warm-up
+    runs = [("fpi", {})] + ([("forecast_heads", {"use_forecast_heads": True})]
+                            if latent else [])
+    main_launches = None
+    for label, kw in runs:
+        reqs = make_requests(cfg, PROMPT_LENS, NEW_TOKENS)
+        with RouteLog() as routes:
+            done, m, wall, launches = serve(cfg, params, dev, reqs, **kw)
+        tok = m["tokens_generated"]
+        passes = m["verify_passes"] + m["prefill_calls"]
+        log(f"serve {cfg.name} {n_layers}L ({label}): {len(done)} requests, "
+            f"{tok} new tokens, {m['rounds']} verify rounds "
+            f"({m['rounds'] / tok:.4f} per token), {m['prefill_calls']} "
+            f"prefill chunks, arm_calls_vs_ancestral "
+            f"{m['arm_calls_vs_ancestral']:.4f}, wall {wall:.3f} s "
+            f"({wall / tok * 1e3:.2f} ms per token), launches {launches}")
+        kern, other = (("paged_latent", "paged_decode") if latent
+                       else ("paged_decode", "paged_latent"))
+        if not (launches[kern] == cfg.n_layers * passes
+                and launches["spec_verify"] > 0 and launches[other] == 0):
+            raise AssertionError(f"{cfg.name}: kernel path not taken as "
+                                 f"expected ({passes} passes): {launches}")
+        solo_kw = dict(kw) if latent else dict(kw, use_attention_kernel=True)
+        torch.cuda.synchronize()
+        reset_launches()
+        solo_route = "plain attention" if latent else "decode_attention"
+        log(f"solo agreement, {cfg.name} {label} (margin rule, tolerance "
+            f"{tol}, solo on {solo_route}):")
+        agreement = solo_agreement(cfg, params, dev, done, tol,
+                                   routes=routes, **solo_kw)
+        solo_launches = dict(LAUNCHES)
+        if not latent and solo_launches["decode_attention"] <= 0:
+            raise AssertionError(f"solo sampler not on decode_attention: "
+                                 f"{solo_launches}")
+        out[label] = {"metrics": m, "wall_s": wall, "launches": launches,
+                      "ms_per_token": wall / tok * 1e3,
+                      "rounds_per_token": m["rounds"] / tok,
+                      "agreement": agreement, "solo_launches": solo_launches}
+        main_launches = main_launches or launches
+    with MoETap() as tap:
+        out["profile"] = profile_serve(cfg, params, dev)
+    pr = out["profile"]
+    passes = pr["rounds"] + pr["prefill_calls"]
+    # the profiled run is the second of profile_serve's two: its route calls
+    # are the last half of those the tap saw
+    hit = experts_hit(tap.ids[len(tap.ids) // 2:])
+    out["moe_profile"] = {
+        "device_ms_per_pass": pr["moe_layer_device_us"] / 1e3 / passes,
+        "calls": pr["moe_layer_calls"], "moe_layers": n_moe,
+        "byte_bound_ms_per_pass": n_moe
+        * out["moe_layer"]["expert_byte_bound_ms"],
+        "experts_hit_by_tokens": hit}
+    log(f"MoE layers in the profiled run: "
+        f"{out['moe_profile']['device_ms_per_pass']:.4g} device ms per pass "
+        f"({n_moe} MoE layers; byte bound of their expert weights "
+        f"{out['moe_profile']['byte_bound_ms_per_pass']:.4g} ms), "
+        f"{pr['moe_layer_calls']} calls; distinct experts hit per call by "
+        f"its token count, [min, mean, max]: {hit}")
+    fb_reqs = make_requests(cfg, PROMPT_LENS[:1], 8)
+    with RouteLog() as fb_routes:
+        fb_done, fm, fwall, fb_launches = serve(cfg, params, dev, fb_reqs,
+                                                use_attention_kernel=False)
+    log(f"serve {cfg.name} (gather fallback): {fm['tokens_generated']} new "
+        f"tokens, {fm['rounds']} verify rounds, wall {fwall:.3f} s, "
+        f"launches {fb_launches}")
+    if (fb_launches["paged_write"] <= 0 or fb_launches["paged_decode"] != 0
+            or fb_launches["paged_latent"] != 0):
+        raise AssertionError(f"fallback path not taken: {fb_launches}")
+    log(f"solo agreement, {cfg.name} gather fallback (plain solo):")
+    out["fallback"] = {"metrics": fm, "wall_s": fwall,
+                       "launches": fb_launches,
+                       "agreement": solo_agreement(cfg, params, dev, fb_done,
+                                                   tol, routes=fb_routes)}
+    del params, moe_p
+    torch.cuda.empty_cache()
+    return out, main_launches
+
+
+def train_dbrx(dev):
+    """Phase 13 (c): dbrx-132b at its published widths cut to 2 layers, 3
+    Adafactor steps at B = 2, S = 2048 with capacity 1.25 and the attention
+    on the flash-attention kernel. The kernel route's logits and per-
+    position losses are held against the plain attention route within
+    ``ROUTE_LIMITS`` with the MoE routing pinned to the plain route's (a
+    routing choice within a rounding of a tie would otherwise move whole
+    positions), beside the two planted attention faults; the unpinned
+    routes' differences are reported. Returns the report and the launches
+    of the 3 steps."""
+    import torch
+    import repro_torch.models.attention as attention
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import make_optimizer, make_train_step
+    from repro_torch.models.losses import lm_loss
+    from repro_torch.models.transformer import TransformerLM
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=2)
+    B, S, steps = 2, 2048, 3
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    opt = make_optimizer(cfg, steps=steps)
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, remat=False)
+    pipe = TokenPipeline(token_batches(max(512, B * 8), B, S, cfg.vocab),
+                         dev)
+    batches = [next(pipe) for _ in range(steps)]
+    out = {"B": B, "S": S, "optimizer": "adafactor", "capacity": 1.25,
+           "params_b": count_params(params) / 1e9}
+    with torch.no_grad():
+        with MoETap() as plain_tap:
+            lp, mp = lm_loss(params, cfg, batches[0], use_kernel=False)
+        with MoETap() as kernel_tap:
+            lk, _ = lm_loss(params, cfg, batches[0])
+        flips = [int((a != b).any(-1).sum())
+                 for a, b in zip(plain_tap.ids, kernel_tap.ids)]
+        out["unpinned"] = {
+            "loss_plain": float(lp), "loss_kernel": float(lk),
+            "loss_diff": abs(float(lk) - float(lp)),
+            "tokens_routed_differently_per_layer": flips}
+        log(f"train dbrx unpinned: loss plain {float(lp):.6g}, kernel "
+            f"{float(lk):.6g}; tokens whose experts differ between the "
+            f"routes, per MoE layer: {flips} of {B * S}")
+        with MoETap(pin=plain_tap.ids):
+            out["route_diff"] = route_diffs(
+                params, cfg, batches[0], attention, "flash_attention",
+                {f: planted_fault(f) for f in ("kv_head_mod",
+                                               "diagonal_tile_dropped")})
+    out["plain_loss_step1"] = float(lp)
+    check_route_diffs(out["route_diff"], B * (S - 1), ROUTE_LIMITS)
+    pinned = abs(out["route_diff"]["kernel"]["xent_mean_diff"])
+    log(f"pinned routing: mean loss difference kernel vs plain {pinned:.3g} "
+        f"(tolerance 1e-2, as phase 7)")
+    if not pinned <= 1e-2:
+        raise AssertionError(f"pinned mean loss difference {pinned}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with MoETap(keep=True) as tap:
+        params, state, rows = run_steps(cfg, step_fn, params, state, batches,
+                                        "dbrx-132b (2 layers)")
+    launches = dict(LAUNCHES)
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    n_moe = sum(f == "moe" for _, f in cfg.layer_specs())
+    dropped = [1 - float(torch.stack([k.float().mean() for k in
+                                      tap.keeps[i * n_moe:(i + 1) * n_moe]])
+                         .mean()) for i in range(steps)]
+    out.update(steps=rows, launches=launches, dropped_share=dropped,
+               moe_aux=[r["moe_aux"] for r in rows])
+    log(f"train dbrx: launches {launches}, peak memory "
+        f"{out['peak_memory_gb']:.3f} GB, moe_aux {out['moe_aux']}, share "
+        f"of token-slots dropped per step {dropped}, step-1 loss "
+        f"{rows[0]['loss']:.6g} (plain route {float(lp):.6g})")
+    if launches["flash_attention"] != cfg.n_layers * steps:
+        raise AssertionError(f"flash launches {launches['flash_attention']}, "
+                             f"want {cfg.n_layers} x {steps}")
+    ln_v = math.log(cfg.vocab)
+    if abs(rows[0]["xent"] - ln_v) > 2.0 or not rows[0]["moe_aux"] > 0:
+        raise AssertionError(f"step 1: xent {rows[0]['xent']} vs ln V "
+                             f"{ln_v}, moe_aux {rows[0]['moe_aux']}")
+    del params, state
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -2059,6 +2608,17 @@ def main(argv=None) -> int:
     report["table1"] = table1(dev)
     report["table2"] = table2(dev)
 
+    # ---- phase 13: the MoE layer, DeepSeek-V3 and dbrx-132b --------------
+    t13 = time.perf_counter()
+    report["moe_deepseek"], _ = serve_moe(dev, tol, "deepseek-v3-671b", 4,
+                                          latent=True)
+    report["moe_dbrx"], dbrx_launches = serve_moe(dev, tol, "dbrx-132b", 4,
+                                                  latent=False)
+    report["train_dbrx"], dbrx_train_launches = train_dbrx(dev)
+    report["phase13_s"] = time.perf_counter() - t13
+    log(f"phase 13 took {report['phase13_s']:.1f} s")
+    dbrx_solo = report["moe_dbrx"]["fpi"]["solo_launches"]
+
     entries = []
     for name, rows, key, n, path, extra in (
             ("spec_verify", sv, f"R16_V{V}", launches["spec_verify"],
@@ -2101,16 +2661,28 @@ def main(argv=None) -> int:
             "library_ms": row["library_ms"],
             "eager_ms": row["eager_ms"], "eager_plain_ms": row["eager_plain_ms"],
             "eager_library_ms": row["eager_library_ms"]})
-    # the other shapes of the path's kernels, beside their main row
-    for name, rows, keys in (("paged_decode", pd, ("prefill",)),
-                             ("paged_latent", pl, ("prefill", "decode")),
-                             ("rwkv_wkv", rw, ("prefill",
-                                               "zero_state_T1024"))):
+    # the other shapes of the path's kernels, beside their main row; dbrx-
+    # 132b's (G = 6) with the launches of phase 13's paths
+    for name, rows, keys in (
+            ("paged_decode", pd, ("prefill", "dbrx_verify", "dbrx_S2048")),
+            ("paged_latent", pl, ("prefill", "decode")),
+            ("rwkv_wkv", rw, ("prefill", "zero_state_T1024")),
+            ("decode_attention", da, ("dbrx_verify", "dbrx_S2048")),
+            ("flash_attention", fa, ("dbrx_train",))):
         entry = next(e for e in entries if e["name"] == name)
         for key in keys:
             entry[key] = {k: rows[key][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "max_abs_err")}
+    for name, key, n, path in (
+            ("paged_decode", "dbrx_verify", dbrx_launches["paged_decode"],
+             "serve_moe_dbrx"),
+            ("decode_attention", "dbrx_verify",
+             dbrx_solo["decode_attention"], "solo_moe_dbrx"),
+            ("flash_attention", "dbrx_train",
+             dbrx_train_launches["flash_attention"], "train_dbrx")):
+        entry = next(e for e in entries if e["name"] == name)
+        entry[key].update(launches=n, path=path)
     report["kernels"] = entries
     if args.report:
         path = Path(args.report)

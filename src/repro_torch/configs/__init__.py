@@ -1,10 +1,9 @@
 """Architecture registry: ``get_config(arch_id)`` returns the exact assigned
 config; ``get_config(arch_id, reduced=True)`` the CPU-sized variant of the
-same family. The port serves the dense GQA path, DeepSeek-V3's MLA
-layers with dense FFNs and RWKV-6 (time and channel mix); the other
-architectures of the reference raise until their mixers are ported, and a
-ported config whose layers include one not yet ported raises when its
-model is built."""
+same family. The port serves the dense GQA path, DeepSeek-V3 (MLA with
+its dense-prefix and MoE FFNs), DBRX (GQA with MoE FFNs) and RWKV-6 (time
+and channel mix); the other architectures of the reference raise until
+their mixers are ported."""
 from __future__ import annotations
 
 import importlib
@@ -26,7 +25,8 @@ ARCHS = (
 
 PORTED = {"qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
           "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
-          "rwkv6-7b": "repro_torch.configs.rwkv6_7b"}
+          "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+          "dbrx-132b": "repro_torch.configs.dbrx_132b"}
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:

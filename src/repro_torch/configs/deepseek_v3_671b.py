@@ -3,10 +3,10 @@
 
 The MTP head is implemented as the paper's learned forecasting module
 (forecast_horizon=2): predictive sampling verifies its drafts with the
-Gumbel-max acceptance, which keeps the samples exact. The port serves the
-MLA layers with dense FFNs; its ``moe`` layers raise until the MoE slice
-(ROADMAP.md §1 item 14), so a served model is cut to the three dense-prefix
-layers with ``dataclasses.replace(config(), n_layers=3)``."""
+Gumbel-max acceptance, which keeps the samples exact. The port runs every
+layer: the three dense-prefix layers and the 58 MoE layers (no-drop in
+serving). On one 80 GB card a depth cut such as
+``dataclasses.replace(config(), n_layers=4)`` (3 dense + 1 MoE) serves."""
 from repro_torch.models.transformer import ModelConfig
 
 _MLA = dict(q_lora_rank=1536, kv_lora_rank=512, qk_rope_dim=64,

@@ -46,7 +46,9 @@ def make_train_step(cfg, optimizer, remat: bool = True,
                     accum_steps: int = 1):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; the parameters and the optimizer state are updated in
-    place. ``accum_steps > 1`` splits the batch's leading axis into
+    place. The loss is ``lm_loss``: MoE entries past the capacity factor
+    ``TRAIN_MOE_CAPACITY`` (1.25) drop, as the reference trains.
+    ``accum_steps > 1`` splits the batch's leading axis into
     microbatches and sums their gradients in float32; the metrics are then
     the last microbatch's, as in the reference."""
 

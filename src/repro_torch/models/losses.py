@@ -1,12 +1,10 @@
-"""Training losses. Language models: next-token cross-entropy plus, for a
-model with forecast heads, the paper's forecast-KL objective (Eq. 9,
-weight ``cfg.forecast_loss_weight``, 0.01), both in float32. The image
+"""Training losses. Language models: next-token cross-entropy, the MoE
+layers' load-balancing loss (weight ``MOE_AUX_WEIGHT``, at the training
+capacity factor ``TRAIN_MOE_CAPACITY``, as the reference trains) and, for
+a model with forecast heads, the paper's forecast-KL objective (Eq. 9,
+weight ``cfg.forecast_loss_weight``, 0.01), all in float32. The image
 ARM: bits per dimension plus the same KL of its ``PixelForecast`` at
 weight 0.01 (``pixelcnn_loss``, the joint training of the paper's §4.1).
-
-The reference also adds its MoE load-balancing loss; no MoE layer is
-ported (ROADMAP.md §1 item 14), so ``moe_aux`` is 0 and the metrics keep
-the reference's keys.
 """
 from __future__ import annotations
 
@@ -30,15 +28,23 @@ def next_token_xent(logits, tokens):
     return torch.mean(logz - true)
 
 
+# the reference's ``lm_loss`` defaults, with which it trains: the MoE
+# load-balancing weight, and the capacity factor past which training drops
+# entries (the inference paths never drop)
+MOE_AUX_WEIGHT = 0.01
+TRAIN_MOE_CAPACITY = 1.25
+
+
 def lm_loss(params, cfg, tokens, remat: bool = False,
             use_kernel: bool = True):
     """The training loss. Returns (loss, metrics) with ``xent``,
     ``moe_aux``, ``forecast_kl`` (with forecast heads) and ``loss``.
     ``use_kernel`` as in ``TransformerLM.apply``."""
-    logits, h, aux = TransformerLM.apply(params, cfg, tokens, remat=remat,
-                                         use_kernel=use_kernel)
+    logits, h, aux = TransformerLM.apply(params, cfg, tokens,
+                                         moe_capacity=TRAIN_MOE_CAPACITY,
+                                         remat=remat, use_kernel=use_kernel)
     xent = next_token_xent(logits, tokens)
-    loss = xent
+    loss = xent + MOE_AUX_WEIGHT * aux
     metrics = {"xent": xent, "moe_aux": aux}
     if cfg.forecast_horizon and "forecast" in params:
         fc_logits = TokenForecast.apply(params["forecast"], h,

@@ -13,12 +13,12 @@ states ``{"mixer": {"x_last", "S"}, "ffn": {"x_last"}}`` (time mix and
 channel mix).
 
 Mixers: GQA attention (``attn``, ``local``), MLA (``mla``) and the RWKV-6
-time mix (``rwkv``); FFNs: dense and the RWKV-6 channel mix
-(``rwkv_cmix``); the learned forecast heads (``params["forecast"]``).
-Mamba and MoE FFNs raise ``NotImplementedError`` naming their ROADMAP
-item. In the paged cache the attention entries are physical block pools
-shared by all rows, while recurrent states stay one row per batch slot
-(they are small and never shared).
+time mix (``rwkv``); FFNs: dense, mixture-of-experts (``moe``) and the
+RWKV-6 channel mix (``rwkv_cmix``); the learned forecast heads
+(``params["forecast"]``). Mamba mixers raise ``NotImplementedError``
+naming their ROADMAP item. In the paged cache the attention entries are
+physical block pools shared by all rows, while recurrent states stay one
+row per batch slot (they are small and never shared).
 """
 from __future__ import annotations
 
@@ -30,16 +30,16 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.forecasting import TokenForecast, TokenForecastConfig
 from repro_torch.models.attention import GQAttention, MLAttention
-from repro_torch.models.moe import _mlp_apply, _mlp_init
+from repro_torch.models.moe import MoE, _mlp_apply, _mlp_init
 from repro_torch.models.ssm import RWKV6ChannelMix, RWKV6TimeMix
 from repro_torch.nn.core import Dense, Embedding, RMSNorm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_LATER = {"mamba": "item 15", "moe": "item 14"}
+_LATER = {"mamba": "item 15"}
 _MIXERS = {"attn": GQAttention, "local": GQAttention, "mla": MLAttention,
            "rwkv": RWKV6TimeMix}
 _RECURRENT = ("rwkv",)                  # mixers with per-row states
-_FFNS = ("dense", "rwkv_cmix")
+_FFNS = ("dense", "moe", "rwkv_cmix")
 
 
 @dataclass(frozen=True)
@@ -174,14 +174,18 @@ def _layer_init(gen, spec, cfg: ModelConfig, dtype, device):
          "norm2": RMSNorm.init(cfg.d_model, **kw)}
     if ffn == "rwkv_cmix":
         p["ffn"] = RWKV6ChannelMix.init(gen, cfg, **kw)
+    elif ffn == "moe":
+        p["ffn"] = MoE.init(gen, cfg, **kw)
     else:
         p["ffn"] = _mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype,
                              device)
     return p
 
 
-def _layer_full(p, spec, cfg: ModelConfig, h, use_kernel: bool = True):
-    """One layer over whole sequences: h (B, T, D) -> (B, T, D)."""
+def _layer_full(p, spec, cfg: ModelConfig, h, use_kernel: bool = True,
+                moe_capacity=None):
+    """One layer over whole sequences: h (B, T, D) -> (h, the layer's MoE
+    aux loss, a float32 scalar, or None without an MoE FFN)."""
     mixer, ffn = spec
     u = RMSNorm.apply(p["norm1"], h)
     if mixer == "mla":
@@ -195,8 +199,11 @@ def _layer_full(p, spec, cfg: ModelConfig, h, use_kernel: bool = True):
     h = h + y
     v = RMSNorm.apply(p["norm2"], h)
     if ffn == "rwkv_cmix":
-        return h + RWKV6ChannelMix.full(p["ffn"], v, cfg)
-    return h + _mlp_apply(p["ffn"], v, cfg.mlp_kind)
+        return h + RWKV6ChannelMix.full(p["ffn"], v, cfg), None
+    if ffn == "moe":
+        z, aux = MoE.apply(p["ffn"], v, cfg, capacity_factor=moe_capacity)
+        return h + z, aux
+    return h + _mlp_apply(p["ffn"], v, cfg.mlp_kind), None
 
 
 def _layer_window(p, spec, cfg: ModelConfig, h, cache, cache_len,
@@ -231,6 +238,9 @@ def _layer_window(p, spec, cfg: ModelConfig, h, cache, cache_len,
     if ffn == "rwkv_cmix":
         z, nc["ffn"] = RWKV6ChannelMix.window(p["ffn"], v, cfg, cache["ffn"],
                                               last_state_only=last_state_only)
+    elif ffn == "moe":
+        # no-drop: a window token's output depends on that token alone
+        z, _ = MoE.apply(p["ffn"], v, cfg, capacity_factor=None)
     else:
         z = _mlp_apply(p["ffn"], v, cfg.mlp_kind)
     return h + z, nc
@@ -267,7 +277,9 @@ class TransformerLM:
         for spec in cfg.layer_specs():
             _check_spec(spec)
         device = torch.device(device) if device is not None else None
-        gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+        # torch has no generator on the meta device (nothing is drawn there)
+        gen_dev = "cpu" if device is None or device.type == "meta" else device
+        gen = torch.Generator(device=gen_dev).manual_seed(seed)
         dtype = cfg.param_dtype
         kw = dict(dtype=dtype, device=device)
         params = {"embed": Embedding.init(gen, cfg.vocab, cfg.d_model, **kw)}
@@ -303,8 +315,10 @@ class TransformerLM:
               use_kernel: bool = True):
         """tokens: (B, S) int. Returns (logits (B, S, V), h, aux), ``h``
         the final-normed states that feed the forecast heads and ``aux``
-        the MoE load-balancing loss (0: no MoE layer is ported).
-        ``remat=True`` checkpoints each layer (its activations are
+        the MoE layers' load-balancing losses summed (float32; 0 without
+        MoE layers). ``moe_capacity=None`` is no-drop MoE (the inference
+        default, exact ARM semantics); training passes a finite capacity
+        factor. ``remat=True`` checkpoints each layer (its activations are
         recomputed in the backward). ``use_kernel`` routes GQA attention
         on CUDA tensors through the flash-attention kernel
         (``GQAttention.full``) and the RWKV-6 recurrence through the WKV
@@ -314,22 +328,23 @@ class TransformerLM:
             raise NotImplementedError(
                 "prefix embeddings (multimodal frontends) are not ported "
                 "yet (ROADMAP.md §1 item 16)")
-        if moe_capacity is not None:
-            raise NotImplementedError(
-                "MoE layers are not ported yet (ROADMAP.md §1 item 14)")
         for spec in cfg.layer_specs():
             _check_spec(spec)
         h = TransformerLM._embed(params, cfg, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for p, spec in zip(params["layers"], cfg.layer_specs()):
             if remat:
-                h = checkpoint(_layer_full, p, spec, cfg, h, use_kernel,
-                               use_reentrant=False)
+                h, layer_aux = checkpoint(_layer_full, p, spec, cfg, h,
+                                          use_kernel, moe_capacity,
+                                          use_reentrant=False)
             else:
-                h = _layer_full(p, spec, cfg, h, use_kernel)
+                h, layer_aux = _layer_full(p, spec, cfg, h, use_kernel,
+                                           moe_capacity)
+            if layer_aux is not None:
+                aux = aux + layer_aux
         h = RMSNorm.apply(params["final_norm"], h)
         logits = TransformerLM._head(params, cfg, h)
-        return logits, h, torch.zeros((), dtype=torch.float32,
-                                      device=h.device)
+        return logits, h, aux
 
     # -- caches ---------------------------------------------------------------
     @staticmethod

@@ -209,6 +209,32 @@ def test_decode_split_and_merge_matches_plain_and_pallas(
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("W,window,S,lengths,tiles,splits", [
+    (8, 0, 300, (250, 37), 3, 5),         # 48 rows: w * 6 + g, 3 tiles
+    (8, 100, 300, (250, 3), 3, 2),        # a window
+    (79, 0, 200, (1, 100), 30, 2)])       # the prompt prefill's width
+def test_decode_split_and_merge_at_a_group_of_6(W, window, S, lengths, tiles,
+                                               splits):
+    """dbrx's GQA group, 48 query heads over 8 kv heads (G = 6), cut to 12
+    over 2: a tile's 16 rows span three or four window positions."""
+    rng = np.random.default_rng(W + window + S + 6)
+    B, H, KV, d = 2, 12, 2, 64
+    q = rng.standard_normal((B, W, H, d)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, d)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, d)).astype(np.float32)
+    lens = np.array(lengths, np.int32)
+    got, _, n_tiles, n_splits = _split_decode(*map(_t, (q, k, v, lens)),
+                                              window)
+    assert (n_tiles, n_splits) == (tiles, splits)
+    want = decode_attention(*map(_t, (q, k, v, lens)), window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    pallas = jax_decode_attention(*map(jnp.asarray, (q, k, v, lens)),
+                                  window=window, block_k=16, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=1e-6,
+                               atol=1e-6)
+
+
 @pytest.fixture(scope="module")
 def qwen():
     cfg = get_config("qwen3-1.7b", reduced=True)

@@ -704,3 +704,138 @@ def test_reparam_noise_is_drawn_on_the_logits_device(cuda, monkeypatch):
     eps = reparam.posterior_gumbel(jr.prng_key(2), logits, x)
     assert x.is_cuda and eps.is_cuda and drawn == ["cuda"] * 3
     assert torch.equal(reparam.reparam_argmax(logits, eps), x)
+
+
+# ---------------------------------------------------------------------------
+# the mixture-of-experts layer (torch ops, no kernel of its own)
+# ---------------------------------------------------------------------------
+
+def _moe_layer_on(cuda, E, k, score, D=256, F=128, shared=1):
+    """An MoE layer of ``E`` experts, top ``k``, bf16, on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import MoE
+    cfg = dataclasses.replace(
+        get_config("deepseek-v3-671b", reduced=True), d_model=D, moe_d_ff=F,
+        n_experts=E, top_k=k, router_score=score, n_shared_experts=shared,
+        dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(E + k)
+    return cfg, MoE.init(gen, cfg, dtype=torch.bfloat16, device=cuda)
+
+
+@pytest.mark.parametrize("E,k,score", [(256, 8, "sigmoid"),
+                                       (16, 4, "softmax")])
+@pytest.mark.parametrize("cf", [None, 1.25, 0.5])
+def test_moe_dispatch_matches_a_per_token_loop_on_gpu(cuda, E, k, score, cf):
+    """The bf16 dispatch on the card against a plain per-token loop on the
+    card: expert ids, each entry's position in its expert's segment and
+    the keep mask bitwise. The loop fills its own (E, C, D) buffer token by
+    token, runs the same batched expert products on it (at one shape a
+    product's row rests on that row alone), and adds each token's kept
+    contributions in float32 in ascending expert order, rounded once:
+    the output is bitwise the loop's, and a loop that drops one
+    contribution (token 0's of the smallest weight) differs. Two calls
+    give the same bits."""
+    from repro_torch.models.moe import MoE, _glu_hidden, _mlp_apply
+    cfg, p = _moe_layer_on(cuda, E, k, score)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((2, 32, cfg.d_model), generator=g, device=cuda).to(
+        torch.bfloat16)
+    N = 64
+    xf = x.reshape(N, -1)
+    ids, w, _ = MoE.route(p, xf, cfg)
+    C = MoE.capacity(N, cfg, cf)
+    order, ids_s, pos, keep = MoE.plan(ids, C)
+    ids_h, order_h = ids.cpu(), order.cpu()
+    # the loop: tokens in order, each of its experts' next free slot
+    fill = [0] * E
+    want_pos, want_keep = torch.empty(N * k, dtype=torch.long), torch.empty(
+        N * k, dtype=torch.bool)
+    where = {}
+    for t in range(N):
+        for j in range(k):
+            e = int(ids_h[t, j])
+            where[(t, e)] = fill[e]
+            fill[e] += 1
+    for i, f in enumerate(order_h.tolist()):
+        t, e = f // k, int(ids_h.reshape(-1)[f])
+        want_pos[i] = where[(t, e)]
+        want_keep[i] = where[(t, e)] < C
+    assert torch.equal(ids_s.cpu(), ids_h.reshape(-1)[order_h])
+    assert torch.equal(pos.cpu(), want_pos)
+    assert torch.equal(keep.cpu(), want_keep)
+    if cf is None:
+        assert bool(keep.all())
+    y, aux = MoE.apply(p, x, cfg, capacity_factor=cf)
+    y2, aux2 = MoE.apply(p, x, cfg, capacity_factor=cf)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+    pe = p["experts"]
+    buf = torch.zeros((E, C, cfg.d_model), dtype=x.dtype, device=cuda)
+    for (t, e), c in where.items():
+        if c < C:
+            buf[e, c] = xf[t]
+    out = torch.bmm(_glu_hidden(torch.bmm(buf, pe["up"]),
+                                torch.bmm(buf, pe["gate"]), cfg.mlp_kind),
+                    pe["down"])
+    shared = _mlp_apply(p["shared"], xf, cfg.mlp_kind)
+
+    def loop(drop=None):
+        ref = torch.zeros((N, cfg.d_model), device=cuda)
+        for t in range(N):
+            kept = sorted((int(ids_h[t, j]), j) for j in range(k)
+                          if where[(t, int(ids_h[t, j]))] < C)
+            if t == 0 and drop:
+                kept.remove(min(kept, key=lambda ej: float(w[t, ej[1]])))
+            for e, j in kept:
+                ref[t] = ref[t] + out[e, where[(t, e)]].float() * w[t, j]
+        return ref.to(torch.bfloat16) + shared
+    assert torch.equal(y.reshape(N, -1), loop())
+    assert not torch.equal(y.reshape(N, -1), loop(drop=True))
+
+
+@pytest.mark.parametrize("E,k,score", [(256, 8, "sigmoid"),
+                                       (16, 4, "softmax")])
+def test_moe_no_drop_output_rests_on_its_own_token_on_gpu(cuda, E, k, score):
+    """At capacity None and one shape, every other token of the batch and
+    window changed: a token's output is bitwise the same. The layer never
+    waits for the card (no host sync), at either capacity."""
+    from repro_torch.models.moe import MoE
+    cfg, p = _moe_layer_on(cuda, E, k, score)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((2, 8, cfg.d_model), generator=g, device=cuda).to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, _ = MoE.apply(p, x, cfg, capacity_factor=None)
+        MoE.apply(p, x, cfg, capacity_factor=1.25)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for b, t in ((0, 0), (1, 5), (0, 7)):
+        other = torch.randn(x.shape, generator=g, device=cuda).to(x.dtype)
+        other[b, t] = x[b, t]
+        y2, _ = MoE.apply(p, other, cfg, capacity_factor=None)
+        assert torch.equal(y2[b, t], y[b, t])
+
+
+def test_moe_top_k_ties_go_to_the_lower_index_on_gpu(cuda):
+    """Scores on a coarse grid, so the k boundary falls inside runs of
+    exact ties: the lowest indices win, as on the CPU."""
+    from repro_torch.models.moe import top_k
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for E, k in ((256, 8), (16, 4)):
+        s = torch.randint(0, 5, (512, E), generator=g, device=cuda).float()
+        s[0] = 1.0
+        w, ids = top_k(s, k)
+        w_cpu, ids_cpu = top_k(s.cpu(), k)
+        assert torch.equal(ids.cpu(), ids_cpu)
+        assert torch.equal(w.cpu(), w_cpu)
+        assert ids[0].tolist() == list(range(k))
+        # the lowest index among the tied values at the boundary
+        kth = w[:, -1:]
+        for r in range(0, 512, 37):
+            tied = (s[r] == kth[r]).nonzero().flatten().tolist()
+            taken = [i for i in ids[r].tolist() if s[r, i] == kth[r]]
+            assert taken == tied[:len(taken)]

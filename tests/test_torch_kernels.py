@@ -252,8 +252,22 @@ def _split_paged_decode(q, kp, vp, kn, vn, tables, lengths, window):
     (8, 0, (37, 0), True, (1, 2))])        # an empty slot: all-zero table
 def test_paged_split_decode_matches_plain_and_pallas(W, window, lengths,
                                                      empty, plan):
+    _check_paged_split(W, window, lengths, empty, plan, H=4, KV=2)
+
+
+@pytest.mark.parametrize("W,window,lengths,plan", [
+    (8, 0, (70, 3), (3, 2)),               # 48 rows: w * 6 + g over 3 tiles
+    (8, 24, (70, 3), (3, 1)),              # a window
+    (1, 0, (0, 37), (1, 2))])              # 6 rows in one tile
+def test_paged_split_decode_at_a_group_of_6(W, window, lengths, plan):
+    """dbrx's GQA group, 48 query heads over 8 kv heads (G = 6), cut to 12
+    over 2: a tile's 16 rows span three or four window positions."""
+    _check_paged_split(W, window, lengths, False, plan, H=12, KV=2)
+
+
+def _check_paged_split(W, window, lengths, empty, plan, H, KV):
     rng = np.random.default_rng(300 + W + window + lengths[0])
-    B, H, KV, d, bs, nb = 2, 4, 2, 64, 16, 6
+    B, d, bs, nb = 2, 64, 16, 6
     P = 1 + B * nb
     q = rng.standard_normal((B, W, H, d)).astype(np.float32)
     kp = rng.standard_normal((P, bs, KV, d)).astype(np.float32)

@@ -31,6 +31,7 @@ from repro_torch.configs import get_config
 from repro_torch.engine.spec_decode import PredictiveSampler, verify_round
 from repro_torch.models.attention import MLAttention
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.optim.optimizers import tree_leaves
 from repro_torch.serving.admission import Request
 from repro_torch.serving.engine import ServingEngine
 
@@ -91,14 +92,46 @@ def test_checkpoint_carries_mla_head_and_forecast_leaves(deepseek):
         assert a.shape == b.shape
 
 
+def _shapes(tree, lead=()):
+    """A dict/list tree's leaves as shape tuples, ``lead`` prepended."""
+    if isinstance(tree, dict):
+        return {k: _shapes(v, lead) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_shapes(v, lead) for v in tree]
+    return lead + tuple(tree.shape)
+
+
 def test_full_depth_config_raises_on_moe_layers():
+    """The full 61-layer model (3 dense-prefix + 58 MoE layers) builds its
+    parameters and paged cache on the meta device, with the reference's
+    tree structure and shapes (its MoE layers no longer raise)."""
     cfg = get_config("deepseek-v3-671b")
     assert (cfg.d_model, cfg.n_heads, cfg.kv_lora_rank, cfg.vocab) == (
         7168, 128, 512, 129280)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TransformerLM.init(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TransformerLM.init_paged_cache(cfg, 1, 4, 16, device="meta")
+    params = TransformerLM.init(cfg, device="meta")
+    layers = params["layers"]
+    assert len(layers) == 61
+    assert all(t.device.type == "meta" for t in tree_leaves(params))
+    n_pre = len(cfg.layer_prefix)
+    for layer in layers[n_pre:]:
+        assert _shapes(layer) == _shapes(layers[n_pre])
+    # the port's tree in the reference's layout: the MoE block's leaves
+    # stacked on a leading axis of 58
+    got = dict(_shapes({k: v for k, v in params.items() if k != "layers"}),
+               prefix=_shapes(layers[:n_pre]), suffix=[],
+               blocks=[_shapes(layers[n_pre], (cfg.n_blocks,))])
+    jcfg = jax_get_config("deepseek-v3-671b")
+    want = jax.eval_shape(lambda k: JaxLM.init(k, jcfg),
+                          jax.random.PRNGKey(0))
+    assert got == _shapes(want)
+    experts = layers[n_pre]["ffn"]["experts"]
+    assert experts["up"].shape == (256, 7168, 2048)
+    assert experts["down"].shape == (256, 2048, 7168)
+    cache = TransformerLM.init_paged_cache(cfg, 1, 4, 16, device="meta")
+    assert len(cache["layers"]) == 61
+    assert all(_shapes(c) == {"mixer": {"c_kv": (4, 16, 512),
+                                        "k_rope": (4, 16, 64)}}
+               for c in cache["layers"])
 
 
 def _mla_layer0(params, jparams):

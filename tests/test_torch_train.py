@@ -183,8 +183,10 @@ def test_apply_raises_on_unported_inputs(qwen):
     with pytest.raises(NotImplementedError, match="item 16"):
         TransformerLM.apply(params, cfg, tok,
                             prefix_embeddings=torch.zeros((1, 2, 256)))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TransformerLM.apply(params, cfg, tok, moe_capacity=1.25)
+    # a capacity factor runs (MoE is ported); without MoE layers aux is 0
+    logits, _, aux = TransformerLM.apply(params, cfg, tok, moe_capacity=1.25)
+    assert float(aux) == 0.0
+    assert torch.equal(logits, TransformerLM.apply(params, cfg, tok)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +263,33 @@ def test_adafactor_state_is_factored():
     assert state["v"]["big"]["vr"].shape == (128,)
     assert state["v"]["big"]["vc"].shape == (256,)
     assert state["v"]["vec"]["v"].shape == (64,)
+
+
+def test_adafactor_on_stacked_expert_leaves_matches_reference():
+    """A 3-D (E, D, F) leaf, as the MoE layers' expert stacks: its second
+    moments factor over the last two axes, (E, D) and (E, F), and three
+    updates and states equal the reference's within the optimizer
+    tolerance."""
+    rng = np.random.default_rng(12)
+    params = {"experts": rng.standard_normal((4, 16, 24)).astype(np.float32),
+              "router": rng.standard_normal((16, 4)).astype(np.float32)}
+    jopt, opt = _OPTS["adafactor"](jax_optim), _OPTS["adafactor"](optim)
+    jp, p = jax.tree.map(jnp.asarray, params), _to_torch(params)
+    js, s = jopt.init(jp), opt.init(p)
+    assert s["v"]["experts"]["vr"].shape == (4, 16)
+    assert s["v"]["experts"]["vc"].shape == (4, 24)
+    for _ in range(3):
+        g = {k: rng.standard_normal(v.shape).astype(np.float32)
+             for k, v in params.items()}
+        ju, js = jopt.update(jax.tree.map(jnp.asarray, g), js, jp)
+        u, s = opt.update(_to_torch(g), s, p)
+        for a, b in zip(jax.tree.leaves(_to_np(u)) +
+                        jax.tree.leaves(_to_np(s)),
+                        jax.tree.leaves(_to_np(ju)) +
+                        jax.tree.leaves(_to_np(js))):
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
+        jp = jax_optim.apply_updates(jp, ju)
+        p = optim.apply_updates(p, u)
 
 
 @pytest.mark.parametrize("name,args", [
