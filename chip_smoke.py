@@ -103,7 +103,30 @@ which fails the script when it fails:
    attention route within ``ROUTE_LIMITS`` with the routing pinned to the
    plain route's (``MoETap``), beside the two planted faults; the unpinned
    routes' differences, ``moe_aux``, the share of token-slots dropped and
-   the peak memory.
+   the peak memory;
+14. the remaining dense configs at their published widths, each model
+   freed before the next: (a) gemma3-1b (26 layers, 22 of them ``local``
+   at a 512-key window; one kv head of width 256; vocab 262,144; 1.00 B
+   parameters), 4 requests with prompts of 520, 600, 700 and 300 tokens
+   (32 new each) in ``ServingEngine(batch=2, window_max=8, block_size=16,
+   max_len=1024)`` on paged_decode (26 launches per verify pass and
+   prefill chunk, asserted), profiled, one request on the gather fallback
+   (paged_write), every request against the solo sampler on
+   decode_attention and on the plain route under the margin rule; (b)
+   gemma-2b (18 layers, 8 query heads over one kv head of 256, no window;
+   2.51 B) the same; (c) mistral-large-123b cut to 8 of its 88 layers (96
+   query heads over 8 kv heads of 128, G = 12; 11.9 B) the same; (d)
+   gemma3-1b trained 3 AdamW steps at B = 2, S = 2048 on the flash kernel
+   (per step 22 windowed and 4 global launches, counted by window), its
+   step-1 logits and per-position losses against the plain route within
+   ``ROUTE_LIMITS``, which a planted fault that drops the window and one
+   that drops the diagonal key tile must break; (e) the kernels at these
+   shapes against their plain versions: flash_attention at gemma3-1b's
+   training shape (window 512 and none) and gemma-2b's 8 heads,
+   decode_attention and paged_decode at gemma3-1b's verify shape and
+   64-wide prefill chunk (window 512 over lengths 520-700) and gemma-2b's
+   G = 8, paged_decode at mistral's G = 12, paged_write at 512-byte rows,
+   spec_verify over vocabularies of 262,144, 256,000 and 32,768.
 
 Phases 11-12 run no kernel of the port's own: the reference's image path
 reaches no Pallas kernel; phase 13's MoE layer neither (the reference's is
@@ -122,8 +145,9 @@ and over 2048 positions.
 The second line from the end is a JSON object with one entry per kernel
 (seven; paged_decode's also carries its 64-wide prefill row, paged_latent's
 its prefill and decode rows, rwkv_wkv's its prefill and zero-state rows,
-and paged_decode's, decode_attention's and flash_attention's their dbrx
-rows, with the launches of phase 13's paths);
+paged_decode's, decode_attention's and flash_attention's their dbrx rows,
+with the launches of phase 13's paths, and five of them phase 14's rows,
+with the launches of its paths);
 the last line is ``{"ok": true, "device": {...}}``. ``--report PATH``
 also writes every number measured to PATH as JSON.
 """
@@ -273,14 +297,15 @@ def bound(nbytes, nops, dtype):
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_spec_verify(dev, gen):
+def check_spec_verify(dev, gen, cases=((16, V), (32, V), (16, V_DS))):
+    """Rows (R, V): by default B * W at W = 8 and W = 16 over qwen3-1.7b's
+    vocab, and W = 8 over DeepSeek-V3's, which splits each row into other
+    chunks."""
     import torch
     from repro_torch.kernels.spec_verify.ops import spec_verify
     from repro_torch.kernels.spec_verify.ref import spec_verify_ref
     rows = {}
-    # B * W at W = 8 and W = 16 over qwen3-1.7b's vocab, and W = 8 over
-    # DeepSeek-V3's, which splits each row into other chunks
-    for R, nv in ((16, V), (32, V), (16, V_DS)):
+    for R, nv in cases:
         name = f"R{R}_V{nv}"
         logits = torch.randn((R, nv), generator=gen, device=dev)
         eps = torch.randn((R, nv), generator=gen, device=dev)
@@ -306,27 +331,30 @@ def check_spec_verify(dev, gen):
     return rows
 
 
-def check_flash_attention(dev, gen):
-    """The flash-attention kernel against its plain version (bf16, qwen3-
-    1.7b's 16 query heads over 8 kv heads of width 128, and dbrx-132b's 48
-    over 8), and the op's backward against autograd through the plain
-    version."""
+# (name, B, T, window, query heads, kv heads, head width)
+FLASH_CASES = (("qwen_train", 2, 2048, 0, 16, KV, D),
+               ("ragged", 2, 1000, 0, 16, KV, D),
+               ("sliding_window", 2, 2048, 512, 16, KV, D),
+               ("dbrx_train", 2, 2048, 0, 48, KV, D))
+
+
+def check_flash_attention(dev, gen, cases=FLASH_CASES, backward=True):
+    """The flash-attention kernel against its plain version (bf16; by
+    default qwen3-1.7b's 16 query heads over 8 kv heads of width 128, and
+    dbrx-132b's 48 over 8), and with ``backward`` the op's backward against
+    autograd through the plain version."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_bwd, flash_attention_fwd)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    KVH = 8
     rows, worst = {}, {"o": 0.0, "lse": 0.0}
-    for name, B, T, window, H in (("qwen_train", 2, 2048, 0, 16),
-                                  ("ragged", 2, 1000, 0, 16),
-                                  ("sliding_window", 2, 2048, 512, 16),
-                                  ("dbrx_train", 2, 2048, 0, 48)):
-        q = torch.randn((B, T, H, D), generator=gen, device=dev).to(
+    for name, B, T, window, H, KVH, hd in cases:
+        q = torch.randn((B, T, H, hd), generator=gen, device=dev).to(
             torch.bfloat16)
-        k = torch.randn((B, T, KVH, D), generator=gen, device=dev).to(
+        k = torch.randn((B, T, KVH, hd), generator=gen, device=dev).to(
             torch.bfloat16)
-        v = torch.randn((B, T, KVH, D), generator=gen, device=dev).to(
+        v = torch.randn((B, T, KVH, hd), generator=gen, device=dev).to(
             torch.bfloat16)
         got, lse = flash_attention_fwd(q, k, v, window)
         want, lse_want = flash_attention_ref(q, k, v, window)
@@ -359,15 +387,15 @@ def check_flash_attention(dev, gen):
         lib_err = float((lib().transpose(1, 2).float()
                          - want.float()).abs().max())
         # the least a call must do: each (query, visible key) pair costs a
-        # 128-long q.k and a 128-long p.v (4 * d flops) for every query
+        # d-long q.k and a d-long p.v (4 * d flops) for every query
         # head; and read q, k, v once, write o and the float32 lse once
         vis = sum(min(i + 1, window) if window else i + 1 for i in range(T))
-        nops = 4 * D * B * H * vis
+        nops = 4 * hd * B * H * vis
         nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2 \
             + lse.numel() * 4
         b_ms, b_by = bound(nbytes, nops, "bfloat16")
         rows[name] = {
-            "B": B, "T": T, "H": H, "window": window,
+            "B": B, "T": T, "H": H, "KV": KVH, "d": hd, "window": window,
             "max_abs_err": float(err.max()),
             "lse_max_abs_err": float(lse_err.max()),
             "library_max_abs_err": lib_err, "gflop": nops / 1e9,
@@ -381,12 +409,14 @@ def check_flash_attention(dev, gen):
             rows[name]["bwd_eager_ms"] = eager_ms(
                 lambda: flash_attention_bwd(q, k, v, o_k, lse_k, do),
                 iters=5, warmup=1)
-        log(f"flash_attention {name} B={B} T={T} H={H} KV={KVH} d={D} "
+        log(f"flash_attention {name} B={B} T={T} H={H} KV={KVH} d={hd} "
             f"window={window}: {rows[name]}")
+    if not backward:
+        return rows, worst
     # the backward: the op's hand-written VJP against autograd through the
     # plain version, bf16, B = 1, T = 512
     q, k, v = (torch.randn((1, 512, h, D), generator=gen, device=dev).to(
-        torch.bfloat16) for h in (16, KVH, KVH))
+        torch.bfloat16) for h in (16, KV, KV))
     do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     got = torch.autograd.grad(flash_attention(*leaves), leaves, do)
@@ -414,16 +444,16 @@ def check_flash_attention(dev, gen):
     return rows, worst
 
 
-def _paged_inputs(dev, gen, B, W, nb, lengths, dtype, g=G):
+def _paged_inputs(dev, gen, B, W, nb, lengths, dtype, g=G, kv=KV, d=D):
     import torch
     P = 1 + B * nb + 3
-    k_pool = torch.randn((P, BS, KV, D), generator=gen, device=dev).to(dtype)
-    v_pool = torch.randn((P, BS, KV, D), generator=gen, device=dev).to(dtype)
+    k_pool = torch.randn((P, BS, kv, d), generator=gen, device=dev).to(dtype)
+    v_pool = torch.randn((P, BS, kv, d), generator=gen, device=dev).to(dtype)
     perm = torch.randperm(P - 1, generator=gen, device=dev)[:B * nb] + 1
     tables = perm.reshape(B, nb).to(torch.int32)
-    k_new = torch.randn((B, W, KV, D), generator=gen, device=dev).to(dtype)
-    v_new = torch.randn((B, W, KV, D), generator=gen, device=dev).to(dtype)
-    q = torch.randn((B, W, KV * g, D), generator=gen, device=dev).to(dtype)
+    k_new = torch.randn((B, W, kv, d), generator=gen, device=dev).to(dtype)
+    v_new = torch.randn((B, W, kv, d), generator=gen, device=dev).to(dtype)
+    q = torch.randn((B, W, kv * g, d), generator=gen, device=dev).to(dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return q, k_pool, v_pool, k_new, v_new, tables, lens
 
@@ -437,22 +467,26 @@ def _visible_blocks(lengths, W, nb, window):
     return total
 
 
-def check_paged_decode(dev, gen):
+# (name, B, W, lengths, window, G, nb, kv heads, head width); nb 17 =
+# (max_len 256 + W 8) / 16; dbrx-132b's group of 6 query heads per kv head
+# at the verify shape and over a 2048-token table
+PAGED_CASES = (("verify", 2, 8, [100, 37], 0, G, 17, KV, D),
+               ("prefill", 1, 64, [16], 0, G, 17, KV, D),
+               ("verify_sliding", 2, 8, [200, 61], 32, G, 17, KV, D),
+               ("dbrx_verify", 2, 8, [100, 37], 0, G_DBRX, 17, KV, D),
+               ("dbrx_S2048", 2, 8, [2030, 1500], 0, G_DBRX, 128, KV, D))
+
+
+def check_paged_decode(dev, gen, cases=PAGED_CASES):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import (
         gather_view, paged_attention_fused_ref)
-    # nb 17 = (max_len 256 + W 8) / 16; dbrx-132b's group of 6 query heads
-    # per kv head at the verify shape and over a 2048-token table
-    cases = [("verify", 2, 8, [100, 37], 0, G, 17),       # a verify round
-             ("prefill", 1, 64, [16], 0, G, 17),          # a prefill chunk
-             ("verify_sliding", 2, 8, [200, 61], 32, G, 17),
-             ("dbrx_verify", 2, 8, [100, 37], 0, G_DBRX, 17),
-             ("dbrx_S2048", 2, 8, [2030, 1500], 0, G_DBRX, 128)]
     rows, worst = {}, 0.0
-    for name, B, W, lengths, window, g, nb in cases:
-        ins = _paged_inputs(dev, gen, B, W, nb, lengths, torch.bfloat16, g)
+    for name, B, W, lengths, window, g, nb, kv, hd in cases:
+        ins = _paged_inputs(dev, gen, B, W, nb, lengths, torch.bfloat16, g,
+                            kv, hd)
         q, k_pool, v_pool, k_new, v_new, tables, lens = ins
         kp1, vp1 = k_pool.clone(), v_pool.clone()
         kp2, vp2 = k_pool.clone(), v_pool.clone()
@@ -493,15 +527,17 @@ def check_paged_decode(dev, gen):
         cached = sum(L - (max(0, L - window + 1) if window else 0)
                      for L in lengths)
         nblk = _visible_blocks(lengths, W, nb, window)
-        nbytes = (2 * cached * KV * D * 2
+        nbytes = (2 * cached * kv * hd * 2
                   + 2 * q.numel() * 2
                   + 2 * 2 * k_new.numel() * 2
                   + nblk * 4 + B * 4)
         vis = sum(min(L + w + 1, window) if window else L + w + 1
                   for L in lengths for w in range(W))
-        b_ms, b_by = bound(nbytes, 4 * g * KV * D * vis, "bfloat16")
+        b_ms, b_by = bound(nbytes, 4 * g * kv * hd * vis, "bfloat16")
         rows[name] = {
-            "G": g, "max_abs_err": float(err.max()), "bound_ms": b_ms,
+            "B": B, "W": W, "lengths": lengths, "window": window, "G": g,
+            "KV": kv, "d": hd, "nb": nb,
+            "max_abs_err": float(err.max()), "bound_ms": b_ms,
             "bound_by": b_by,
             **times(lambda: paged_attention(q, kp1, vp1, k_new, v_new,
                                             tables, lens, window=window),
@@ -509,30 +545,34 @@ def check_paged_decode(dev, gen):
                         q, kp2, vp2, k_new, v_new, tables, lens,
                         window=window),
                     lib)}
-        log(f"paged_decode {name} B={B} W={W} G={g} lengths={lengths} "
-            f"window={window}: pools bitwise (block 0 excluded); "
+        log(f"paged_decode {name} B={B} W={W} G={g} KV={kv} d={hd} "
+            f"lengths={lengths} window={window}: pools bitwise (block 0 "
+            "excluded); "
             f"{rows[name]}")
     return rows, worst
 
 
-def check_paged_write(dev, gen):
-    """The writeback kernel on qwen3-1.7b's K/V pool rows (8 kv heads of
-    128) and on DeepSeek-V3's two latent pools (c_kv rows of 512 and k_rope
-    rows of 64), bf16, at the verify and the prefill-chunk widths."""
+_VERIFY, _PREFILL = (2, 8, [100, 37], [1, 1]), (1, 64, [16], [1])
+# (name, (B, W, lengths, active), pool row, nb)
+WRITE_CASES = (("verify", _VERIFY, (KV, D), 17),
+               ("prefill", _PREFILL, (KV, D), 17),
+               ("inactive_row", (2, 8, [30, 201], [1, 0]), (KV, D), 17),
+               ("latent_c_kv_verify", _VERIFY, (R_LAT,), 17),
+               ("latent_c_kv_prefill", _PREFILL, (R_LAT,), 17),
+               ("latent_k_rope_verify", _VERIFY, (DR,), 17),
+               ("latent_k_rope_prefill", _PREFILL, (DR,), 17))
+
+
+def check_paged_write(dev, gen, cases=WRITE_CASES):
+    """The writeback kernel, bf16, by default on qwen3-1.7b's K/V pool rows
+    (8 kv heads of 128) and on DeepSeek-V3's two latent pools (c_kv rows of
+    512 and k_rope rows of 64), at the verify and the prefill-chunk
+    widths."""
     import torch
     from repro_torch.kernels.paged_attention.ops import paged_window_write
     from repro_torch.kernels.paged_attention.ref import write_window_paged
-    nb = 17
     rows = {}
-    verify, prefill = (2, 8, [100, 37], [1, 1]), (1, 64, [16], [1])
-    for name, (B, W, lengths, active), row in (
-            ("verify", verify, (KV, D)),
-            ("prefill", prefill, (KV, D)),
-            ("inactive_row", (2, 8, [30, 201], [1, 0]), (KV, D)),
-            ("latent_c_kv_verify", verify, (R_LAT,)),
-            ("latent_c_kv_prefill", prefill, (R_LAT,)),
-            ("latent_k_rope_verify", verify, (DR,)),
-            ("latent_k_rope_prefill", prefill, (DR,))):
+    for name, (B, W, lengths, active), row, nb in cases:
         P = 1 + B * nb + 3
         pool = torch.randn((P, BS) + row, generator=gen, device=dev).to(
             torch.bfloat16)
@@ -761,7 +801,15 @@ def check_rwkv_wkv(dev, gen):
     return rows, worst
 
 
-def check_decode_attention(dev, gen):
+# (name, B, W, S, lengths, window, G, kv heads, head width)
+DECODE_CASES = (("verify", 2, 8, 264, [100, 37], 0, G, KV, D),
+                ("prefill", 1, 79, 264, [0], 0, G, KV, D),
+                ("sliding_window", 2, 8, 2048, [1500, 700], 512, G, KV, D),
+                ("dbrx_verify", 2, 8, 264, [100, 37], 0, G_DBRX, KV, D),
+                ("dbrx_S2048", 2, 8, 2048, [2030, 1500], 0, G_DBRX, KV, D))
+
+
+def check_decode_attention(dev, gen, cases=DECODE_CASES):
     """The dense flash-decode kernel against its plain version at
     qwen3-1.7b's widths (16 query heads over 8 kv heads of 128, bf16): the
     solo sampler's verify round (B = 2, W = 8 over a 264-slot cache,
@@ -774,17 +822,12 @@ def check_decode_attention(dev, gen):
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     rows, worst = {}, 0.0
-    for name, B, W, S, lengths, window, g in (
-            ("verify", 2, 8, 264, [100, 37], 0, G),
-            ("prefill", 1, 79, 264, [0], 0, G),
-            ("sliding_window", 2, 8, 2048, [1500, 700], 512, G),
-            ("dbrx_verify", 2, 8, 264, [100, 37], 0, G_DBRX),
-            ("dbrx_S2048", 2, 8, 2048, [2030, 1500], 0, G_DBRX)):
-        H = KV * g
+    for name, B, W, S, lengths, window, g, kv, hd in cases:
+        H = kv * g
         def rn(*shape):
             return torch.randn(shape, generator=gen, device=dev).to(
                 torch.bfloat16)
-        q, k, v = rn(B, W, H, D), rn(B, S, KV, D), rn(B, S, KV, D)
+        q, k, v = rn(B, W, H, hd), rn(B, S, kv, hd), rn(B, S, kv, hd)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         got = decode_attention(q, k, v, lens, window)
         want = decode_attention_ref(q, k, v, lens, window)
@@ -813,20 +856,21 @@ def check_decode_attention(dev, gen):
         for L in lengths:
             lo = max(0, L - window + 1) if window else 0
             seen += min(L + W - 1, S - 1) - lo + 1
-        nbytes = 2 * seen * KV * D * 2 + 2 * q.numel() * 2 + B * 4
+        nbytes = 2 * seen * kv * hd * 2 + 2 * q.numel() * 2 + B * 4
         vis = sum(min(L + w + 1, window) if window else L + w + 1
                   for L in lengths for w in range(W))
-        b_ms, b_by = bound(nbytes, 4 * H * D * vis, "bfloat16")
+        b_ms, b_by = bound(nbytes, 4 * H * hd * vis, "bfloat16")
         rows[name] = {
-            "B": B, "W": W, "S": S, "G": g, "lengths": lengths,
+            "B": B, "W": W, "S": S, "G": g, "KV": kv, "d": hd,
+            "lengths": lengths,
             "window": window,
             "max_abs_err": float(err.max()), "library_max_abs_err": lib_err,
             "bound_ms": b_ms, "bound_by": b_by,
             **times(lambda: decode_attention(q, k, v, lens, window),
                     lambda: decode_attention_ref(q, k, v, lens, window),
                     lib)}
-        log(f"decode_attention {name} B={B} W={W} S={S} lengths={lengths} "
-            f"window={window}: {rows[name]}")
+        log(f"decode_attention {name} B={B} W={W} S={S} G={g} KV={kv} "
+            f"d={hd} lengths={lengths} window={window}: {rows[name]}")
     return rows, worst
 
 
@@ -846,12 +890,12 @@ def make_requests(cfg, lens, new_tokens):
                     new_tokens=new_tokens) for i, L in enumerate(lens)]
 
 
-def serve(cfg, params, dev, reqs, **kw):
+def serve(cfg, params, dev, reqs, max_len=256, **kw):
     import torch
     from repro_torch.kernels import LAUNCHES, WKV_FORMS, reset_launches
     from repro_torch.serving.engine import ServingEngine
     eng = ServingEngine(cfg, params, batch=2, window_max=8, block_size=16,
-                        max_len=256, eps_key=1, use_verify_kernel=True,
+                        max_len=max_len, eps_key=1, use_verify_kernel=True,
                         device=dev, **kw)
     for r in reqs:
         if not eng.submit(r):
@@ -892,21 +936,21 @@ def kernel_times(prof):
     return kern
 
 
-def profile_serve(cfg, params, dev):
+def profile_serve(cfg, params, dev, lens=PROMPT_LENS[:2], max_len=256):
     """Where the time of a short serving run on the kernel path goes (2
-    requests, 16 new tokens each): the run once without the profiler for
-    its wall time, then once under ``torch.profiler`` for the device busy
-    time from its kernel records and the kernels that take the most. The
-    idle share is taken against the unprofiled wall, since the profiler
-    lengthens the host's time but not the kernels'."""
+    requests of prompts ``lens``, 16 new tokens each): the run once without
+    the profiler for its wall time, then once under ``torch.profiler`` for
+    the device busy time from its kernel records and the kernels that take
+    the most. The idle share is taken against the unprofiled wall, since
+    the profiler lengthens the host's time but not the kernels'."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    reqs = make_requests(cfg, PROMPT_LENS[:2], 16)
-    _, m, wall, _ = serve(cfg, params, dev, reqs)
-    reqs = make_requests(cfg, PROMPT_LENS[:2], 16)
+    reqs = make_requests(cfg, lens, 16)
+    _, m, wall, _ = serve(cfg, params, dev, reqs, max_len=max_len)
+    reqs = make_requests(cfg, lens, 16)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, pm, pwall, _ = serve(cfg, params, dev, reqs)
+        _, pm, pwall, _ = serve(cfg, params, dev, reqs, max_len=max_len)
     kern = kernel_times(prof)
     busy_s = sum(k[0] for k in kern) / 1e6
     # device time of each of the port's own kernels, by function name
@@ -951,7 +995,8 @@ def profile_serve(cfg, params, dev):
     return out
 
 
-def solo_agreement(cfg, params, dev, done, tol, routes=None, **kw):
+def solo_agreement(cfg, params, dev, done, tol, routes=None, max_len=256,
+                   **kw):
     """Each served request against the port's solo sampler (dense cache,
     plain attention or plain WKV scan, plain argmax: none of the port's
     kernels unless ``kw`` asks for them) on the card, under the margin
@@ -984,7 +1029,7 @@ def solo_agreement(cfg, params, dev, done, tol, routes=None, **kw):
         start, splits = len(r.prompt), []
         served = routes.routes(r.seq_id, r.result) if moe else None
         while start < end:
-            s = PredictiveSampler(cfg, params, window=8, max_len=256,
+            s = PredictiveSampler(cfg, params, window=8, max_len=max_len,
                                   eps_key=1, device=dev, **kw)
             ref, _ = s.generate(torch.as_tensor(r.result[:start])[None],
                                 end - start, seq_ids=torch.tensor([r.seq_id]))
@@ -1159,10 +1204,11 @@ ROUTE_LIMITS = {"logits_mean_abs_diff": 0.03, "logits_max_abs_diff": 0.25,
 
 def planted_fault(fault):
     """The flash op's function with one fault planted, in plain float32
-    torch (window 0): ``kv_head_mod`` has query head h read kv head
-    h % KV instead of h // G; ``diagonal_tile_dropped`` has each 64-row
-    query tile skip its last key tile, the diagonal one (a row that then
-    sees no key gives 0)."""
+    torch: ``kv_head_mod`` has query head h read kv head h % KV instead of
+    h // G; ``diagonal_tile_dropped`` has each 64-row query tile skip its
+    last key tile, the diagonal one (a row that then sees no key gives 0);
+    ``window_ignored`` attends over every earlier key, as a kernel that
+    drops the sliding window would. The first two keep the window."""
     import torch
 
     def attend(q, k, v, window=0):
@@ -1175,6 +1221,8 @@ def planted_fault(fault):
             mask = pos[None, :] < (pos[:, None] // 64) * 64
         else:
             mask = pos[None, :] <= pos[:, None]
+        if window > 0 and fault != "window_ignored":
+            mask &= pos[None, :] > pos[:, None] - window
         s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                          k[:, :, kv].float()) / d ** 0.5
         p = torch.softmax(s.masked_fill(~mask, -float("inf")), -1)
@@ -2467,6 +2515,215 @@ def train_dbrx(dev):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the remaining dense configs (gemma3-1b, gemma-2b, a
+# mistral-large-123b depth cut) at head width 256 and group 12
+# ---------------------------------------------------------------------------
+
+# prompts past gemma3-1b's 512-key window (one inside it), and the engine
+# length that holds them: prefill chunks and verify windows see keys the
+# window hides on the local layers and keys it does not on the global ones
+DENSE_PROMPT_LENS = (520, 600, 700, 300)
+DENSE_MAX_LEN = 1024
+DENSE_NB = -(-(DENSE_MAX_LEN + 8) // BS)      # the engine's table width: 65
+
+
+def serve_dense(dev, tol, arch, n_layers=None):
+    """Phase 14 (a)-(c): ``arch`` at its published widths (cut to
+    ``n_layers`` where given) served in ``ServingEngine(batch=2,
+    window_max=8, block_size=16, max_len=1024)`` on paged_decode (one launch
+    per layer per verify pass and prefill chunk, asserted), profiled, once
+    on the gather fallback (paged_write), and every request held against
+    the solo sampler under the margin rule on decode_attention and on the
+    plain route. Returns the report and the launches of the kernel path's
+    run and of the kernel-route solo sampler's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.transformer import TransformerLM
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    mixers = [m for m, _ in cfg.layer_specs()]
+    out = {"layers": cfg.n_layers, "local_layers": mixers.count("local"),
+           "window": cfg.sliding_window, "G": cfg.n_heads // cfg.n_kv_heads,
+           "head_dim": cfg.head_dim, "vocab": cfg.vocab,
+           "params_b": count_params(params) / 1e9,
+           "param_gb": torch.cuda.memory_allocated() / 1e9}
+    log(f"{cfg.name}: {cfg.n_layers} layers ({out['local_layers']} local at "
+        f"window {cfg.sliding_window}), d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv of {cfg.head_dim}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}, {out['params_b']:.3f} B params "
+        f"({out['param_gb']:.2f} GB), init {time.perf_counter() - t0:.1f} s")
+    kw = dict(max_len=DENSE_MAX_LEN)
+    serve(cfg, params, dev, make_requests(cfg, (17,), 4), **kw)   # warm-up
+    reqs = make_requests(cfg, DENSE_PROMPT_LENS, NEW_TOKENS)
+    done, m, wall, launches = serve(cfg, params, dev, reqs, **kw)
+    tok = m["tokens_generated"]
+    passes = m["verify_passes"] + m["prefill_calls"]
+    log(f"serve {cfg.name}: {len(done)} requests (prompts "
+        f"{DENSE_PROMPT_LENS}), {tok} new tokens, {m['rounds']} verify "
+        f"rounds ({m['rounds'] / tok:.4f} per token), {m['prefill_calls']} "
+        f"prefill chunks, arm_calls_vs_ancestral "
+        f"{m['arm_calls_vs_ancestral']:.4f}, wall {wall:.3f} s "
+        f"({wall / tok * 1e3:.2f} ms per token), launches {launches}")
+    if not (launches["paged_decode"] == cfg.n_layers * passes
+            and launches["spec_verify"] > 0
+            and launches["paged_latent"] == 0):
+        raise AssertionError(f"{cfg.name}: paged_decode launched "
+                             f"{launches['paged_decode']} times, not "
+                             f"{cfg.n_layers} x {passes} passes: {launches}")
+    out.update(metrics=m, wall_s=wall, launches=launches,
+               ms_per_token=wall / tok * 1e3,
+               rounds_per_token=m["rounds"] / tok)
+    out["profile"] = profile_serve(cfg, params, dev, DENSE_PROMPT_LENS[:2],
+                                   DENSE_MAX_LEN)
+    torch.cuda.synchronize()
+    reset_launches()
+    log(f"solo agreement, {cfg.name} (margin rule, tolerance {tol}, solo on "
+        f"decode_attention):")
+    out["agreement_kernel_solo"] = solo_agreement(
+        cfg, params, dev, done, tol, use_attention_kernel=True, **kw)
+    solo_launches = dict(LAUNCHES)
+    if solo_launches["decode_attention"] <= 0:
+        raise AssertionError(f"solo sampler not on decode_attention: "
+                             f"{solo_launches}")
+    out["solo_launches"] = solo_launches
+    log(f"solo agreement, {cfg.name} (margin rule, tolerance {tol}, plain "
+        f"solo):")
+    out["agreement_plain_solo"] = solo_agreement(cfg, params, dev, done, tol,
+                                                 **kw)
+    fb_reqs = make_requests(cfg, DENSE_PROMPT_LENS[:1], 8)
+    fb_done, fm, fwall, fb_launches = serve(cfg, params, dev, fb_reqs,
+                                            use_attention_kernel=False, **kw)
+    log(f"serve {cfg.name} (gather fallback): {fm['tokens_generated']} new "
+        f"tokens, {fm['rounds']} verify rounds, wall {fwall:.3f} s, "
+        f"launches {fb_launches}")
+    if fb_launches["paged_write"] <= 0 or fb_launches["paged_decode"] != 0:
+        raise AssertionError(f"fallback path not taken: {fb_launches}")
+    log(f"solo agreement, {cfg.name} gather fallback (plain solo):")
+    out["fallback"] = {"metrics": fm, "wall_s": fwall,
+                       "launches": fb_launches,
+                       "agreement": solo_agreement(cfg, params, dev, fb_done,
+                                                   tol, **kw)}
+    del params
+    torch.cuda.empty_cache()
+    return out, launches, solo_launches, fb_launches
+
+
+def train_gemma3(dev):
+    """Phase 14 (d): gemma3-1b at full width, 3 AdamW steps at B = 2,
+    S = 2048 with the attention on the flash-attention kernel: 26 launches
+    per forward, 22 of them at the 512-key window. The step-1 logits and
+    per-position losses of the kernel route are held against the plain
+    route within ``ROUTE_LIMITS``, beside two planted faults the gate must
+    catch: one drops the window, one the diagonal key tile (gemma3-1b's one
+    kv head leaves ``kv_head_mod`` nothing to break). Returns the report
+    and the launches of the 3 steps."""
+    import torch
+    import repro_torch.models.attention as attention
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import make_optimizer, make_train_step
+    from repro_torch.models.losses import lm_loss
+    from repro_torch.models.transformer import TransformerLM
+    cfg = get_config("gemma3-1b")
+    B, S, steps = 2, 2048, 3
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    opt = make_optimizer(cfg, steps=steps)
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, remat=False)
+    pipe = TokenPipeline(token_batches(max(512, B * 8), B, S, cfg.vocab),
+                         dev)
+    batches = [next(pipe) for _ in range(steps)]
+    out = {"B": B, "S": S, "optimizer": "adamw",
+           "params_b": count_params(params) / 1e9}
+    with torch.no_grad():
+        lp, _ = lm_loss(params, cfg, batches[0], use_kernel=False)
+        out["route_diff"] = route_diffs(
+            params, cfg, batches[0], attention, "flash_attention",
+            {f: planted_fault(f) for f in ("window_ignored",
+                                           "diagonal_tile_dropped")})
+    out["plain_loss_step1"] = float(lp)
+    check_route_diffs(out["route_diff"], B * (S - 1), ROUTE_LIMITS)
+    # the windows the model hands the op, by call
+    windows, kernel_op = [], attention.flash_attention
+
+    def counted(q, k, v, window=0):
+        windows.append(window)
+        return kernel_op(q, k, v, window)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    attention.flash_attention = counted
+    try:
+        params, state, rows = run_steps(cfg, step_fn, params, state, batches,
+                                        "gemma3-1b")
+    finally:
+        attention.flash_attention = kernel_op
+    launches = dict(LAUNCHES)
+    by_window = {w: windows.count(w) for w in sorted(set(windows))}
+    out.update(steps=rows, launches=launches, calls_by_window=by_window,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"train gemma3-1b: launches {launches}, flash calls by window "
+        f"{by_window}, peak memory {out['peak_memory_gb']:.3f} GB")
+    n_local = sum(m == "local" for m, _ in cfg.layer_specs())
+    if launches["flash_attention"] != cfg.n_layers * steps or by_window != {
+            0: (cfg.n_layers - n_local) * steps,
+            cfg.sliding_window: n_local * steps}:
+        raise AssertionError(f"flash launches {launches['flash_attention']}"
+                             f", by window {by_window}, want {cfg.n_layers} "
+                             f"x {steps}, {n_local} local")
+    loss1 = rows[0]["loss"]
+    diff = abs(loss1 - out["plain_loss_step1"])
+    log(f"step-1 loss: kernel path {loss1:.9g}, plain path "
+        f"{out['plain_loss_step1']:.9g}, |diff| {diff:.3g} (tolerance "
+        f"1e-2, as phase 7); ln V {math.log(cfg.vocab):.4f}")
+    if not diff <= 1e-2 or abs(loss1 - math.log(cfg.vocab)) > 1.0:
+        raise AssertionError(f"step-1 loss: kernel {loss1} vs plain "
+                             f"{out['plain_loss_step1']}")
+    del params, state
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def check_dense_kernels(dev, gen):
+    """Phase 14 (e): the kernels at the dense configs' shapes against their
+    plain versions, with device times, bounds and library times: flash
+    attention at gemma3-1b's training shape (4 query heads over one kv head
+    of 256, window 512 and none) and gemma-2b's 8 heads; decode_attention
+    and paged_decode at gemma3-1b's verify shape and 64-wide prefill chunk
+    with window 512 over lengths that pass it, and gemma-2b's group of 8;
+    paged_decode at mistral-large-123b's group of 12; paged_write at
+    gemma's 512-byte rows; spec_verify over the three vocabularies."""
+    hd, nb = 256, DENSE_NB
+    out = {}
+    out["flash_attention"], _ = check_flash_attention(dev, gen, (
+        ("gemma3_local", 2, 2048, 512, 4, 1, hd),
+        ("gemma3_global", 2, 2048, 0, 4, 1, hd),
+        ("gemma2b_train", 2, 2048, 0, 8, 1, hd)), backward=False)
+    out["decode_attention"], _ = check_decode_attention(dev, gen, (
+        ("gemma3_verify", 2, 8, DENSE_MAX_LEN, [700, 520], 512, 4, 1, hd),
+        ("gemma3_prefill", 1, 64, DENSE_MAX_LEN, [600], 512, 4, 1, hd),
+        ("gemma2b_verify", 2, 8, DENSE_MAX_LEN, [700, 300], 0, 8, 1, hd)))
+    out["paged_decode"], _ = check_paged_decode(dev, gen, (
+        ("gemma3_verify", 2, 8, [700, 520], 512, 4, nb, 1, hd),
+        ("gemma3_prefill", 1, 64, [600], 512, 4, nb, 1, hd),
+        ("gemma2b_verify", 2, 8, [700, 300], 0, 8, nb, 1, hd),
+        ("mistral_verify", 2, 8, [700, 300], 0, 12, nb, KV, D)))
+    out["paged_write"] = check_paged_write(dev, gen, (
+        ("gemma_verify", (2, 8, [700, 520], [1, 1]), (1, hd), nb),
+        ("gemma_prefill", (1, 64, [600], [1]), (1, hd), nb)))
+    out["spec_verify"] = check_spec_verify(dev, gen, (
+        (16, 262144), (16, 256000), (16, 32768)))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -2619,6 +2876,20 @@ def main(argv=None) -> int:
     log(f"phase 13 took {report['phase13_s']:.1f} s")
     dbrx_solo = report["moe_dbrx"]["fpi"]["solo_launches"]
 
+    # ---- phase 14: gemma3-1b, gemma-2b, a mistral-large-123b cut ---------
+    t14 = time.perf_counter()
+    dense = check_dense_kernels(dev, gen)
+    report["dense_kernels"] = dense
+    served = {}
+    for key, arch, n_layers in (("gemma3", "gemma3-1b", None),
+                                ("gemma2b", "gemma-2b", None),
+                                ("mistral", "mistral-large-123b", 8)):
+        report["serve_" + key], *served[key] = serve_dense(dev, tol, arch,
+                                                          n_layers)
+    report["train_gemma3"], g3_train = train_gemma3(dev)
+    report["phase14_s"] = time.perf_counter() - t14
+    log(f"phase 14 took {report['phase14_s']:.1f} s")
+
     entries = []
     for name, rows, key, n, path, extra in (
             ("spec_verify", sv, f"R16_V{V}", launches["spec_verify"],
@@ -2683,6 +2954,45 @@ def main(argv=None) -> int:
              dbrx_train_launches["flash_attention"], "train_dbrx")):
         entry = next(e for e in entries if e["name"] == name)
         entry[key].update(launches=n, path=path)
+    # phase 14's shapes (head width 256, G = 4, 8 and 12, the gemma and
+    # mistral vocabularies), each with the launches of the path that runs
+    # it; a prefill row's launches are counted in its verify row's
+    by_window = report["train_gemma3"]["calls_by_window"]
+    for name, key, n, path in (
+            ("flash_attention", "gemma3_local", by_window.get(512, 0),
+             "train_gemma3 (window 512)"),
+            ("flash_attention", "gemma3_global", by_window.get(0, 0),
+             "train_gemma3 (global layers)"),
+            ("flash_attention", "gemma2b_train", 0, None),
+            ("decode_attention", "gemma3_verify",
+             served["gemma3"][1]["decode_attention"], "solo_gemma3"),
+            ("decode_attention", "gemma3_prefill", None, "solo_gemma3"),
+            ("decode_attention", "gemma2b_verify",
+             served["gemma2b"][1]["decode_attention"], "solo_gemma2b"),
+            ("paged_decode", "gemma3_verify",
+             served["gemma3"][0]["paged_decode"], "serve_gemma3"),
+            ("paged_decode", "gemma3_prefill", None, "serve_gemma3"),
+            ("paged_decode", "gemma2b_verify",
+             served["gemma2b"][0]["paged_decode"], "serve_gemma2b"),
+            ("paged_decode", "mistral_verify",
+             served["mistral"][0]["paged_decode"], "serve_mistral"),
+            ("paged_write", "gemma_verify",
+             served["gemma3"][2]["paged_write"], "serve_gemma3_fallback"),
+            ("paged_write", "gemma_prefill", None, "serve_gemma3_fallback"),
+            ("spec_verify", "R16_V262144",
+             served["gemma3"][0]["spec_verify"], "serve_gemma3"),
+            ("spec_verify", "R16_V256000",
+             served["gemma2b"][0]["spec_verify"], "serve_gemma2b"),
+            ("spec_verify", "R16_V32768",
+             served["mistral"][0]["spec_verify"], "serve_mistral")):
+        entry = next(e for e in entries if e["name"] == name)
+        row = dense[name][key]
+        entry[key] = {k: row[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")}
+        entry[key].update(launches=n, path=path)
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   float(row["max_abs_err"]))
     report["kernels"] = entries
     if args.report:
         path = Path(args.report)

@@ -1,13 +1,17 @@
 """Architecture registry: ``get_config(arch_id)`` returns the exact assigned
 config; ``get_config(arch_id, reduced=True)`` the CPU-sized variant of the
-same family. The port serves the dense GQA path, DeepSeek-V3 (MLA with
-its dense-prefix and MoE FFNs), DBRX (GQA with MoE FFNs) and RWKV-6 (time
-and channel mix); the other architectures of the reference raise until
-their mixers are ported."""
+same family. The port serves the dense GQA decoders (qwen3-1.7b,
+gemma-2b, gemma3-1b with its 5:1 sliding-window layers,
+mistral-large-123b), DeepSeek-V3 (MLA with its dense-prefix and MoE FFNs),
+DBRX (GQA with MoE FFNs) and RWKV-6 (time and channel mix). The others
+raise until their parts are ported: musicgen-large and internvl2-1b need
+the multimodal frontends (ROADMAP.md §1 item 16), jamba the Mamba mixer
+beside the MoE layer (items 14-15)."""
 from __future__ import annotations
 
 import importlib
 
+from repro_torch.configs.shapes import SHAPES, InputShape, shape_applicable
 from repro_torch.models.transformer import ModelConfig
 
 ARCHS = (
@@ -23,10 +27,16 @@ ARCHS = (
     "dbrx-132b",
 )
 
-PORTED = {"qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
-          "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
-          "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
-          "dbrx-132b": "repro_torch.configs.dbrx_132b"}
+PORTED = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
+          for a in ("qwen3-1.7b", "deepseek-v3-671b", "rwkv6-7b",
+                    "dbrx-132b", "gemma3-1b", "gemma-2b",
+                    "mistral-large-123b")}
+
+# what each unported arch waits for (ROADMAP.md §1)
+_MISSING = {"musicgen-large": "the multimodal frontends, item 16",
+            "internvl2-1b": "the multimodal frontends, item 16",
+            "jamba-1.5-large-398b": "the Mamba mixer beside the MoE layer, "
+                                    "items 14-15"}
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
@@ -34,9 +44,15 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; available: {sorted(ARCHS)}")
     if arch not in PORTED:
         raise NotImplementedError(
-            f"{arch!r} is not ported yet (ROADMAP.md §1, Slices D-E)")
+            f"{arch!r} is not ported yet: it needs {_MISSING[arch]} "
+            "(ROADMAP.md §1)")
     mod = importlib.import_module(PORTED[arch])
     return mod.reduced_config() if reduced else mod.config()
 
 
-__all__ = ["ARCHS", "get_config", "ModelConfig"]
+def list_archs():
+    return list(ARCHS)
+
+
+__all__ = ["ARCHS", "get_config", "list_archs", "SHAPES",
+           "shape_applicable", "InputShape", "ModelConfig"]

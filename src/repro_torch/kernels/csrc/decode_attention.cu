@@ -105,8 +105,8 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
 }  // namespace
 
 // q, out: (B, W, H, D); k, v: (B, S, KV, D); lengths (B,) int32 or, with
-// len64, int64; all contiguous. dtype: 0 = float32, 1 = bfloat16; D 64 or
-// 128; H a multiple of KV; n_tiles = ceil(W * H / KV / 16). With
+// len64, int64; all contiguous. dtype: 0 = float32, 1 = bfloat16; D 64,
+// 128 or 256; H a multiple of KV; n_tiles = ceil(W * H / KV / 16). With
 // n_splits > 1, ws holds B * KV * n_tiles * n_splits * 16 * (D + 2) floats
 // and counters B * KV * n_tiles zeros (zeros again when the call ends).
 extern "C" int decode_attention_launch(
@@ -124,6 +124,8 @@ extern "C" int decode_attention_launch(
   if (dtype == 0 && D == 128) return launch<float, 128>(DECODE_ARGS);
   if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(DECODE_ARGS);
   if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(DECODE_ARGS);
+  if (dtype == 0 && D == 256) return launch<float, 256>(DECODE_ARGS);
+  if (dtype == 1 && D == 256) return launch<__nv_bfloat16, 256>(DECODE_ARGS);
 #undef DECODE_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -183,8 +183,8 @@ int launch(const void* q, void* k_pool, void* v_pool, const void* k_new,
 
 // q, out: (B, W, H, D); pools (P, bs, KV, D), written in place; k_new,
 // v_new (B, W, KV, D); tables (B, nb) and lengths (B,) int32; all
-// contiguous and 16-byte aligned. dtype: 0 = float32, 1 = bfloat16; D 64
-// or 128; H a multiple of KV; n_tiles = ceil(W * H / KV / 16). With
+// contiguous and 16-byte aligned. dtype: 0 = float32, 1 = bfloat16; D 64,
+// 128 or 256; H a multiple of KV; n_tiles = ceil(W * H / KV / 16). With
 // n_splits > 1, ws holds B * KV * n_tiles * n_splits * 16 * (D + 2) floats
 // and counters B * KV * n_tiles zeros (zeros again when the call ends).
 extern "C" int paged_decode_launch(const void* q, void* k_pool, void* v_pool,
@@ -205,6 +205,8 @@ extern "C" int paged_decode_launch(const void* q, void* k_pool, void* v_pool,
   if (dtype == 0 && D == 128) return launch<float, 128>(PAGED_ARGS);
   if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(PAGED_ARGS);
   if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(PAGED_ARGS);
+  if (dtype == 0 && D == 256) return launch<float, 256>(PAGED_ARGS);
+  if (dtype == 1 && D == 256) return launch<__nv_bfloat16, 256>(PAGED_ARGS);
 #undef PAGED_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,9 +14,7 @@ import torch
 
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-from repro_torch.kernels.split import split_plan
-
-HEAD_DIMS = (64, 128)   # the widths the kernel is compiled for
+from repro_torch.kernels.split import HEAD_DIMS, split_plan
 
 
 def decode_attention(q, k, v, lengths, window: int = 0):

@@ -4,8 +4,8 @@ gradient.
 ``flash_attention(q, k, v, window)`` is a ``torch.autograd.Function``. Its
 forward is the CUDA kernel on CUDA tensors and the plain version in
 ``ref.py`` on CPU tensors; it raises on anything else (a device mix, a
-dtype other than float32 or bfloat16, a head width other than 128 on the
-card). Its backward is the exact vector-Jacobian product of that function,
+dtype other than float32 or bfloat16, a head width other than 128 or 256
+on the card). Its backward is the exact vector-Jacobian product of that function,
 written in torch ops from the saved ``(q, k, v, o, lse)``: the reference
 has no backward kernel (its gradient is XLA autodiff outside Pallas), so
 none is owed here; a hand-written one is later work (ROADMAP.md §2).
@@ -19,7 +19,7 @@ from repro_torch.kernels.flash_attention.ref import (causal_mask,
                                                      compute_dtype,
                                                      flash_attention_ref)
 
-HEAD_DIM = 128          # the width the kernel is compiled for
+HEAD_DIMS = (128, 256)  # the widths the kernel is compiled for
 BWD_CHUNK = 512         # query rows per step of the backward
 
 
@@ -42,9 +42,9 @@ def flash_attention_fwd(q, k, v, window: int = 0):
             torch.float32, torch.bfloat16):
         raise TypeError("flash_attention wants one dtype, float32 or "
                         f"bfloat16: {q.dtype}, {k.dtype}, {v.dtype}")
-    if d != HEAD_DIM:
+    if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head width {d}; the kernel is "
-                         f"compiled for {HEAD_DIM}")
+                         f"compiled for {HEAD_DIMS}")
     return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                 v.contiguous(), window=window,
                                 scale=1.0 / d ** 0.5)

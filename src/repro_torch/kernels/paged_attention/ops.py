@@ -22,7 +22,7 @@ from repro_torch.kernels.paged_attention.kernel import (LATENT_NB,
                                                         paged_write_cuda)
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_fused_ref, paged_latent_fused_ref, write_window_paged)
-from repro_torch.kernels.split import split_plan
+from repro_torch.kernels.split import HEAD_DIMS, split_plan
 
 
 def _all_cpu(*ts) -> bool:
@@ -67,7 +67,7 @@ def paged_attention(q, k_pool, v_pool, k_new, v_new, tables, lengths,
         raise TypeError("paged_attention wants one dtype, float32 or "
                         f"bfloat16: {q.dtype}, {k_pool.dtype}, "
                         f"{v_pool.dtype}, {k_new.dtype}, {v_new.dtype}")
-    if (d not in (64, 128) or dk != d or H % KV
+    if (d not in HEAD_DIMS or dk != d or H % KV
             or v_pool.shape != k_pool.shape
             or k_new.shape != (B, W, KV, d) or v_new.shape != k_new.shape
             or tables.shape[0] != B or lengths.shape != (B,)):

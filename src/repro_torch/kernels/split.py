@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 ROWS = 16               # query rows per CTA (flash_decode.cuh: kRows)
+HEAD_DIMS = (64, 128, 256)   # the widths both decode kernels are compiled for
 SPLIT_TARGET = 132      # CTAs a call aims for: one per SM of the H100
 MIN_SPLIT_KEYS = 64     # the fewest keys per split of a tile's widest span
 MAX_SPLITS = 64         # the kernel's merge holds this many partials a row

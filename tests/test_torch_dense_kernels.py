@@ -10,7 +10,8 @@ given initial state, the state after every position) and its last-state
 form against the model scan ``RWKV6TimeMix._wkv_scan`` in float32. The
 dense flash-decode op against ``decode_attention`` (Pallas) with two query
 heads per kv head, a sliding window, a cache length that is not a multiple
-of the Pallas key block and up to 40 queries.
+of the Pallas key block and up to 40 queries, at head width 64 and at
+gemma's 256.
 
 Tolerances: outputs and states 2e-5 relative to the largest value (float32
 sums in another order, carried through up to 130 steps of the state);
@@ -22,7 +23,10 @@ The dense flash-decode kernel's split-key plan (``split.split_plan``) and
 its chunk-and-merge arithmetic are emulated in float32 torch ops and held
 within 1e-6 against the plain version and the Pallas kernel: chunks with no
 visible key, a row of length 0, several row tiles, chunks that do not
-divide the keys.
+divide the keys; and at head width 256 with gemma's groups (4 and 8 query
+heads over one kv head), windows the lengths run past, and the 64-wide
+prefill chunk's 16 row tiles (there 4e-6 against the Pallas kernel, whose
+256-long dot products are summed in another order).
 
 The WKV kernel's prefill and zero-state schedule (the state in 8-row
 groups by column, each group's partial of y summed in the thread's order,
@@ -105,12 +109,17 @@ def test_wkv_window_and_last_state_forms_match_model_scan(W):
     assert torch.equal(y2, y) and torch.equal(S2, S[:, -1])
 
 
-@pytest.mark.parametrize("W,window,S", [(1, 0, 70), (8, 0, 70),
-                                        (8, 24, 70), (40, 0, 96),
-                                        (40, 16, 83)])
-def test_decode_attention_plain_matches_pallas(W, window, S):
+@pytest.mark.parametrize("W,window,S,d", [
+    pytest.param(1, 0, 70, 64, id="1-0-70"),
+    pytest.param(8, 0, 70, 64, id="8-0-70"),
+    pytest.param(8, 24, 70, 64, id="8-24-70"),
+    pytest.param(40, 0, 96, 64, id="40-0-96"),
+    pytest.param(40, 16, 83, 64, id="40-16-83"),
+    pytest.param(8, 24, 70, 256, id="8-24-70-d256"),      # gemma's width
+    pytest.param(40, 16, 83, 256, id="40-16-83-d256")])
+def test_decode_attention_plain_matches_pallas(W, window, S, d):
     rng = np.random.default_rng(W + window + S)
-    B, H, KV, d = 2, 4, 2, 64
+    B, H, KV = 2, 4, 2
     q = rng.standard_normal((B, W, H, d)).astype(np.float32)
     k = rng.standard_normal((B, S, KV, d)).astype(np.float32)
     v = rng.standard_normal((B, S, KV, d)).astype(np.float32)
@@ -233,6 +242,35 @@ def test_decode_split_and_merge_at_a_group_of_6(W, window, S, lengths, tiles,
                                   window=window, block_k=16, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=1e-6,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("W,window,S,lengths,H,tiles,splits", [
+    (8, 16, 83, (40, 70), 4, 2, 1),       # gemma3-1b: G = 4, the window bites
+    (8, 100, 300, (250, 3), 4, 2, 2),     # a window wide enough to split
+    (8, 0, 300, (250, 37), 8, 4, 5),      # gemma-2b: G = 8
+    (64, 16, 140, (70, 0), 4, 16, 1)])    # the prefill chunk: 16 row tiles
+def test_decode_split_and_merge_at_head_width_256(W, window, S, lengths, H,
+                                                  tiles, splits):
+    """gemma's head width 256 over one kv head: the same plan and merge;
+    a tile's 16 rows span 4 or 2 window positions. Against the Pallas
+    kernel 4e-6: its q.k dot products are 256 long, four times the reduced
+    widths' 64, summed in another order."""
+    rng = np.random.default_rng(W + window + S + H)
+    B, KV, d = 2, 1, 256
+    q = rng.standard_normal((B, W, H, d)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, d)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, d)).astype(np.float32)
+    lens = np.array(lengths, np.int32)
+    got, _, n_tiles, n_splits = _split_decode(*map(_t, (q, k, v, lens)),
+                                              window)
+    assert (n_tiles, n_splits) == (tiles, splits)
+    want = decode_attention(*map(_t, (q, k, v, lens)), window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    pallas = jax_decode_attention(*map(jnp.asarray, (q, k, v, lens)),
+                                  window=window, block_k=16, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=4e-6,
+                               atol=4e-6)
 
 
 @pytest.fixture(scope="module")

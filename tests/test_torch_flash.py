@@ -2,8 +2,8 @@
 on the CPU) against the JAX reference's ``flash_attention`` op, run as the
 reference's own tests run it: the Pallas kernel in interpret mode, and its
 plain oracle. GQA shapes (4 query heads over 2 kv heads), ragged lengths
-(not a multiple of the reference's 16-row tiles) and a sliding window;
-inputs made with numpy from a seed.
+(not a multiple of the reference's 16-row tiles) and a sliding window, at
+head width 32 and at gemma's 256; inputs made with numpy from a seed.
 
 Tolerances, float32: outputs 2e-5 (the reference's own kernel-vs-oracle
 tolerance: two softmax orders over up to 40 keys); the log-sum-exp 1e-5
@@ -12,8 +12,9 @@ reference's plain version (each gradient is a sum over up to 40 keys or
 queries of float32 products, computed in another order). The op's own
 backward is exact to float64 rounding (``gradcheck``).
 
-The bf16 CUDA kernel's rounding is emulated here in torch ops and held
-within the card test's tolerance (output 1e-4 + 2^-7 |want|: one bf16
+The bf16 CUDA kernel's rounding is emulated here in torch ops (128-key
+tiles at head width 128, 64-key tiles at 256) and held within the card
+test's tolerance (output 1e-4 + 2^-7 |want|: one bf16
 output rounding apart; the float32 log-sum-exp 1e-4) against the plain
 version and the reference's plain op; the emulation with P rounded to bf16
 alone must break that tolerance.
@@ -34,11 +35,11 @@ from repro_torch.kernels.flash_attention.ref import (causal_mask,
 B, H, KV, D = 2, 4, 2, 32
 
 
-def _inputs(T, seed):
+def _inputs(T, seed, d=D):
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
-    k = rng.standard_normal((B, T, KV, D)).astype(np.float32)
-    v = rng.standard_normal((B, T, KV, D)).astype(np.float32)
+    q = rng.standard_normal((B, T, H, d)).astype(np.float32)
+    k = rng.standard_normal((B, T, KV, d)).astype(np.float32)
+    v = rng.standard_normal((B, T, KV, d)).astype(np.float32)
     return q, k, v
 
 
@@ -46,7 +47,8 @@ def _lse_oracle(q, k, window):
     """float64 log-sum-exp of each row's scaled, masked scores (B, H, T)."""
     T = q.shape[1]
     kx = np.repeat(k.astype(np.float64), H // KV, axis=2)
-    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kx) / np.sqrt(D)
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kx) / np.sqrt(
+        q.shape[-1])
     pos = np.arange(T)
     mask = pos[None, :] <= pos[:, None]
     if window > 0:
@@ -59,9 +61,11 @@ def _lse_oracle(q, k, window):
 @pytest.mark.parametrize("use_kernel", [True, False],
                          ids=["pallas_interpret", "jax_plain"])
 @pytest.mark.parametrize("window", [0, 16])
-@pytest.mark.parametrize("T", [37, 64])
-def test_forward_matches_reference(T, window, use_kernel):
-    q, k, v = _inputs(T, T + window)
+@pytest.mark.parametrize("T,d", [pytest.param(37, D, id="37"),
+                                 pytest.param(64, D, id="64"),
+                                 pytest.param(64, 256, id="64-d256")])
+def test_forward_matches_reference(T, d, window, use_kernel):
+    q, k, v = _inputs(T, T + window, d)
     want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
                                 jnp.asarray(v), window=window,
                                 use_kernel=use_kernel, block_q=16,
@@ -79,13 +83,15 @@ def test_forward_matches_reference(T, window, use_kernel):
 
 
 @pytest.mark.parametrize("window", [0, 16])
-@pytest.mark.parametrize("T", [37, 64])
-def test_backward_matches_jax_grad(T, window):
+@pytest.mark.parametrize("T,d", [pytest.param(37, D, id="37"),
+                                 pytest.param(64, D, id="64"),
+                                 pytest.param(64, 256, id="64-d256")])
+def test_backward_matches_jax_grad(T, d, window):
     """The op's gradient against ``jax.grad`` of a scalar of the
     reference's plain version (through its GQA head expansion), with the
     backward's query chunks both wider than T and narrower (16 rows)."""
-    q, k, v = _inputs(T, 100 + T + window)
-    w = np.random.default_rng(7).standard_normal((B, T, H, D)).astype(
+    q, k, v = _inputs(T, 100 + T + window, d)
+    w = np.random.default_rng(7).standard_normal((B, T, H, d)).astype(
         np.float32)
 
     def scalar(q, k, v):
@@ -145,8 +151,8 @@ def test_shape_errors_raise():
 
 def _tensor_core_flash(q, k, v, window, split_p):
     """The bf16 kernel's arithmetic (csrc/flash_attention.cu, tc::): float32
-    scores of the bf16 inputs, an online softmax in float32 over 128-key
-    tiles, P fed to the P V product as bf16 hi = bf16(p) plus lo =
+    scores of the bf16 inputs, an online softmax in float32 over key tiles
+    of the kernel's ``Plan<D>::kBN`` (128 keys at d = 128, 64 at 256), P fed to the P V product as bf16 hi = bf16(p) plus lo =
     bf16(p - hi), two products accumulated in float32 (with ``split_p``
     False: P rounded to bf16 alone, as SDPA does), and one bf16 rounding of
     the output. Returns (o (B, T, H, d) bf16, lse (B, H, T) float32)."""
@@ -161,14 +167,15 @@ def _tensor_core_flash(q, k, v, window, split_p):
     m = torch.full((B, H, T), -1e30)
     l = torch.zeros((B, H, T))
     acc = torch.zeros((B, H, T, d))
-    for k0 in range(0, T, 128):
-        mk = mask[:, k0:k0 + 128]
-        s = torch.where(mk, s_all[..., k0:k0 + 128], neg)
+    bn = 128 if d == 128 else 64
+    for k0 in range(0, T, bn):
+        mk = mask[:, k0:k0 + bn]
+        s = torch.where(mk, s_all[..., k0:k0 + bn], neg)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.where(mk, torch.exp(s - m_new[..., None]), 0.0)
         alpha = torch.exp(m - m_new)
         l = alpha * l + p.sum(-1)
-        vt = vf[:, :, k0:k0 + 128]
+        vt = vf[:, :, k0:k0 + bn]
         hi = p.bfloat16().float()
         pv = hi @ vt + (p - hi).bfloat16().float() @ vt if split_p \
             else hi @ vt
@@ -185,12 +192,15 @@ def _beyond(got, want):
 
 
 @pytest.mark.parametrize("window", [0, 128])
-@pytest.mark.parametrize("T", [512, 1000])
-def test_tensor_core_rounding_keeps_the_card_tolerance(T, window):
-    """qwen3-1.7b's head width (128), 4 query heads over 2 kv heads, bf16
-    inputs from a seed; T = 1000 leaves a ragged last tile."""
+@pytest.mark.parametrize("T,d", [pytest.param(512, 128, id="512"),
+                                 pytest.param(1000, 128, id="1000"),
+                                 pytest.param(300, 256, id="300-d256")])
+def test_tensor_core_rounding_keeps_the_card_tolerance(T, d, window):
+    """qwen3-1.7b's head width (128) and gemma's (256), 4 query heads over
+    2 kv heads, bf16 inputs from a seed; T = 1000 and 300 leave a ragged
+    last tile."""
     rng = np.random.default_rng(T + window)
-    q, k, v = (torch.from_numpy(rng.standard_normal((1, T, h, 128)).astype(
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, T, h, d)).astype(
         np.float32)).bfloat16() for h in (4, 2, 2))
     o, lse = _tensor_core_flash(q, k, v, window, split_p=True)
     want, lse_want = flash_attention_ref(q, k, v, window)

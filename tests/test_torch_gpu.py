@@ -14,9 +14,9 @@ latent decode output 2e-5 in float32 (576-long dot products summed in
 another order) and 1e-2 in bfloat16. Flash attention: the output 1e-5 in
 float32 and in bfloat16 1e-4 plus 2^-7 of the value (one output rounding
 apart, which is at most one bf16 ulp), the float32 log-sum-exp 1e-4
-(128-long dot products and
-up to 2048-long sums in another order); its gradients against autograd
-through the plain version 1e-4 of the largest gradient in float32, and in
+(128- or 256-long dot products and up to 2048-long sums in another
+order); its gradients against autograd through the plain version 1e-4
+of the largest gradient in float32, and in
 bfloat16 2e-2 relative plus 1e-2 of the largest (each side rounds every
 gradient to bfloat16 once, and the op's backward takes rowsum(do * o) from
 the output already rounded to bfloat16 where autograd keeps it in float32).
@@ -26,11 +26,15 @@ multiply-add in the state update, carried through up to 1000 steps), and
 bfloat16 outputs 2^-7 relative plus 1e-3 of the largest (both carry the
 state in float32 and round each output once, so they part by at most one
 bf16 ulp beyond the float32 drift). The dense flash-decode output as the
-paged decode's: 1e-5 in float32 and 1e-2 in bfloat16. Both split-key
-decode kernels give the same output bitwise on repeated calls and in CUDA
-graph replay, and leave their shared ticket counters at 0; so does the
-latent kernel, which also reads q_lat and q_rope as the model's
-non-contiguous views without a copy (the call allocates only its output).
+paged decode's: 1e-5 in float32 and 1e-2 in bfloat16. The same
+tolerances hold the three attention kernels at head width 256 (gemma)
+and paged_decode at 12 query heads per kv head (mistral-large-123b). Both
+split-key decode kernels (at head widths 128 and 256) give the same
+output bitwise on repeated calls and in CUDA graph replay and leave their
+shared ticket counters at 0. The flash kernel (at 256) and the latent
+kernel are bitwise on repeated calls and in replay too; the latent kernel
+also reads q_lat and q_rope as the model's non-contiguous views without a
+copy (the call allocates only its output).
 The paper's image path, which has no kernel of its own, with TF32 off:
 the full-width masked convolutions on the card within 1e-4 of the CPU's;
 strict triangular dependence of full-width binary_mnist, and every
@@ -506,12 +510,172 @@ def test_paged_decode_ticket_counters_reset_on_gpu(cuda):
     assert int(COUNTER_BUFS[q.device].abs().sum()) == 0
 
 
+# ---------------------------------------------------------------------------
+# The three attention kernels at gemma's head width 256 (and mistral-large-
+# 123b's group of 12 query heads per kv head): window 512 past which the
+# lengths run, and none; repeated calls and CUDA-graph replay bitwise.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,window", [
+    (2, 2048, 4, 512),         # gemma3-1b's local layers at training length
+    (2, 2048, 4, 0),           # its global layers
+    (1, 777, 8, 0),            # gemma-2b's 8 heads, ragged
+    (1, 777, 4, 512),          # the window, ragged
+    (2, 17, 4, 0),             # shorter than one 64-key tile
+    (1, 129, 8, 512),          # one row past a 128-row tile
+    (1, 1, 4, 0)])             # one position
+def test_flash_attention_kernel_at_head_width_256_on_gpu(cuda, dtype, B, T,
+                                                         H, window):
+    q, k, v = _flash_inputs(cuda, B, T, H, 1, 256, dtype, T + window + H)
+    reset_launches()
+    got, lse = flash_attention_fwd(q, k, v, window)
+    assert LAUNCHES["flash_attention"] == 1
+    want, lse_want = flash_attention_ref(q, k, v, window)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                                   atol=1e-4)
+    torch.testing.assert_close(lse, lse_want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 128])
+def test_flash_attention_backward_at_head_width_256_on_gpu(cuda, dtype,
+                                                           window):
+    q, k, v = _flash_inputs(cuda, 1, 700, 4, 1, 256, dtype, 7 + window)
+    do = torch.randn(q.shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(2)
+                     ).to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*leaves, window), leaves, do)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*ref_leaves, window)[0],
+                               ref_leaves, do)
+    for g, w in zip(got, want):
+        top = float(w.float().abs().max())
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * top)
+        else:
+            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                       atol=1e-2 * top)
+
+
+def test_flash_attention_at_head_width_256_repeats_and_replays_on_gpu(cuda):
+    """bf16, gemma3-1b's window: a second call and three replays of a
+    captured call give the first call's output and lse bitwise."""
+    q, k, v = _flash_inputs(cuda, 2, 1000, 4, 1, 256, torch.bfloat16, 9)
+    first, lse1 = flash_attention_fwd(q, k, v, 512)
+    second, lse2 = flash_attention_fwd(q, k, v, 512)
+    assert torch.equal(first, second) and torch.equal(lse1, lse2)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured, captured_lse = flash_attention_fwd(q, k, v, 512)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+        assert torch.equal(captured_lse, lse1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,S,lengths,H,KV,d,window", [
+    (2, 8, 1024, (700, 520), 4, 1, 256, 512),   # gemma3-1b verify, window
+    (1, 64, 1024, (600,), 4, 1, 256, 512),      # its 64-wide prefill chunk
+    (2, 8, 1024, (700, 300), 4, 1, 256, 0),     # its global layers
+    (2, 8, 1024, (700, 3), 8, 1, 256, 0),       # gemma-2b: G = 8
+    (1, 1, 2048, (0,), 4, 1, 256, 0),           # every split empty but one
+    (2, 8, 1024, (700, 300), 96, 8, 128, 0)])   # mistral-large-123b: G = 12
+def test_decode_attention_at_the_dense_configs_shapes_on_gpu(
+        cuda, dtype, B, W, S, lengths, H, KV, d, window):
+    g = torch.Generator(device=cuda).manual_seed(W + S + d)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda).to(  # noqa
+        dtype)
+    q, k, v = rn(B, W, H, d), rn(B, S, KV, d), rn(B, S, KV, d)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    reset_launches()
+    got = decode_attention(q, k, v, lens, window)
+    assert LAUNCHES["decode_attention"] == 1
+    want = decode_attention_ref(q, k, v, lens, window)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,lengths,H,KV,d,window,nb", [
+    (2, 8, (700, 520), 4, 1, 256, 512, 64),     # gemma3-1b verify, window
+    (1, 64, (600,), 4, 1, 256, 512, 64),        # its prefill chunk
+    (2, 8, (700, 300), 4, 1, 256, 0, 64),       # its global layers
+    (2, 8, (700, 3), 8, 1, 256, 0, 64),         # gemma-2b: G = 8
+    (2, 8, (1020, 0), 4, 1, 256, 512, 64),      # past the table's span
+    (2, 8, (700, 300), 96, 8, 128, 0, 64)])     # mistral-large-123b: G = 12
+def test_paged_decode_at_the_dense_configs_shapes_on_gpu(
+        cuda, dtype, B, W, lengths, H, KV, d, window, nb):
+    q, kp, vp, kn, vn, tables, lens = _paged_case(
+        cuda, dtype, B, W, lengths, W + d + H, H=H, KV=KV, d=d, nb=nb)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    reset_launches()
+    got, k1, v1 = paged_attention(q, k1, v1, kn, vn, tables, lens,
+                                  window=window)
+    assert LAUNCHES["paged_decode"] == 1
+    want, k2, v2 = paged_attention_fused_ref(q, k2, v2, kn, vn, tables,
+                                             lens, window=window)
+    assert torch.equal(k1[1:], k2[1:]) and torch.equal(v1[1:], v2[1:])
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_decode_kernels_at_head_width_256_repeat_and_replay_on_gpu(cuda):
+    """bf16, gemma3-1b's verify shape with its window: for each decode
+    kernel a second call and three replays of a captured call give the
+    first call's output (and pools) bitwise, and the shared ticket
+    counters are 0 after."""
+    from repro_torch.kernels.split import COUNTER_BUFS
+    g = torch.Generator(device=cuda).manual_seed(11)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda).to(  # noqa
+        torch.bfloat16)
+    q, k, v = rn(2, 8, 4, 256), rn(2, 1024, 1, 256), rn(2, 1024, 1, 256)
+    lens = torch.tensor([700, 520], device=cuda)
+    first = decode_attention(q, k, v, lens, 512)
+    assert torch.equal(first, decode_attention(q, k, v, lens, 512))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = decode_attention(q, k, v, lens, 512)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+    q, kp, vp, kn, vn, tables, lens = _paged_case(
+        cuda, torch.bfloat16, 2, 8, (700, 520), 12, H=4, KV=1, d=256, nb=64)
+    first, kp, vp = paged_attention(q, kp, vp, kn, vn, tables, lens,
+                                    window=512)
+    k_first, v_first = kp.clone(), vp.clone()
+    second, kp, vp = paged_attention(q, kp, vp, kn, vn, tables, lens,
+                                     window=512)
+    assert torch.equal(first, second)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured, _, _ = paged_attention(q, kp, vp, kn, vn, tables, lens,
+                                         window=512)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+        assert torch.equal(kp, k_first) and torch.equal(vp, v_first)
+    assert int(COUNTER_BUFS[q.device].abs().sum()) == 0
+
+
 @pytest.mark.parametrize("W", [1, 8, 64])
-@pytest.mark.parametrize("row", [(8, 128), (512,), (64,)])
+@pytest.mark.parametrize("row", [(8, 128), (512,), (64,), (1, 256)])
 def test_paged_write_kernel_bitwise_on_gpu(cuda, W, row):
-    """Rows of 2048 (qwen3-1.7b's K/V), 1024 (DeepSeek-V3's c_kv) and 128
-    bytes (its k_rope), bf16, with an inactive row and with every row
-    active (``active`` None); bitwise on every block but the sink 0."""
+    """Rows of 2048 (qwen3-1.7b's K/V), 1024 (DeepSeek-V3's c_kv), 128
+    bytes (its k_rope) and 512 (gemma's one kv head of 256), bf16, with an
+    inactive row and with every row active (``active`` None); bitwise on
+    every block but the sink 0."""
     g = torch.Generator(device=cuda).manual_seed(W + row[0])
     B, bs, nb = 2, 16, 17
     P = 1 + B * nb + 2

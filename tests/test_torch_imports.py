@@ -87,3 +87,11 @@ def test_scan_covers_the_rwkv_and_dense_decode_modules():
             "kernels/decode_attention/ref.py"} <= names
     for cu in ("rwkv_wkv.cu", "decode_attention.cu"):
         assert (PORT / "kernels" / "csrc" / cu).exists()
+
+
+def test_scan_covers_the_dense_config_modules():
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if PORT in p.parents}
+    assert {"configs/gemma3_1b.py", "configs/gemma_2b.py",
+            "configs/mistral_large_123b.py", "configs/shapes.py",
+            "configs/__init__.py", "kernels/split.py"} <= names

@@ -14,7 +14,10 @@ the block table entries its CTA staged, the cap at the table's span, the
 32-key stages and the merge, and the writeback shared out over the CTAs of
 a kv head. It is held within 1e-6 against the plain version and the Pallas
 kernel, its pools bitwise (sink excluded), and its writeback must write
-every in-table window slot exactly once and no slot the attention reads.
+every in-table window slot exactly once and no slot the attention reads;
+also at gemma's head width 256 (4 and 8 query heads over one kv head,
+windows the lengths run past, the 64-wide prefill chunk) and at
+mistral-large-123b's group of 12 (6 row tiles of a verify window).
 
 The latent kernel's bf16 tensor-core arithmetic (``csrc/paged_latent.cu``)
 is emulated in float32 torch ops on bf16-valued inputs, on the plan
@@ -102,10 +105,13 @@ def test_paged_write_plain_matches_pallas(W, active):
     np.testing.assert_array_equal(got.numpy()[1:], want[1:])
 
 
-@pytest.mark.parametrize("W,window", [(1, 0), (8, 0), (64, 0), (8, 24)])
-def test_paged_decode_plain_matches_pallas(W, window):
+@pytest.mark.parametrize("W,window,d", [
+    pytest.param(1, 0, 64, id="1-0"), pytest.param(8, 0, 64, id="8-0"),
+    pytest.param(64, 0, 64, id="64-0"), pytest.param(8, 24, 64, id="8-24"),
+    pytest.param(8, 24, 256, id="8-24-d256")])           # gemma's width
+def test_paged_decode_plain_matches_pallas(W, window, d):
     rng = np.random.default_rng(100 + W + window)
-    B, H, KV, d, bs, nb = 2, 4, 2, 64, 16, 6
+    B, H, KV, bs, nb = 2, 4, 2, 16, 6
     P = 1 + B * nb
     q = rng.standard_normal((B, W, H, d)).astype(np.float32)
     kp = rng.standard_normal((P, bs, KV, d)).astype(np.float32)
@@ -265,9 +271,22 @@ def test_paged_split_decode_at_a_group_of_6(W, window, lengths, plan):
     _check_paged_split(W, window, lengths, False, plan, H=12, KV=2)
 
 
-def _check_paged_split(W, window, lengths, empty, plan, H, KV):
+@pytest.mark.parametrize("W,window,lengths,H,d,plan", [
+    (8, 24, (70, 30), 4, 256, (2, 1)),     # gemma3-1b: G = 4, a window
+    (8, 70, (80, 30), 4, 256, (2, 2)),     # a window wide enough to split
+    (8, 0, (70, 3), 8, 256, (4, 2)),       # gemma-2b: G = 8
+    (64, 24, (16, 20), 4, 256, (16, 1)),   # the prefill chunk, 16 tiles
+    (8, 0, (70, 3), 12, 64, (6, 2))])      # mistral-large-123b: G = 12
+def test_paged_split_decode_at_the_dense_configs_groups(W, window, lengths,
+                                                        H, d, plan):
+    """One kv head, as gemma has (mistral's 8 run alike): a tile's 16 rows
+    span 4 window positions at G = 4, and 2 at G = 8 and 12."""
+    _check_paged_split(W, window, lengths, False, plan, H=H, KV=1, d=d)
+
+
+def _check_paged_split(W, window, lengths, empty, plan, H, KV, d=64):
     rng = np.random.default_rng(300 + W + window + lengths[0])
-    B, d, bs, nb = 2, 64, 16, 6
+    B, bs, nb = 2, 16, 6
     P = 1 + B * nb
     q = rng.standard_normal((B, W, H, d)).astype(np.float32)
     kp = rng.standard_normal((P, bs, KV, d)).astype(np.float32)
