@@ -126,7 +126,30 @@ which fails the script when it fails:
    decode_attention and paged_decode at gemma3-1b's verify shape and
    64-wide prefill chunk (window 512 over lengths 520-700) and gemma-2b's
    G = 8, paged_decode at mistral's G = 12, paged_write at 512-byte rows,
-   spec_verify over vocabularies of 262,144, 256,000 and 32,768.
+   spec_verify over vocabularies of 262,144, 256,000 and 32,768;
+15. the Mamba mixer: jamba-1.5-large-398b at its published widths cut to
+   the first 4 layers of its block ((mamba, dense), (mamba, moe), (mamba,
+   dense), (attn, moe): d_model 8192, Mamba d_inner 16384 with 16 states,
+   64 query heads over 8 kv heads of 128, 16 experts top-2, vocab 65,536;
+   about 23 B parameters, counted and logged), each earlier model freed
+   first: (a) phase 14's 4 requests in ``ServingEngine(batch=2,
+   window_max=8, block_size=16, max_len=1024)`` on paged_decode (one
+   launch per attention layer per verify pass and prefill chunk) and
+   spec_verify (one per verify round), asserted, and one request on the
+   gather fallback (paged_write); (b) every request against the solo
+   sampler on decode_attention and on the plain route under the margin
+   rule, a split past the margin judged by the served routing
+   (``RouteLog``, ``routing_check``); (c) verify rounds through
+   ``make_serve_step`` in one pass and in the two-pass low-memory form
+   from the same cache, tokens, accept counts and Mamba states bitwise
+   equal; (d) paged_decode at jamba's verify and prefill shapes,
+   decode_attention at the solo sampler's and spec_verify over 65,536
+   against their plain versions; (e) a profile of a serving run split by
+   layer kind (``LayerTap``) and pass kind: device ms and kernel launches
+   per verify pass and per prefill chunk of the Mamba layers, the
+   attention layer, the MoE layers and the dense FFNs, beside the byte
+   bound of the weights they read, the idle share and ms per token. The
+   Mamba scan has no kernel of its own (the reference's is XLA ops).
 
 Phases 11-12 run no kernel of the port's own: the reference's image path
 reaches no Pallas kernel; phase 13's MoE layer neither (the reference's is
@@ -146,8 +169,8 @@ The second line from the end is a JSON object with one entry per kernel
 (seven; paged_decode's also carries its 64-wide prefill row, paged_latent's
 its prefill and decode rows, rwkv_wkv's its prefill and zero-state rows,
 paged_decode's, decode_attention's and flash_attention's their dbrx rows,
-with the launches of phase 13's paths, and five of them phase 14's rows,
-with the launches of its paths);
+with the launches of phase 13's paths, five of them phase 14's rows and
+three phase 15's, with the launches of their paths);
 the last line is ``{"ok": true, "device": {...}}``. ``--report PATH``
 also writes every number measured to PATH as JSON.
 """
@@ -920,20 +943,109 @@ def serve(cfg, params, dev, reqs, max_len=256, **kw):
     return done, m, wall, launches
 
 
+# the profiler ranges ``MoETap`` and ``LayerTap`` open around a layer's or a
+# pass's calls
+RANGES = ("moe_layer", "mamba_layer", "attn_layer", "dense_ffn",
+          "verify_pass", "prefill_chunk")
+
+
 def kernel_times(prof):
     """(device µs, launches, name) of every kernel a ``torch.profiler``
     run recorded, longest first."""
     kern = []
     for evt in prof.key_averages():
-        # the ranges MoETap opens have a device-side span too: not a kernel
+        # the ranges the taps open have a device-side span too: not a kernel
         if ("CUDA" not in str(getattr(evt, "device_type", ""))
-                or evt.key == "moe_layer"):
+                or evt.key in RANGES):
             continue
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0))
         kern.append((float(us), evt.count, evt.key))
     kern.sort(reverse=True)
     return kern
+
+
+def range_split(prof):
+    """The ``LayerTap`` ranges of a profiled run by the pass they ran in:
+    {pass kind: {"passes": n, layer kind: {"calls", "device_us",
+    "launches"}}}, pass kinds "verify_pass" and "prefill_chunk", layer
+    kinds "mamba_layer", "attn_layer", "moe_layer" and "dense_ffn". A
+    range's device time is that of the kernels launched inside it; its
+    launches are the kernel-launch calls the host made inside it (CPU
+    time containment on the same thread). Empty without the ranges."""
+    import bisect
+    events = [e for e in prof.events() if "CPU" in str(e.device_type)]
+    launch = sorted((e.thread, e.time_range.start) for e in events
+                    if e.name.startswith(("cudaLaunchKernel",
+                                          "cuLaunchKernel")))
+    passes = sorted(((e.thread, e.time_range.start, e.time_range.end, e.name)
+                     for e in events if e.name in ("verify_pass",
+                                                   "prefill_chunk")))
+    out = {}
+    for _, _, _, kind in passes:
+        out.setdefault(kind, {"passes": 0})["passes"] += 1
+    for e in events:
+        if e.name not in ("mamba_layer", "attn_layer", "moe_layer",
+                          "dense_ffn"):
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        i = bisect.bisect_right(passes, (e.thread, t0, float("inf"), "~")) - 1
+        if i < 0 or passes[i][0] != e.thread or passes[i][2] < t1:
+            continue
+        n = (bisect.bisect_right(launch, (e.thread, t1))
+             - bisect.bisect_left(launch, (e.thread, t0)))
+        row = out[passes[i][3]].setdefault(
+            e.name, {"calls": 0, "device_us": 0.0, "launches": 0})
+        row["calls"] += 1
+        row["device_us"] += e.device_time_total
+        row["launches"] += n
+    return out
+
+
+class LayerTap:
+    """Within ``with``: each Mamba layer (``Mamba.window`` and
+    ``advance_state``), attention layer (``GQAttention.window`` and
+    ``window_paged``), MoE layer (``MoE.apply``) and dense FFN (the
+    decoder's ``_mlp_apply``) call runs in a profiler range named by its
+    kind, and each verify round and prefill chunk of the serving engine in
+    a range "verify_pass" or "prefill_chunk", which ``range_split`` reads.
+    The port's code is not changed: its functions are put back on exit."""
+
+    def __enter__(self):
+        import torch
+        import repro_torch.models.transformer as tr
+        import repro_torch.serving.engine as se
+        from repro_torch.models.attention import GQAttention
+        from repro_torch.models.moe import MoE
+        from repro_torch.models.ssm import Mamba
+        eng = se.ServingEngine
+        # (owner, attribute, range name); a class's staticmethods stay so
+        taps = [(Mamba, "window", "mamba_layer"),
+                (Mamba, "advance_state", "mamba_layer"),
+                (GQAttention, "window", "attn_layer"),
+                (GQAttention, "window_paged", "attn_layer"),
+                (MoE, "apply", "moe_layer"), (tr, "_mlp_apply", "dense_ffn"),
+                (se, "verify_round", "verify_pass"),
+                (eng, "_prefill", "prefill_chunk")]
+        self.saved = [(obj, attr, vars(obj)[attr])
+                      for obj, attr, _ in taps]
+
+        def ranged(name, fn):
+            def call(*a, **kw):
+                with torch.profiler.record_function(name):
+                    return fn(*a, **kw)
+            return call
+        for (obj, attr, name), (_, _, fn) in zip(taps, self.saved):
+            if isinstance(fn, staticmethod):
+                setattr(obj, attr, staticmethod(ranged(name, fn.__func__)))
+            else:
+                setattr(obj, attr, ranged(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, fn in self.saved:
+            setattr(obj, attr, fn)
+        return False
 
 
 def profile_serve(cfg, params, dev, lens=PROMPT_LENS[:2], max_len=256):
@@ -967,6 +1079,7 @@ def profile_serve(cfg, params, dev, lens=PROMPT_LENS[:2], max_len=256):
     moe = [e for e in prof.events() if e.name == "moe_layer"
            and "CPU" in str(e.device_type)]
     out = {"wall_s": wall, "profiled_wall_s": pwall, "device_busy_s": busy_s,
+           "ranges": range_split(prof),
            "moe_layer_device_us": sum(e.device_time_total for e in moe),
            "moe_layer_calls": len(moe),
            "idle_share": (1 - busy_s / wall) if kern else None,
@@ -2724,6 +2837,254 @@ def check_dense_kernels(dev, gen):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the Mamba mixer and a jamba-1.5-large-398b depth cut
+# ---------------------------------------------------------------------------
+
+JAMBA_LAYERS = 4       # the cut: the first 4 layers of the 8-layer block
+
+
+def jamba_cut():
+    """jamba-1.5-large-398b at its published widths cut to its first
+    ``JAMBA_LAYERS`` layers: (mamba, dense), (mamba, moe), (mamba, dense),
+    (attn, moe). ``ModelConfig.n_blocks`` takes whole blocks, so the block
+    itself is cut."""
+    from repro_torch.configs import get_config
+    cfg = get_config("jamba-1.5-large-398b")
+    return dataclasses.replace(cfg, n_layers=JAMBA_LAYERS,
+                               layer_block=cfg.layer_block[:JAMBA_LAYERS])
+
+
+def check_jamba_kernels(dev, gen):
+    """Phase 15 (d): the three kernels of the jamba path at its shapes
+    against their plain versions, with device times, bounds and library
+    times: paged_decode at the verify window and a 64-wide prefill chunk
+    (64 query heads over 8 kv heads of 128, G = 8, over the engine's
+    65-block table), decode_attention at the solo sampler's verify window
+    (its dense cache of 1024 + 8 slots) and spec_verify over 16 rows of
+    jamba's 65,536-token vocabulary."""
+    g = 8
+    out = {}
+    out["paged_decode"], _ = check_paged_decode(dev, gen, (
+        ("jamba_verify", 2, 8, [700, 520], 0, g, DENSE_NB, KV, D),
+        ("jamba_prefill", 1, 64, [600], 0, g, DENSE_NB, KV, D)))
+    out["decode_attention"], _ = check_decode_attention(dev, gen, (
+        ("jamba_verify", 2, 8, DENSE_MAX_LEN + 8, [700, 520], 0, g, KV, D),))
+    out["spec_verify"] = check_spec_verify(dev, gen, ((16, 65536),))
+    return out
+
+
+def layer_bytes(cfg, params):
+    """Bytes of the weights one pass reads, by layer kind: the Mamba
+    layers' projections and conv, the attention layer's projections, the
+    MoE layers' router and all E experts (no-drop reads every expert), the
+    dense FFNs', beside the layer counts."""
+    out = {}
+    for (mixer, ffn), p in zip(cfg.layer_specs(), params["layers"]):
+        for kind, tree in (("mamba_layer" if mixer == "mamba"
+                            else "attn_layer", p["mixer"]),
+                           ("moe_layer" if ffn == "moe" else "dense_ffn",
+                            p["ffn"])):
+            row = out.setdefault(kind, {"layers": 0, "bytes": 0})
+            row["layers"] += 1
+            row["bytes"] += count_bytes(tree)
+    for row in out.values():
+        row["byte_bound_ms"] = row["bytes"] / MEM_BYTES_PER_S * 1e3
+    return out
+
+
+def count_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(count_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def two_pass_check(cfg, params, dev, rounds=3):
+    """Phase 15 (c): verify rounds through ``make_serve_step`` with
+    ``low_memory=False`` (one pass, ``select_states``) and ``True`` (the
+    logits pass, then the window again with every recurrent update frozen
+    past the accept point), from the same dense cache (a 300-token prompt
+    per row, prefilled by the solo sampler on decode_attention), each
+    round's window the last round's outputs (fixed-point iteration, so the
+    accept counts grow). The tokens and accept counts must be equal
+    bitwise, and every Mamba layer's conv and h states too; the largest
+    state difference is logged either way."""
+    import numpy as np
+    import torch
+    from repro_torch.engine.spec_decode import PredictiveSampler
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import make_serve_step
+    W = 8
+    rng = np.random.default_rng(2)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                           size=(2, DENSE_PROMPT_LENS[3])))
+    smp = PredictiveSampler(cfg, params, window=W, max_len=DENSE_MAX_LEN,
+                            eps_key=1, device=dev, use_attention_kernel=True)
+    st = smp.init_state(prompts, 2)
+    cache_len = st.n - 1
+    eps = smp.eps_fn(st.seq_ids, st.n[:, None] + torch.arange(W, device=dev))
+    one = make_serve_step(cfg, W, low_memory=False, use_kernel=True)
+    two = make_serve_step(cfg, W, low_memory=True, use_kernel=True)
+    mamba = [i for i, (m, _) in enumerate(cfg.layer_specs()) if m == "mamba"]
+    cand, rows = st.cand, []
+    torch.cuda.synchronize()
+    reset_launches()
+    for r in range(rounds):
+        out1, acc1, sel = one(params, cand, st.cache, cache_len, eps)
+        out2, acc2, adv = two(params, cand, st.cache, cache_len, eps)
+        diff, equal = 0.0, True
+        for i in mamba:
+            for k in ("conv", "h"):
+                a = sel["layers"][i]["mixer"][k]
+                b = adv["layers"][i]["mixer"][k]
+                equal &= bool(torch.equal(a, b))
+                diff = max(diff, float((a.float() - b.float()).abs().max()))
+        row = {"round": r, "accept": acc1.tolist(),
+               "tokens_equal": bool(torch.equal(out1, out2)),
+               "accept_equal": bool(torch.equal(acc1, acc2)),
+               "states_equal": equal, "max_state_diff": diff}
+        rows.append(row)
+        log(f"two-pass round {r}: accept {row['accept']} (two-pass "
+            f"{acc2.tolist()}), tokens equal {row['tokens_equal']}, Mamba "
+            f"conv and h states equal {equal} (largest difference {diff})")
+        cand = torch.cat([cand[:, :1], out1[:, :-1]], dim=1)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    log(f"two-pass rounds' launches: {launches}")
+    bad = [r for r in rows if not (r["tokens_equal"] and r["accept_equal"]
+                                   and r["states_equal"])]
+    if bad:
+        raise AssertionError(f"two-pass step parts from the one-pass step: "
+                             f"{bad}")
+    n_attn = sum(m == "attn" for m, _ in cfg.layer_specs())
+    if launches["decode_attention"] != 3 * n_attn * rounds:
+        raise AssertionError(f"two-pass rounds not on decode_attention "
+                             f"({n_attn} layers x 3 passes a round): "
+                             f"{launches}")
+    return {"rounds": rows, "launches": launches}
+
+
+def serve_jamba(dev, tol, gen):
+    """Phase 15 (a)-(e): the jamba cut (``jamba_cut``, bf16, random weights
+    from seed 0) served in ``ServingEngine(batch=2, window_max=8,
+    block_size=16, max_len=1024)`` with phase 14's prompts of 520, 600,
+    700 and 300 tokens on paged_decode (one launch per attention layer per
+    verify pass and prefill chunk) and spec_verify (one per verify round),
+    one request on the gather fallback (paged_write), every request against
+    the solo sampler on decode_attention and on the plain route under the
+    margin rule, a split past the margin judged by the served routing
+    (``RouteLog``); the two-pass step; the kernels at jamba's shapes; a
+    profile split by layer kind and pass kind. Returns the report and the
+    launches of the kernel path's run, the kernel-route solo sampler's and
+    the fallback's."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.transformer import TransformerLM
+    t0 = time.perf_counter()
+    out = {"kernels": check_jamba_kernels(dev, gen)}
+    cfg = jamba_cut()
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_attn = sum(m == "attn" for m, _ in cfg.layer_specs())
+    out.update(layers=[list(sp) for sp in cfg.layer_specs()],
+               params_b=count_params(params) / 1e9,
+               param_gb=torch.cuda.memory_allocated() / 1e9,
+               weights=layer_bytes(cfg, params))
+    log(f"{cfg.name} cut to {cfg.n_layers} layers {cfg.layer_specs()}: "
+        f"d_model {cfg.d_model} (Mamba d_inner {2 * cfg.d_model}, "
+        f"{cfg.ssm_state} states), {cfg.n_heads} heads / {cfg.n_kv_heads} kv "
+        f"of {cfg.head_dim}, {cfg.n_experts} experts top {cfg.top_k}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}: "
+        f"{out['params_b']:.4f} B params counted ({out['param_gb']:.2f} GB), "
+        f"init {time.perf_counter() - t0:.1f} s; weights read per pass by "
+        f"layer kind: {out['weights']}")
+    kw = dict(max_len=DENSE_MAX_LEN)
+    serve(cfg, params, dev, make_requests(cfg, (17,), 4), **kw)   # warm-up
+    reqs = make_requests(cfg, DENSE_PROMPT_LENS, NEW_TOKENS)
+    with RouteLog() as routes:
+        done, m, wall, launches = serve(cfg, params, dev, reqs, **kw)
+    tok = m["tokens_generated"]
+    passes = m["verify_passes"] + m["prefill_calls"]
+    log(f"serve {cfg.name} {cfg.n_layers}L: {len(done)} requests (prompts "
+        f"{DENSE_PROMPT_LENS}), {tok} new tokens, {m['rounds']} verify "
+        f"rounds ({m['rounds'] / tok:.4f} per token), {m['verify_passes']} "
+        f"verify passes, {m['prefill_calls']} prefill chunks, "
+        f"arm_calls_vs_ancestral {m['arm_calls_vs_ancestral']:.4f}, wall "
+        f"{wall:.3f} s ({wall / tok * 1e3:.2f} ms per token, RouteLog on), "
+        f"launches {launches}")
+    if not (launches["paged_decode"] == n_attn * passes
+            and launches["spec_verify"] == m["verify_passes"]
+            and launches["paged_latent"] == 0
+            and launches["rwkv_wkv"] == 0):
+        raise AssertionError(
+            f"{cfg.name}: paged_decode launched {launches['paged_decode']} "
+            f"times (want {n_attn} x {passes} passes), spec_verify "
+            f"{launches['spec_verify']} (want {m['verify_passes']}): "
+            f"{launches}")
+    out.update(metrics=m, wall_s=wall, launches=launches,
+               ms_per_token=wall / tok * 1e3,
+               rounds_per_token=m["rounds"] / tok)
+    with LayerTap():
+        out["profile"] = profile_serve(cfg, params, dev,
+                                       DENSE_PROMPT_LENS[:2], DENSE_MAX_LEN)
+    pr = out["profile"]
+    split = {}
+    for pkind, row in pr["ranges"].items():
+        n = row["passes"]
+        split[pkind] = {"passes": n, **{
+            lk: {"device_ms_per_pass": v["device_us"] / 1e3 / n,
+                 "launches_per_pass": v["launches"] / n,
+                 "calls": v["calls"]}
+            for lk, v in row.items() if lk != "passes"}}
+        log(f"profile, {pkind} ({n}): " + "; ".join(
+            f"{lk} {v['device_ms_per_pass']:.4g} device ms and "
+            f"{v['launches_per_pass']:.1f} launches per pass"
+            for lk, v in split[pkind].items() if lk != "passes"))
+    out["layer_split"] = split
+    out["weights_byte_bound_ms"] = sum(
+        r["byte_bound_ms"] for r in out["weights"].values())
+    log(f"weights read per pass: byte bound "
+        f"{out['weights_byte_bound_ms']:.4g} ms (" + ", ".join(
+            f"{k} x{r['layers']} {r['byte_bound_ms']:.4g} ms"
+            for k, r in out["weights"].items()) + ")")
+    torch.cuda.synchronize()
+    reset_launches()
+    log(f"solo agreement, {cfg.name} (margin rule, tolerance {tol}, solo on "
+        f"decode_attention):")
+    out["agreement_kernel_solo"] = solo_agreement(
+        cfg, params, dev, done, tol, routes=routes,
+        use_attention_kernel=True, **kw)
+    solo_launches = dict(LAUNCHES)
+    if solo_launches["decode_attention"] <= 0:
+        raise AssertionError(f"solo sampler not on decode_attention: "
+                             f"{solo_launches}")
+    out["solo_launches"] = solo_launches
+    log(f"solo agreement, {cfg.name} (margin rule, tolerance {tol}, plain "
+        f"solo):")
+    out["agreement_plain_solo"] = solo_agreement(cfg, params, dev, done, tol,
+                                                 routes=routes, **kw)
+    fb_reqs = make_requests(cfg, DENSE_PROMPT_LENS[3:], 8)
+    with RouteLog() as fb_routes:
+        fb_done, fm, fwall, fb_launches = serve(
+            cfg, params, dev, fb_reqs, use_attention_kernel=False, **kw)
+    log(f"serve {cfg.name} (gather fallback): {fm['tokens_generated']} new "
+        f"tokens, {fm['rounds']} verify rounds, wall {fwall:.3f} s, "
+        f"launches {fb_launches}")
+    if fb_launches["paged_write"] <= 0 or fb_launches["paged_decode"] != 0:
+        raise AssertionError(f"fallback path not taken: {fb_launches}")
+    log(f"solo agreement, {cfg.name} gather fallback (plain solo):")
+    out["fallback"] = {"metrics": fm, "wall_s": fwall,
+                       "launches": fb_launches,
+                       "agreement": solo_agreement(cfg, params, dev, fb_done,
+                                                   tol, routes=fb_routes,
+                                                   **kw)}
+    out["two_pass"] = two_pass_check(cfg, params, dev)
+    out["seconds"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    return out, launches, solo_launches, fb_launches
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -2890,6 +3251,10 @@ def main(argv=None) -> int:
     report["phase14_s"] = time.perf_counter() - t14
     log(f"phase 14 took {report['phase14_s']:.1f} s")
 
+    # ---- phase 15: the Mamba mixer, a jamba-1.5-large-398b cut ----------
+    report["serve_jamba"], *served["jamba"] = serve_jamba(dev, tol, gen)
+    log(f"phase 15 took {report['serve_jamba']['seconds']:.1f} s")
+
     entries = []
     for name, rows, key, n, path, extra in (
             ("spec_verify", sv, f"R16_V{V}", launches["spec_verify"],
@@ -2958,6 +3323,7 @@ def main(argv=None) -> int:
     # mistral vocabularies), each with the launches of the path that runs
     # it; a prefill row's launches are counted in its verify row's
     by_window = report["train_gemma3"]["calls_by_window"]
+    jk = report["serve_jamba"]["kernels"]
     for name, key, n, path in (
             ("flash_attention", "gemma3_local", by_window.get(512, 0),
              "train_gemma3 (window 512)"),
@@ -2984,9 +3350,18 @@ def main(argv=None) -> int:
             ("spec_verify", "R16_V256000",
              served["gemma2b"][0]["spec_verify"], "serve_gemma2b"),
             ("spec_verify", "R16_V32768",
-             served["mistral"][0]["spec_verify"], "serve_mistral")):
+             served["mistral"][0]["spec_verify"], "serve_mistral"),
+            # phase 15's shapes (jamba: G = 8, vocab 65,536)
+            ("paged_decode", "jamba_verify",
+             served["jamba"][0]["paged_decode"], "serve_jamba"),
+            ("paged_decode", "jamba_prefill", None, "serve_jamba"),
+            ("decode_attention", "jamba_verify",
+             served["jamba"][1]["decode_attention"], "solo_jamba"),
+            ("spec_verify", "R16_V65536",
+             served["jamba"][0]["spec_verify"], "serve_jamba")):
         entry = next(e for e in entries if e["name"] == name)
-        row = dense[name][key]
+        row = (jk if key.startswith(("jamba", "R16_V65536")) else
+               dense)[name][key]
         entry[key] = {k: row[k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err")}

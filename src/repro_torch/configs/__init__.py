@@ -3,10 +3,10 @@ config; ``get_config(arch_id, reduced=True)`` the CPU-sized variant of the
 same family. The port serves the dense GQA decoders (qwen3-1.7b,
 gemma-2b, gemma3-1b with its 5:1 sliding-window layers,
 mistral-large-123b), DeepSeek-V3 (MLA with its dense-prefix and MoE FFNs),
-DBRX (GQA with MoE FFNs) and RWKV-6 (time and channel mix). The others
-raise until their parts are ported: musicgen-large and internvl2-1b need
-the multimodal frontends (ROADMAP.md §1 item 16), jamba the Mamba mixer
-beside the MoE layer (items 14-15)."""
+DBRX (GQA with MoE FFNs), RWKV-6 (time and channel mix) and the hybrid
+jamba (Mamba-1 and GQA layers, dense and MoE FFNs). The others raise
+until their parts are ported: musicgen-large and internvl2-1b need the
+multimodal frontends (ROADMAP.md §1 item 16)."""
 from __future__ import annotations
 
 import importlib
@@ -30,13 +30,11 @@ ARCHS = (
 PORTED = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
           for a in ("qwen3-1.7b", "deepseek-v3-671b", "rwkv6-7b",
                     "dbrx-132b", "gemma3-1b", "gemma-2b",
-                    "mistral-large-123b")}
+                    "mistral-large-123b", "jamba-1.5-large-398b")}
 
 # what each unported arch waits for (ROADMAP.md §1)
 _MISSING = {"musicgen-large": "the multimodal frontends, item 16",
-            "internvl2-1b": "the multimodal frontends, item 16",
-            "jamba-1.5-large-398b": "the Mamba mixer beside the MoE layer, "
-                                    "items 14-15"}
+            "internvl2-1b": "the multimodal frontends, item 16"}
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:

@@ -6,6 +6,10 @@ engine.
 Initializes random weights from a seed, submits ``--requests`` requests
 with random prompts (the reference launcher's generator) and drains them
 through ``ServingEngine``. Runs on the GPU unless ``--device cpu``.
+
+Also exports ``make_serve_step``, the reference's one-round verify step
+over a dense cache, with its two-pass low-memory form for recurrent and
+hybrid stacks.
 """
 from __future__ import annotations
 
@@ -14,12 +18,46 @@ import json
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
+from repro_torch.core.reparam import reparam_argmax
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serving.admission import Request
 from repro_torch.serving.engine import ServingEngine
+
+
+def make_serve_step(cfg, window: int = 8, low_memory: bool = False,
+                    use_kernel: bool = False):
+    """One predictive-sampling verify round over a dense cache.
+
+    ``serve_step(params, cand (B, W), cache, cache_len (B,), eps (B, W,
+    V))`` returns (out tokens (B, W), accept (B,), new_cache), the
+    recurrent states taken at ``accept``. ``low_memory`` is the
+    reference's two-pass form for recurrent and hybrid stacks: pass 1
+    computes the logits with no per-position states (``state_mode=
+    "none"``), pass 2 recomputes the window with every recurrent update
+    frozen past the accept point (``"advance"``): twice the decode's work
+    for no (layers, B, W, state) stack. Both forms give the same tokens,
+    accept counts and states (bitwise on the plain routes).
+    ``use_kernel`` runs the mixers' kernels (``decode_window``)."""
+    def serve_step(params, cand, cache, cache_len, eps):
+        logits, _, new_cache = TransformerLM.decode_window(
+            params, cfg, cand, cache, cache_len, use_kernel=use_kernel,
+            state_mode="none" if low_memory else "per_position")
+        out = reparam_argmax(logits.float(), eps)
+        match = cand[:, 1:] == out[:, :-1]
+        accept = 1 + torch.cumprod(match.long(), dim=1).sum(dim=1)
+        if low_memory:
+            _, _, adv = TransformerLM.decode_window(
+                params, cfg, cand, cache, cache_len, use_kernel=use_kernel,
+                state_mode="advance", accept=accept)
+            return out, accept, adv
+        return out, accept, TransformerLM.select_states(cfg, new_cache,
+                                                        accept)
+
+    return serve_step
 
 
 def main(argv=None):

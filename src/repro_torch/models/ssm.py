@@ -1,13 +1,20 @@
-"""Attention-free mixer: RWKV-6 ("Finch") time and channel mix.
+"""Attention-free mixers: the RWKV-6 ("Finch") time and channel mix, and
+the Mamba-1 selective SSM (as interleaved in Jamba).
 
-Both support:
+All of them support:
 * ``full``   — scan from the zero state over the whole sequence (apply);
 * ``window`` — scan a W-token verify window from a carried state snapshot,
   returning the state after every position so the engine can adopt the one
   at its accept point (DESIGN.md §5: recurrent state is cumulative, so the
   engine snapshots at the last accepted position); with
   ``last_state_only`` only the state after the window's last position
-  (prefill, which adopts exactly that one).
+  (prefill, which adopts exactly that one);
+* ``advance_state`` — the reference's two-pass memory mode: the window
+  recomputed with every update frozen from position ``accept`` on, so only
+  the state after ``accept`` tokens exists (no per-position stack). It is
+  a loop over time, as the reference's ``lax.scan``, and equals the
+  per-position state at ``accept - 1`` bitwise, on the plain routes (on
+  the card's WKV kernel route, within that kernel's rounding).
 
 The WKV recurrence has two routes. The plain route is the reference's
 model scan (``_wkv_scan``, ``_wkv_scan_chunked``): a loop over time that
@@ -27,9 +34,15 @@ model's dtype on entry, as the reference's scan does, which makes it
 equal to the reference with either storage.
 
 The decay ``w = exp(-exp(w0 + lora(x)))`` is computed in float32 and cast
-to the model's dtype, as in the reference. The reference's two-pass
-``advance_state`` mode and Mamba are not ported yet (ROADMAP.md §1 item
-15).
+to the model's dtype, as in the reference.
+
+Mamba's selective scan has one route, the reference's: a float32 loop
+over time (no kernel; the reference's scan is XLA ops). Its state ``h`` is
+stored in float32 too, where the reference casts it to the model's dtype
+at every window boundary: rounded there, the state would depend on where
+windows and prefill chunks split the sequence, and the engine would part
+from the solo sampler in bfloat16. The conv state holds the last three
+conv inputs in the model's dtype, as the reference's.
 """
 from __future__ import annotations
 
@@ -57,6 +70,13 @@ def _shift(x, x_last=None):
     first = (torch.zeros_like(x[:, :1]) if x_last is None
              else x_last[:, None].to(x.dtype))
     return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def _at(x, accept):
+    """x (B, W, ...) at position ``accept - 1`` of each row (0 where
+    ``accept`` is 0, as the reference's ``take_along_axis``)."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    return x[rows, (accept.long() - 1).clamp(min=0)]
 
 
 def _wkv_step(S, r_t, k_t, v_t, w_t, u):
@@ -223,6 +243,29 @@ class RWKV6TimeMix:
         states = {"x_last": x[:, -1] if last_state_only else x, "S": Ss}
         return RWKV6TimeMix._finish(p, y, g, B, W, D), states
 
+    @staticmethod
+    def advance_state(p, x, cfg, state, accept, use_kernel: bool = False):
+        """The two-pass memory mode: the state after the first ``accept``
+        (B,) tokens of the window ``x`` (B, W, D), every update frozen from
+        position ``accept`` on, with no per-position stack. It follows the
+        route of ``window``: without ``use_kernel`` the plain route's
+        update in the model's dtype from ``S`` rounded on entry, with it
+        the WKV op's update in float32 (its plain version's arithmetic: on
+        the CPU bitwise that route's state, on the card within the
+        kernel's rounding). ``S`` comes back in float32."""
+        _, k, v, w, _ = RWKV6TimeMix._project(
+            p, x, _shift(x, state["x_last"]), cfg)
+        if use_kernel:
+            k, v, w = k.float(), v.float(), w.float()
+            S = state["S"].float()
+        else:
+            S = state["S"].to(x.dtype)
+        for t in range(x.shape[1]):
+            kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+            live = (t < accept)[:, None, None, None]
+            S = torch.where(live, w[:, t, :, :, None] * S + kv, S)
+        return {"x_last": _at(x, accept), "S": S.float()}
+
 
 class RWKV6ChannelMix:
     @staticmethod
@@ -259,3 +302,225 @@ class RWKV6ChannelMix:
     def window(p, x, cfg, state, last_state_only: bool = False):
         y = RWKV6ChannelMix._apply(p, x, _shift(x, state["x_last"]))
         return y, {"x_last": x[:, -1] if last_state_only else x}
+
+    @staticmethod
+    def advance_state(p, x, cfg, state, accept):
+        """The token-shift state after the first ``accept`` (B,) tokens."""
+        return {"x_last": _at(x, accept)}
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 (Jamba's SSM layer)
+# ---------------------------------------------------------------------------
+
+def _softplus(x):
+    """``jax.nn.softplus``, which is ``logaddexp(x, 0)`` (torch's
+    ``F.softplus`` turns linear past a threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Mamba:
+    """Mamba-1's selective SSM: ``in_proj`` to (u, z), a causal depthwise
+    conv of width ``D_CONV`` over u, the input-dependent discretization
+    (dt, B, C) and the float32 selective scan, gated by ``silu(z)``, then
+    ``out_proj``. d_inner is ``2 * d_model``."""
+
+    D_CONV = 4
+    # the long-sequence scan's chunk (the reference's §Perf A1): a backward
+    # keeps only the states at chunk boundaries
+    SCAN_CHUNK = 64
+
+    @staticmethod
+    def init(gen, cfg, dtype=torch.float32, device=None):
+        D = cfg.d_model
+        DI = 2 * D
+        N = cfg.ssm_state
+        dt_rank = max(1, D // 16)
+        kw = dict(dtype=dtype, device=device)
+        A = torch.arange(1, N + 1, dtype=torch.float32,
+                         device=device)[None].repeat(DI, 1)
+        return {
+            "in_proj": Dense.init(gen, D, 2 * DI, use_bias=False, **kw),
+            "conv_w": _normal(gen, (Mamba.D_CONV, DI), dtype, device, 0.1),
+            "conv_b": torch.zeros((DI,), **kw),
+            "x_proj": Dense.init(gen, DI, dt_rank + 2 * N, use_bias=False,
+                                 **kw),
+            "dt_proj": Dense.init(gen, dt_rank, DI, **kw),
+            "A_log": torch.log(A).to(dtype),
+            "D": torch.ones((DI,), **kw),
+            "out_proj": Dense.init(gen, DI, D, use_bias=False, **kw),
+        }
+
+    @staticmethod
+    def _conv(p, u, conv_state):
+        """Causal depthwise conv. u: (B, T, DI); conv_state (B, D_CONV - 1,
+        DI) holds the last inputs of the accepted prefix. Returns
+        (silu(conv), the last D_CONV - 1 inputs, ``ext`` = [conv_state, u]),
+        the taps summed in the reference's order (Python's ``sum`` from
+        0, then the bias)."""
+        ext = torch.cat([conv_state.to(u.dtype), u], dim=1)
+        T = u.shape[1]
+        taps = [ext[:, t:t + T] * p["conv_w"][t] for t in range(Mamba.D_CONV)]
+        y = sum(taps) + p["conv_b"]
+        return F.silu(y), ext[:, -(Mamba.D_CONV - 1):], ext
+
+    @staticmethod
+    def _dt_b_c(p, u, cfg):
+        """The discretization's inputs from the conv output u (B, T, DI):
+        dt (B, T, DI), B and C (B, T, N), all float32, and A = -exp(A_log)
+        (DI, N) in float32."""
+        N = cfg.ssm_state
+        R = p["dt_proj"]["w"].shape[0]
+        xdbc = Dense.apply(p["x_proj"], u)
+        dt = _softplus(Dense.apply(p["dt_proj"], xdbc[..., :R]).float())
+        Bm = xdbc[..., R:R + N].float()
+        Cm = xdbc[..., R + N:].float()
+        A = -torch.exp(p["A_log"].float())
+        return dt, Bm, Cm, A
+
+    @staticmethod
+    def _discretize(dt, Bm, u, A):
+        """exp(dt A) and dt B u, (B, T, DI, N) float32, for every step at
+        once: elementwise, so each step's values are those of the
+        reference's per-step products."""
+        dA = torch.exp(dt[..., None] * A)
+        dBu = dt[..., None] * Bm[:, :, None, :] * u[..., None]
+        return dA, dBu
+
+    @staticmethod
+    def _scan(dA, dBu, Cm, h, every_state: bool = True):
+        """The recurrence h_t = dA_t h_{t-1} + dBu_t, y_t = sum_n h_t C_t,
+        one step at a time from h (B, DI, N), all in float32. Returns y
+        (B, T, DI) and the state after every step (B, T, DI, N), or with
+        ``every_state=False`` the state after the last step."""
+        ys, hs = [], []
+        for t in range(dA.shape[1]):
+            h = dA[:, t] * h + dBu[:, t]
+            ys.append((h * Cm[:, t, None, :]).sum(-1))
+            if every_state:
+                hs.append(h)
+        return torch.stack(ys, dim=1), (torch.stack(hs, dim=1)
+                                        if every_state else h)
+
+    @staticmethod
+    def _ssm_scan(p, u, cfg, h0, every_state: bool = True):
+        """The selective scan over u (B, T, DI) from h0 (B, DI, N). Returns
+        y in u's dtype (from the float32 ``y + u D``) and the float32
+        state(s) of ``_scan``."""
+        dt, Bm, Cm, A = Mamba._dt_b_c(p, u, cfg)
+        u32 = u.float()
+        dA, dBu = Mamba._discretize(dt, Bm, u32, A)
+        y, hs = Mamba._scan(dA, dBu, Cm, h0.float(), every_state)
+        y = y + u32 * p["D"].float()
+        return y.to(u.dtype), hs
+
+    @staticmethod
+    def _ssm_scan_chunked(p, u, cfg, h0):
+        """The scan over long sequences: chunks of ``SCAN_CHUNK`` steps
+        (halved until it divides T), each under ``torch.utils.checkpoint``,
+        so no (B, T, DI, N) tensor exists and a backward keeps only the
+        states at chunk boundaries. Inputs and outputs are in u's dtype,
+        the carry in float32 (the reference's layout). Returns y."""
+        T = u.shape[1]
+        dt, Bm, Cm, A = Mamba._dt_b_c(p, u, cfg)
+        ck = Mamba.SCAN_CHUNK
+        while T % ck:
+            ck //= 2
+        io = u.dtype
+        dt, Bm, Cm = (a.to(io) for a in (dt, Bm, Cm))
+
+        def chunk(h, dt_c, B_c, C_c, u_c, A):
+            dt_c, B_c, C_c, u_c = (a.float() for a in (dt_c, B_c, C_c, u_c))
+            dA, dBu = Mamba._discretize(dt_c, B_c, u_c, A)
+            y, h = Mamba._scan(dA, dBu, C_c, h, every_state=False)
+            return y.to(io), h
+
+        h, ys = h0.float(), []
+        for c0 in range(0, T, ck):
+            sl = slice(c0, c0 + ck)
+            y, h = checkpoint(chunk, h, dt[:, sl], Bm[:, sl], Cm[:, sl],
+                              u[:, sl], A, use_reentrant=False)
+            ys.append(y)
+        y = torch.cat(ys, dim=1).float() + u.float() * p["D"].float()
+        return y.to(io)
+
+    @staticmethod
+    def _run(p, x, cfg, conv_state, h0, every_state: bool = True):
+        xz = Dense.apply(p["in_proj"], x)
+        u, z = xz.chunk(2, dim=-1)
+        u, new_conv, ext = Mamba._conv(p, u, conv_state)
+        y, hs = Mamba._ssm_scan(p, u, cfg, h0, every_state)
+        y = y * F.silu(z)
+        return Dense.apply(p["out_proj"], y), new_conv, hs, ext
+
+    @staticmethod
+    def full(p, x, cfg):
+        """x: (B, T, D) -> (B, T, D) from the zero state; the chunked,
+        checkpointed scan from T = 256."""
+        B, T, D = x.shape
+        conv0 = torch.zeros((B, Mamba.D_CONV - 1, 2 * D), dtype=x.dtype,
+                            device=x.device)
+        h0 = torch.zeros((B, 2 * D, cfg.ssm_state), dtype=torch.float32,
+                         device=x.device)
+        if T >= 256:
+            xz = Dense.apply(p["in_proj"], x)
+            u, z = xz.chunk(2, dim=-1)
+            u = Mamba._conv(p, u, conv0)[0]
+            y = Mamba._ssm_scan_chunked(p, u, cfg, h0)
+            return Dense.apply(p["out_proj"], y * F.silu(z))
+        y, _, _, _ = Mamba._run(p, x, cfg, conv0, h0, every_state=False)
+        return y
+
+    @staticmethod
+    def init_state(cfg, batch: int, dtype=torch.float32, device=None):
+        """The zero state: ``conv`` (B, D_CONV - 1, DI) in ``dtype``, ``h``
+        (B, DI, N) in float32."""
+        DI = 2 * cfg.d_model
+        return {"conv": torch.zeros((batch, Mamba.D_CONV - 1, DI),
+                                    dtype=dtype, device=device),
+                "h": torch.zeros((batch, DI, cfg.ssm_state),
+                                 dtype=torch.float32, device=device)}
+
+    @staticmethod
+    def window(p, x, cfg, state, last_state_only: bool = False):
+        """x: (B, W, D) from the carried ``state``. Returns (y, states): the
+        conv inputs (B, W, D_CONV - 1, DI) and float32 SSM states (B, W,
+        DI, N) after every position, so the engine can rewind to its
+        accept point, or with ``last_state_only`` the state after the last
+        position."""
+        W = x.shape[1]
+        y, new_conv, hs, ext = Mamba._run(p, x, cfg, state["conv"],
+                                          state["h"],
+                                          every_state=not last_state_only)
+        if last_state_only:
+            return y, {"conv": new_conv, "h": hs}
+        # after window position t the last D_CONV - 1 inputs end at t:
+        # ext positions t + 1 .. t + D_CONV - 1
+        idx = (torch.arange(W, device=x.device)[:, None] + 1
+               + torch.arange(Mamba.D_CONV - 1, device=x.device)[None, :])
+        return y, {"conv": ext[:, idx], "h": hs}
+
+    @staticmethod
+    def advance_state(p, x, cfg, state, accept):
+        """The two-pass memory mode: the window recomputed, every update
+        masked off from position ``accept`` (B,) on, and only the state
+        after the first ``accept`` tokens returned (no (B, W, DI, N)
+        stack). Each live step is ``window``'s own arithmetic, so the
+        state equals the per-position one at ``accept - 1`` bitwise (the
+        carried state where ``accept`` is 0)."""
+        xz = Dense.apply(p["in_proj"], x)
+        u, _ = xz.chunk(2, dim=-1)
+        u, _, ext = Mamba._conv(p, u, state["conv"])
+        dt, Bm, _, A = Mamba._dt_b_c(p, u, cfg)
+        dA, dBu = Mamba._discretize(dt, Bm, u.float(), A)
+        h = state["h"].float()
+        for t in range(x.shape[1]):
+            live = (t < accept)[:, None, None]
+            h = torch.where(live, dA[:, t] * h + dBu[:, t], h)
+        # the conv inputs after ``accept`` tokens: ext positions accept ..
+        # accept + D_CONV - 2
+        idx = (accept.long()[:, None]
+               + torch.arange(Mamba.D_CONV - 1, device=x.device)[None, :])
+        conv = torch.gather(ext, 1, idx[:, :, None].expand(
+            -1, -1, ext.shape[-1]))
+        return {"conv": conv, "h": h}

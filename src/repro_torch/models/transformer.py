@@ -8,17 +8,23 @@ is one plain dict per layer, in layer order, and the forward pass is a
 Python loop over them (``checkpoint.io.params_from_numpy`` converts the
 reference's stacked tree). Caches follow the same layout, one dict per
 layer: ``{"mixer": {"k", "v"}}`` for GQA layers, ``{"mixer": {"c_kv",
-"k_rope"}}`` for MLA layers, and for RWKV-6 layers the per-row recurrent
-states ``{"mixer": {"x_last", "S"}, "ffn": {"x_last"}}`` (time mix and
-channel mix).
+"k_rope"}}`` for MLA layers, and the per-row recurrent states
+``{"mixer": {"x_last", "S"}, "ffn": {"x_last"}}`` for RWKV-6 layers (time
+mix and channel mix) and ``{"mixer": {"conv", "h"}}`` for Mamba layers.
 
-Mixers: GQA attention (``attn``, ``local``), MLA (``mla``) and the RWKV-6
-time mix (``rwkv``); FFNs: dense, mixture-of-experts (``moe``) and the
-RWKV-6 channel mix (``rwkv_cmix``); the learned forecast heads
-(``params["forecast"]``). Mamba mixers raise ``NotImplementedError``
-naming their ROADMAP item. In the paged cache the attention entries are
-physical block pools shared by all rows, while recurrent states stay one
-row per batch slot (they are small and never shared).
+Mixers: GQA attention (``attn``, ``local``), MLA (``mla``), the RWKV-6
+time mix (``rwkv``) and Mamba-1 (``mamba``); FFNs: dense,
+mixture-of-experts (``moe``) and the RWKV-6 channel mix (``rwkv_cmix``);
+the learned forecast heads (``params["forecast"]``). In the paged cache
+the attention entries are physical block pools shared by all rows, while
+recurrent states stay one row per batch slot (they are small and never
+shared), so a hybrid stack (jamba) holds both in one cache tree.
+
+``decode_window`` takes the reference's ``state_mode``: "per_position"
+(the recurrent state after every window position), "none" (the logits
+only; the recurrent entries come back unchanged) and "advance" (only the
+state after ``accept`` tokens) — the two passes of the reference's
+low-memory verify step (``launch/serve.py:make_serve_step``).
 """
 from __future__ import annotations
 
@@ -31,14 +37,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.forecasting import TokenForecast, TokenForecastConfig
 from repro_torch.models.attention import GQAttention, MLAttention
 from repro_torch.models.moe import MoE, _mlp_apply, _mlp_init
-from repro_torch.models.ssm import RWKV6ChannelMix, RWKV6TimeMix
+from repro_torch.models.ssm import Mamba, RWKV6ChannelMix, RWKV6TimeMix
 from repro_torch.nn.core import Dense, Embedding, RMSNorm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_LATER = {"mamba": "item 15"}
 _MIXERS = {"attn": GQAttention, "local": GQAttention, "mla": MLAttention,
-           "rwkv": RWKV6TimeMix}
-_RECURRENT = ("rwkv",)                  # mixers with per-row states
+           "rwkv": RWKV6TimeMix, "mamba": Mamba}
+_RECURRENT = ("rwkv", "mamba")          # mixers with per-row states
+STATE_MODES = ("per_position", "none", "advance")
 _FFNS = ("dense", "moe", "rwkv_cmix")
 
 
@@ -112,11 +118,6 @@ class ModelConfig:
 
 def _check_spec(spec):
     mixer, ffn = spec
-    for part in (mixer, ffn):
-        if part in _LATER:
-            raise NotImplementedError(
-                f"layer kind {part!r} is not ported yet "
-                f"(ROADMAP.md §1 {_LATER[part]})")
     if mixer not in _MIXERS or ffn not in _FFNS:
         raise ValueError(f"unknown layer spec {spec!r}")
 
@@ -130,7 +131,7 @@ def _recurrent_keys(spec) -> list:
 
 def _recurrent_entries(cfg, cache) -> list:
     """The recurrent state dicts of a cache tree, in layer order: each RWKV
-    layer's time-mix and channel-mix states."""
+    layer's time-mix and channel-mix states, each Mamba layer's."""
     return [c[k] for spec, c in zip(cfg.layer_specs(), cache["layers"])
             for k in _recurrent_keys(spec)]
 
@@ -192,6 +193,8 @@ def _layer_full(p, spec, cfg: ModelConfig, h, use_kernel: bool = True,
         y = MLAttention.full(p["mixer"], u, cfg)
     elif mixer == "rwkv":
         y = RWKV6TimeMix.full(p["mixer"], u, cfg, use_kernel=use_kernel)
+    elif mixer == "mamba":
+        y = Mamba.full(p["mixer"], u, cfg)
     else:
         window = cfg.sliding_window if mixer == "local" else 0
         y = GQAttention.full(p["mixer"], u, cfg, window=window,
@@ -206,21 +209,45 @@ def _layer_full(p, spec, cfg: ModelConfig, h, use_kernel: bool = True,
     return h + _mlp_apply(p["ffn"], v, cfg.mlp_kind), None
 
 
+def _recurrent_window(mix, p, x, cfg, state, state_mode, accept,
+                      last_state_only, **kw):
+    """One recurrent mixer (or the RWKV channel mix) over the window in
+    ``state_mode``: (y, its new state entry). "none" and "advance" compute
+    y with the mixer's last-state form, which keeps no per-position stack
+    (the same y as the per-position form's, except where the WKV kernel's
+    two forms round it differently on the card); "advance" then recomputes
+    the state after ``accept`` tokens."""
+    if state_mode == "per_position":
+        return mix.window(p, x, cfg, state, last_state_only=last_state_only,
+                          **kw)
+    y, _ = mix.window(p, x, cfg, state, last_state_only=True, **kw)
+    if state_mode == "none":
+        return y, state
+    return y, mix.advance_state(p, x, cfg, state, accept, **kw)
+
+
 def _layer_window(p, spec, cfg: ModelConfig, h, cache, cache_len,
                   paged: PagedView | None = None, use_kernel: bool = False,
-                  last_state_only: bool = False):
+                  last_state_only: bool = False,
+                  state_mode: str = "per_position", accept=None):
     """Returns (h, new_cache) for one layer. Recurrent entries of
     ``new_cache`` hold the state after every window position, or with
-    ``last_state_only`` after the last one."""
+    ``last_state_only`` after the last one; ``state_mode`` "none" and
+    "advance" as in ``TransformerLM.decode_window``. Recurrent mixers run
+    before the ``paged`` branch: their states are per slot, never paged."""
     mixer, ffn = spec
     window = cfg.sliding_window if mixer == "local" else 0
     use_kernel = paged.use_kernel if paged is not None else use_kernel
     u = RMSNorm.apply(p["norm1"], h)
     nc = {}
+    rec = (state_mode, accept, last_state_only)
     if mixer == "rwkv":
-        y, nc["mixer"] = RWKV6TimeMix.window(
-            p["mixer"], u, cfg, cache["mixer"], use_kernel=use_kernel,
-            last_state_only=last_state_only)
+        y, nc["mixer"] = _recurrent_window(
+            RWKV6TimeMix, p["mixer"], u, cfg, cache["mixer"], *rec,
+            use_kernel=use_kernel)
+    elif mixer == "mamba":
+        y, nc["mixer"] = _recurrent_window(Mamba, p["mixer"], u, cfg,
+                                           cache["mixer"], *rec)
     elif paged is not None:
         y, nc["mixer"] = _MIXERS[mixer].window_paged(
             p["mixer"], u, cfg, cache["mixer"], paged.tables, cache_len,
@@ -236,8 +263,8 @@ def _layer_window(p, spec, cfg: ModelConfig, h, cache, cache_len,
     h = h + y
     v = RMSNorm.apply(p["norm2"], h)
     if ffn == "rwkv_cmix":
-        z, nc["ffn"] = RWKV6ChannelMix.window(p["ffn"], v, cfg, cache["ffn"],
-                                              last_state_only=last_state_only)
+        z, nc["ffn"] = _recurrent_window(RWKV6ChannelMix, p["ffn"], v, cfg,
+                                         cache["ffn"], *rec)
     elif ffn == "moe":
         # no-drop: a window token's output depends on that token alone
         z, _ = MoE.apply(p["ffn"], v, cfg, capacity_factor=None)
@@ -379,20 +406,35 @@ class TransformerLM:
     def decode_window(params, cfg: ModelConfig, tokens, cache, cache_len,
                       paged: PagedView | None = None,
                       use_kernel: bool = False,
-                      last_state_only: bool = False):
+                      last_state_only: bool = False,
+                      state_mode: str = "per_position", accept=None):
         """tokens: (B, W) candidates; cache_len: (B,). Returns
-        (logits (B, W, V), h, new_cache). Recurrent entries of
-        ``new_cache`` hold the state after every window position (feed
-        them through ``select_states``), or with ``last_state_only`` only
-        the state after the last one. ``use_kernel`` (dense caches; a paged
-        view carries its own) runs GQA attention through the dense
-        flash-decode op and the RWKV-6 recurrence through the WKV op."""
+        (logits (B, W, V), h, new_cache). ``use_kernel`` (dense caches; a
+        paged view carries its own) runs GQA attention through the dense
+        flash-decode op and the RWKV-6 recurrence through the WKV op.
+
+        The recurrent entries of ``new_cache`` by ``state_mode``:
+        "per_position" (the default) the state after every window position
+        (feed them through ``select_states``), or with ``last_state_only``
+        only the state after the last one (prefill); "none" the cache's
+        own entries, unchanged (the logits-only first pass of the
+        low-memory step); "advance" only the state after ``accept`` (B,)
+        tokens, each row's updates frozen from there on (its second
+        pass): the state ``select_states`` would pick at ``accept``,
+        bitwise on the plain routes."""
+        if state_mode not in STATE_MODES or (state_mode == "advance"
+                                             and accept is None):
+            raise ValueError(f"state_mode={state_mode!r} (accept "
+                             f"{'given' if accept is not None else 'None'}"
+                             f"); want one of {STATE_MODES}, with accept "
+                             "for 'advance'")
         h = TransformerLM._embed(params, cfg, tokens)
         new_layers = []
         for p, spec, c in zip(params["layers"], cfg.layer_specs(),
                               cache["layers"]):
             h, nc = _layer_window(p, spec, cfg, h, c, cache_len, paged,
-                                  use_kernel, last_state_only)
+                                  use_kernel, last_state_only, state_mode,
+                                  accept)
             new_layers.append(nc)
         h = RMSNorm.apply(params["final_norm"], h)
         logits = TransformerLM._head(params, cfg, h)
@@ -401,7 +443,8 @@ class TransformerLM:
     @staticmethod
     def decode_window_paged(params, cfg: ModelConfig, tokens, paged_cache,
                             view: PagedView, cache_len,
-                            last_state_only: bool = False):
+                            last_state_only: bool = False,
+                            state_mode: str = "per_position", accept=None):
         """Verify-window decode straight over the physical block pools, which
         are updated in place: no dense K/V view is built on the kernel path,
         and each layer's window K/V is committed by the same launch that
@@ -409,11 +452,13 @@ class TransformerLM:
         ``view.rows``. Returns (logits, h, new_cache): the pools for
         attention entries and the new states of the decoded rows for
         recurrent ones (feed them through ``select_states``, unless
-        ``last_state_only``, then ``adopt_states_paged``)."""
+        ``last_state_only`` or ``state_mode="advance"``, then
+        ``adopt_states_paged``); ``state_mode`` as in ``decode_window``."""
         cache = _map_recurrent(cfg, paged_cache, lambda x: x[view.rows])
         return TransformerLM.decode_window(
             params, cfg, tokens, cache, cache_len.to(torch.int32),
-            paged=view, last_state_only=last_state_only)
+            paged=view, last_state_only=last_state_only,
+            state_mode=state_mode, accept=accept)
 
     @staticmethod
     def adopt_states_paged(cfg: ModelConfig, paged_cache, sel, rows):

@@ -51,6 +51,18 @@ from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
 from repro_torch.serving.admission import Request
 from repro_torch.serving.engine import ServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The file's torch work on one thread, put back after it: its many
+    small ops lose most of their time to the thread pool when the suite's
+    workers share the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CPU = torch.device("cpu")
 EPS_SEED = 9
 ARCHS = ("gemma3-1b", "gemma-2b", "mistral-large-123b")

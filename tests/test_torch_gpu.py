@@ -42,6 +42,12 @@ sampler's output against ancestral sampling's, bitwise; the masked
 convolution leaks no later pixel into an earlier output where cuDNN's
 route is measured beside it; the reparametrized noise is drawn on the
 logits' device.
+The Mamba mixer, which has no kernel of its own, on the reduced jamba cut
+in float32 with TF32 off: ``full``, ``window`` and ``advance_state`` on
+the card within 1e-4 of the CPU (matmuls summed in another order, carried
+through the recurrence), and bitwise self-consistent there; a one-slot
+engine equal to the solo sampler on the card bitwise, on the plain route
+and on the kernel route.
 """
 import numpy as np
 import pytest
@@ -1003,3 +1009,110 @@ def test_moe_top_k_ties_go_to_the_lower_index_on_gpu(cuda):
             tied = (s[r] == kth[r]).nonzero().flatten().tolist()
             taken = [i for i in ids[r].tolist() if s[r, i] == kth[r]]
             assert taken == tied[:len(taken)]
+
+
+# ---------------------------------------------------------------------------
+# Mamba and jamba: the reduced jamba cut (4 layers, float32, TF32 off) on
+# the card against the same functions on the CPU
+# ---------------------------------------------------------------------------
+
+def _jamba_cut():
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("jamba-1.5-large-398b", reduced=True)
+    return dataclasses.replace(cfg, n_layers=4,
+                               layer_block=cfg.layer_block[:4])
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_mamba_on_gpu_matches_cpu(cuda, no_tf32):
+    """``full`` at T = 16 and T = 256 (the chunked scan), ``window`` from a
+    random state (y, the per-position conv inputs and states) and
+    ``advance_state`` at accept counts (1, 5, 8): the card within 1e-4 of
+    the CPU (float32 matmuls summed in another order, carried through the
+    recurrence). On the card, as on the CPU, the last-state form is the
+    last per-position state bitwise and the advanced state the
+    per-position one at accept - 1."""
+    from repro_torch.models.ssm import Mamba
+    from repro_torch.models.transformer import TransformerLM
+    cfg = _jamba_cut()
+    p = TransformerLM.init(cfg, seed=0, device="cpu")["layers"][0]["mixer"]
+    pg = _to(p, cuda)
+    g = torch.Generator().manual_seed(1)
+    DI = 2 * cfg.d_model
+
+    def close(got, want):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for B, T in ((2, 16), (1, 256)):
+        x = torch.randn((B, T, cfg.d_model), generator=g)
+        close(Mamba.full(pg, x.to(cuda), cfg), Mamba.full(p, x, cfg))
+    x = torch.randn((3, 8, cfg.d_model), generator=g)
+    st = {"conv": torch.randn((3, 3, DI), generator=g),
+          "h": 0.3 * torch.randn((3, DI, cfg.ssm_state), generator=g)}
+    stg = _to(st, cuda)
+    y, per = Mamba.window(p, x, cfg, st)
+    yg, perg = Mamba.window(pg, x.to(cuda), cfg, stg)
+    close(yg, y)
+    for k in ("conv", "h"):
+        close(perg[k], per[k])
+    y2, last = Mamba.window(pg, x.to(cuda), cfg, stg, last_state_only=True)
+    assert torch.equal(y2, yg)
+    acc = torch.tensor([1, 5, 8])
+    adv = Mamba.advance_state(p, x, cfg, st, acc)
+    advg = Mamba.advance_state(pg, x.to(cuda), cfg, stg, acc.to(cuda))
+    rows = torch.arange(3, device=cuda)
+    for k in ("conv", "h"):
+        assert torch.equal(last[k], perg[k][:, -1]), k
+        close(advg[k], adv[k])
+        assert torch.equal(advg[k], perg[k][rows, acc.to(cuda) - 1]), k
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+def test_jamba_engine_equals_solo_on_gpu(cuda, no_tf32, route):
+    """The reduced jamba cut served on the card by a one-slot engine
+    (three requests in turn, a 17-token prompt each: one 16-token prefill
+    chunk, as the solo sampler's one prefill window; W fixed at 8; a
+    64-slot table, the solo cache's length) equals the solo sampler on the
+    card bitwise: every pass has the solo run's shapes. ``route`` "plain"
+    is the gather fallback against the plain solo sampler, "kernel"
+    paged_decode against decode_attention, whose launches are counted."""
+    from repro_torch.engine.spec_decode import PredictiveSampler
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving.admission import Request
+    from repro_torch.serving.engine import ServingEngine
+    cfg = _jamba_cut()
+    params = TransformerLM.init(cfg, seed=0, device=cuda)
+    kernel = route == "kernel"
+    eng = ServingEngine(cfg, params, batch=1, window_max=8, max_len=56,
+                        eps_key=3, block_size=16, adaptive=False,
+                        use_verify_kernel=True, use_attention_kernel=kernel,
+                        device=cuda)
+    rng = np.random.default_rng(4)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=17),
+                    new_tokens=12) for i in range(3)]
+    for r in reqs:
+        eng.submit(r)
+    reset_launches()
+    done = eng.run()
+    served = dict(LAUNCHES)
+    assert len(done) == 3 and served["spec_verify"] > 0
+    assert (served["paged_decode"] > 0) == kernel
+    assert (served["paged_write"] > 0) != kernel
+    reset_launches()
+    for r in done:
+        s = PredictiveSampler(cfg, params, window=8, max_len=56, eps_key=3,
+                              device=cuda, use_verify_kernel=True,
+                              use_attention_kernel=kernel)
+        t, _ = s.generate(torch.as_tensor(r.prompt)[None], r.new_tokens,
+                          seq_ids=torch.tensor([r.uid]))
+        np.testing.assert_array_equal(
+            r.result, t[0, :len(r.prompt) + r.new_tokens].cpu().numpy(),
+            err_msg=f"request {r.uid}")
+    assert (LAUNCHES["decode_attention"] > 0) == kernel

@@ -95,3 +95,10 @@ def test_scan_covers_the_dense_config_modules():
     assert {"configs/gemma3_1b.py", "configs/gemma_2b.py",
             "configs/mistral_large_123b.py", "configs/shapes.py",
             "configs/__init__.py", "kernels/split.py"} <= names
+
+
+def test_scan_covers_the_mamba_and_jamba_modules():
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if PORT in p.parents}
+    assert {"configs/jamba_1_5_large_398b.py", "models/ssm.py",
+            "models/transformer.py", "launch/serve.py"} <= names

@@ -40,6 +40,18 @@ from repro_torch.models.losses import pixelcnn_loss
 from repro_torch.models.pixelcnn import PixelCNN, PixelCNNConfig
 from repro_torch.nn import core
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The file's torch work on one thread, put back after it: its many
+    small ops lose most of their time to the thread pool when the suite's
+    workers share the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CFG_BIN = PixelCNNConfig(height=6, width=6, channels=1, categories=2,
                          filters=8, n_res=2, first_kernel=5)
 CFG_RGB = PixelCNNConfig(height=4, width=4, channels=3, categories=4,

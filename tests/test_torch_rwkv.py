@@ -47,6 +47,18 @@ from repro_torch.nn.core import LayerNorm
 from repro_torch.serving.admission import Request
 from repro_torch.serving.engine import ServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The file's torch work on one thread, put back after it: its many
+    small ops lose most of their time to the thread pool when the suite's
+    workers share the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CPU = torch.device("cpu")
 EPS_KEY = jax.random.PRNGKey(9)
 EPS_SEED = 9

@@ -58,6 +58,18 @@ from repro_torch.models.losses import lm_loss
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The file's torch work on one thread, put back after it: its many
+    small ops lose most of their time to the thread pool when the suite's
+    workers share the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CPU = torch.device("cpu")
 _MLA_CUT = dict(n_layers=2, layer_prefix=(("mla", "dense"),) * 2)
 
