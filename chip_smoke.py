@@ -149,7 +149,41 @@ which fails the script when it fails:
    per verify pass and per prefill chunk of the Mamba layers, the
    attention layer, the MoE layers and the dense FFNs, beside the byte
    bound of the weights they read, the idle share and ms per token. The
-   Mamba scan has no kernel of its own (the reference's is XLA ops).
+   Mamba scan has no kernel of its own (the reference's is XLA ops);
+16. the multimodal backbones at head width 64: (c) first, the kernels at
+   their shapes against their plain versions (flash_attention at both
+   archs' training shapes, T = 2304, in bf16 and float32; paged_decode
+   and decode_attention at musicgen-large's G = 1 and internvl2-1b's
+   G = 7; paged_write at their 4096- and 256-byte K/V rows; spec_verify
+   over vocabularies of 2,048 and 151,655, the odd one on its scalar
+   branch); then for each arch at its published widths (bf16, random
+   weights from seed 0; musicgen-large 48 layers, 2.42 B parameters,
+   internvl2-1b 24 layers, 0.49 B), each freed before the next: (a)
+   phase 14's 4 requests in ``ServingEngine(batch=2, window_max=8,
+   block_size=16, max_len=1024)`` on paged_decode (one launch per layer
+   per verify pass and prefill chunk) and spec_verify (one per verify
+   pass), asserted, profiled, every request against the solo sampler on
+   decode_attention under the margin rule, one request on the gather
+   fallback (paged_write) against the plain solo sampler; (b) 3 AdamW
+   steps at B = 2, S = 2048 with a random prefix of 256 embeddings a step
+   (``random_prefix``), so T = 2304 positions go through flash_attention
+   (one launch per layer per forward, its shape asserted), the token
+   positions' logits and losses held against the plain route within
+   ``ROUTE_LIMITS`` beside two planted faults, tokens/s, the busy share
+   and the peak memory;
+17. per-request fault isolation on phase 3's qwen3-1.7b engine and its 4
+   requests: a run with an empty ``FaultPlan`` bitwise phase 3's, its ms
+   per token beside phase 3's and the device time of the poison select a
+   verify round makes while a slot holds a poisoned stream; then, with the window fixed at 8, (a)
+   request 1's noise stream poisoned (``FaultPlan(poison_streams=...)``,
+   one retry): quarantined as ``nonfinite``, retried on a fresh stream,
+   its tokens bitwise a fault-free run on that stream and held against
+   the solo sampler there under the margin rule, the other three bitwise
+   the fault-free run's; (b) the first block allocation failed
+   (``alloc=@0``): one admission fails, is retried, and all four equal
+   the fault-free run's; (c) request 0 cancelled after the first host
+   sync: the other three equal the fault-free run's. Every run launches
+   spec_verify and paged_decode.
 
 Phases 11-12 run no kernel of the port's own: the reference's image path
 reaches no Pallas kernel; phase 13's MoE layer neither (the reference's is
@@ -169,8 +203,8 @@ The second line from the end is a JSON object with one entry per kernel
 (seven; paged_decode's also carries its 64-wide prefill row, paged_latent's
 its prefill and decode rows, rwkv_wkv's its prefill and zero-state rows,
 paged_decode's, decode_attention's and flash_attention's their dbrx rows,
-with the launches of phase 13's paths, five of them phase 14's rows and
-three phase 15's, with the launches of their paths);
+with the launches of phase 13's paths, five of them phase 14's rows,
+three phase 15's and five phase 16's, with the launches of their paths);
 the last line is ``{"ok": true, "device": {...}}``. ``--report PATH``
 also writes every number measured to PATH as JSON.
 """
@@ -1318,7 +1352,9 @@ ROUTE_LIMITS = {"logits_mean_abs_diff": 0.03, "logits_max_abs_diff": 0.25,
 def planted_fault(fault):
     """The flash op's function with one fault planted, in plain float32
     torch: ``kv_head_mod`` has query head h read kv head h % KV instead of
-    h // G; ``diagonal_tile_dropped`` has each 64-row query tile skip its
+    h // G; ``kv_head_next`` has it read kv head h // G + 1 (mod KV), a
+    fault that ``kv_head_mod`` cannot plant at G = 1 (multi-head
+    attention); ``diagonal_tile_dropped`` has each 64-row query tile skip its
     last key tile, the diagonal one (a row that then sees no key gives 0);
     ``window_ignored`` attends over every earlier key, as a kernel that
     drops the sliding window would. The first two keep the window."""
@@ -1327,8 +1363,11 @@ def planted_fault(fault):
     def attend(q, k, v, window=0):
         B, T, H, d = q.shape
         heads = torch.arange(H, device=q.device)
-        kv = (heads % k.shape[2] if fault == "kv_head_mod"
-              else heads // (H // k.shape[2]))
+        kv = heads // (H // k.shape[2])
+        if fault == "kv_head_mod":
+            kv = heads % k.shape[2]
+        elif fault == "kv_head_next":
+            kv = (kv + 1) % k.shape[2]
         pos = torch.arange(T, device=q.device)
         if fault == "diagonal_tile_dropped":
             mask = pos[None, :] < (pos[:, None] // 64) * 64
@@ -1345,23 +1384,28 @@ def planted_fault(fault):
     return attend
 
 
-def route_diffs(params, cfg, tokens, module, name, faults, plain_op=None):
+def route_diffs(params, cfg, tokens, module, name, faults, plain_op=None,
+                prefix=None):
     """Logits and per-position loss differences from the plain route: of
     the kernel route and of each planted fault, a function put in place of
     the kernel's op ``module.name`` for one forward on the kernel route.
     The plain route is the model's (``use_kernel=False``), or with
-    ``plain_op`` the kernel route with that function in the op's place."""
+    ``plain_op`` the kernel route with that function in the op's place.
+    A frontend's ``prefix`` goes before the tokens, and its positions are
+    dropped before the comparison, as ``lm_loss`` drops them."""
     import torch
     from repro_torch.models.transformer import TransformerLM
     tgt = tokens[:, 1:].long()[..., None]
+    n_pre = 0 if prefix is None else prefix.shape[1]
 
     def forward(use_kernel, op=None):
         kernel_op = getattr(module, name)
         if op is not None:
             setattr(module, name, op)
         try:
-            logits = TransformerLM.apply(params, cfg, tokens,
+            logits = TransformerLM.apply(params, cfg, tokens, prefix,
                                          use_kernel=use_kernel)[0]
+            logits = logits[:, n_pre:]
         finally:
             setattr(module, name, kernel_op)
         lg = logits[:, :-1].float()
@@ -2896,6 +2940,8 @@ def layer_bytes(cfg, params):
 def count_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(count_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_bytes(v) for v in tree)
     return tree.numel() * tree.element_size()
 
 
@@ -3085,6 +3131,492 @@ def serve_jamba(dev, tol, gen):
     return out, launches, solo_launches, fb_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the multimodal backbones, musicgen-large and internvl2-1b
+# ---------------------------------------------------------------------------
+
+FRONTEND_ARCHS = ("musicgen-large", "internvl2-1b")
+SOLO_S = DENSE_MAX_LEN + 8     # the solo sampler's dense cache: max_len + W
+
+
+def serve_frontend(dev, tol, arch):
+    """Phase 16 (a): ``arch`` at its published widths (bf16, random weights
+    from seed 0) served in ``ServingEngine(batch=2, window_max=8,
+    block_size=16, max_len=1024)`` with phase 14's prompts on paged_decode
+    (one launch per layer per verify pass and prefill chunk) and
+    spec_verify (one per verify pass), both asserted; a profile of a
+    shorter run (phase 3's prompts of 17 and 40 tokens, 16 new each: busy
+    ms and idle share per pass); every request against
+    the solo sampler on decode_attention, and one request served on the
+    gather fallback (paged_write) against the plain solo sampler, under
+    the margin rule. The reference serves tokens alone, so no prefix.
+    Returns the report and the launches of the kernel path's run, the
+    kernel-route solo sampler's and the fallback's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.transformer import TransformerLM
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    out = {"layers": cfg.n_layers, "G": cfg.n_heads // cfg.n_kv_heads,
+           "head_dim": cfg.head_dim, "vocab": cfg.vocab,
+           "params_b": count_params(params) / 1e9,
+           "param_gb": count_bytes(params) / 1e9, "laps_s": {}}
+
+    def lap(name):
+        out["laps_s"][name] = time.perf_counter() - t0
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv of {cfg.head_dim}, "
+        f"{cfg.mlp_kind} d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied "
+        f"{cfg.tie_embeddings}, {cfg.dtype}, {out['params_b']:.4f} B params "
+        f"({out['param_gb']:.2f} GB), init {time.perf_counter() - t0:.1f} s")
+    kw = dict(max_len=DENSE_MAX_LEN)
+    serve(cfg, params, dev, make_requests(cfg, (17,), 4), **kw)   # warm-up
+    reqs = make_requests(cfg, DENSE_PROMPT_LENS, NEW_TOKENS)
+    done, m, wall, launches = serve(cfg, params, dev, reqs, **kw)
+    tok = m["tokens_generated"]
+    passes = m["verify_passes"] + m["prefill_calls"]
+    log(f"serve {cfg.name}: {len(done)} requests (prompts "
+        f"{DENSE_PROMPT_LENS}), {tok} new tokens, {m['rounds']} verify "
+        f"rounds ({m['rounds'] / tok:.4f} per token), {m['verify_passes']} "
+        f"verify passes, {m['prefill_calls']} prefill chunks, "
+        f"arm_calls_vs_ancestral {m['arm_calls_vs_ancestral']:.4f}, wall "
+        f"{wall:.3f} s ({wall / tok * 1e3:.2f} ms per token), launches "
+        f"{launches}")
+    if not (launches["paged_decode"] == cfg.n_layers * passes
+            and launches["spec_verify"] == m["verify_passes"]
+            and launches["paged_latent"] == 0):
+        raise AssertionError(
+            f"{cfg.name}: paged_decode launched {launches['paged_decode']} "
+            f"times (want {cfg.n_layers} x {passes} passes), spec_verify "
+            f"{launches['spec_verify']} (want {m['verify_passes']}): "
+            f"{launches}")
+    out.update(metrics=m, wall_s=wall, launches=launches,
+               ms_per_token=wall / tok * 1e3,
+               rounds_per_token=m["rounds"] / tok)
+    lap("serve")
+    # phase 3's short prompts: passes of verify rounds more than of prefill
+    # chunks, and a trace the profiler reads back in seconds
+    out["profile"] = profile_serve(cfg, params, dev, PROMPT_LENS[:2],
+                                   DENSE_MAX_LEN)
+    lap("profile")
+    pr = out["profile"]
+    if pr["idle_share"] is not None:
+        n = pr["rounds"] + pr["prefill_calls"]
+        out["busy_ms_per_pass"] = pr["device_busy_s"] / n * 1e3
+        out["wall_ms_per_pass"] = pr["wall_s"] / n * 1e3
+    torch.cuda.synchronize()
+    reset_launches()
+    log(f"solo agreement, {cfg.name} (margin rule, tolerance {tol}, solo on "
+        f"decode_attention):")
+    out["agreement_kernel_solo"] = solo_agreement(
+        cfg, params, dev, done, tol, use_attention_kernel=True, **kw)
+    solo_launches = dict(LAUNCHES)
+    if solo_launches["decode_attention"] <= 0:
+        raise AssertionError(f"solo sampler not on decode_attention: "
+                             f"{solo_launches}")
+    out["solo_launches"] = solo_launches
+    lap("solo")
+    fb_reqs = make_requests(cfg, DENSE_PROMPT_LENS[3:], 8)
+    fb_done, fm, fwall, fb_launches = serve(cfg, params, dev, fb_reqs,
+                                            use_attention_kernel=False, **kw)
+    log(f"serve {cfg.name} (gather fallback): {fm['tokens_generated']} new "
+        f"tokens, {fm['rounds']} verify rounds, wall {fwall:.3f} s, "
+        f"launches {fb_launches}")
+    if fb_launches["paged_write"] <= 0 or fb_launches["paged_decode"] != 0:
+        raise AssertionError(f"fallback path not taken: {fb_launches}")
+    log(f"solo agreement, {cfg.name} gather fallback (plain solo):")
+    out["fallback"] = {"metrics": fm, "wall_s": fwall,
+                       "launches": fb_launches,
+                       "agreement": solo_agreement(cfg, params, dev, fb_done,
+                                                   tol, **kw)}
+    lap("fallback")
+    log(f"serve {cfg.name}: seconds to the end of each step {out['laps_s']}")
+    del params
+    torch.cuda.empty_cache()
+    return out, launches, solo_launches, fb_launches
+
+
+def train_frontend(dev, arch):
+    """Phase 16 (b): ``arch`` at its published widths, 3 AdamW steps at
+    B = 2, S = 2048 with the frontend's random prefix of 256 embeddings
+    before the tokens (``random_prefix(fold_in(PRNGKey(0), step))``, as the
+    train CLI draws it), so T = 2304 positions go through flash_attention
+    at head width 64: one launch per layer per forward, each counted with
+    its shape. The step-1 logits and per-position losses of the token
+    positions on the kernel route are held against the plain route within
+    ``ROUTE_LIMITS`` beside two planted faults the gate must catch (a kv
+    head fault that the model's group size can show, and the dropped
+    diagonal tile); the step-1 loss within 1e-2 of the plain route's, as
+    phase 7. One more step under the profiler gives the busy share.
+    Returns the report and the launches of the 3 steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import repro_torch.models.attention as attention
+    from repro_torch.configs import get_config
+    from repro_torch.core import random as jr
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import make_optimizer, make_train_step
+    from repro_torch.models import frontends
+    from repro_torch.models.losses import lm_loss
+    from repro_torch.models.transformer import TransformerLM
+    cfg = get_config(arch)
+    B, S, steps = 2, 2048, 3
+    T = S + cfg.n_prefix_tokens
+    t0 = time.perf_counter()
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    opt = make_optimizer(cfg, steps=steps)
+    state = opt.init(params)
+    raw_step = make_train_step(cfg, opt, remat=False)
+    pipe = TokenPipeline(token_batches(max(512, B * 8), B, S, cfg.vocab),
+                         dev)
+    batches = [next(pipe) for _ in range(steps + 1)]
+    key = jr.prng_key(0, dev)
+    prefixes = [frontends.random_prefix(jr.fold_in(key, it), cfg, B)
+                for it in range(steps + 1)]
+    fed = iter(prefixes)
+
+    def step_fn(p, s, batch):
+        return raw_step(p, s, batch, next(fed))
+    out = {"B": B, "S": S, "T": T, "optimizer": "adamw",
+           "n_prefix_tokens": cfg.n_prefix_tokens,
+           "params_b": count_params(params) / 1e9,
+           "prefix_std": float(prefixes[0].float().std())}
+    faults = ("kv_head_next" if cfg.n_heads == cfg.n_kv_heads
+              else "kv_head_mod", "diagonal_tile_dropped")
+    with torch.no_grad():
+        lp, _ = lm_loss(params, cfg, batches[0], prefixes[0],
+                        use_kernel=False)
+        out["route_diff"] = route_diffs(
+            params, cfg, batches[0], attention, "flash_attention",
+            {f: planted_fault(f) for f in faults}, prefix=prefixes[0])
+    out["plain_loss_step1"] = float(lp)
+    check_route_diffs(out["route_diff"], B * (S - 1), ROUTE_LIMITS)
+    out["laps_s"] = {"route_gate": time.perf_counter() - t0}
+    shapes, kernel_op = [], attention.flash_attention
+
+    def counted(q, k, v, window=0):
+        shapes.append((tuple(q.shape), tuple(k.shape), window))
+        return kernel_op(q, k, v, window)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    attention.flash_attention = counted
+    try:
+        params, state, rows = run_steps(cfg, step_fn, params, state,
+                                        batches[:steps], cfg.name)
+    finally:
+        attention.flash_attention = kernel_op
+    launches = dict(LAUNCHES)
+    out.update(steps=rows, launches=launches,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               flash_shapes=sorted({str(sh) for sh in shapes}))
+    want = ((B, T, cfg.n_heads, cfg.head_dim),
+            (B, T, cfg.n_kv_heads, cfg.head_dim), 0)
+    log(f"train {cfg.name}: launches {launches}, flash calls "
+        f"{len(shapes)} at {out['flash_shapes']}, peak memory "
+        f"{out['peak_memory_gb']:.3f} GB")
+    if (launches["flash_attention"] != cfg.n_layers * steps
+            or set(shapes) != {want}):
+        raise AssertionError(f"flash launches {launches['flash_attention']}"
+                             f" at {set(shapes)}, want {cfg.n_layers} x "
+                             f"{steps} at {want}")
+    loss1 = rows[0]["loss"]
+    diff = abs(loss1 - out["plain_loss_step1"])
+    log(f"step-1 loss: kernel path {loss1:.9g}, plain path "
+        f"{out['plain_loss_step1']:.9g}, |diff| {diff:.3g} (tolerance "
+        f"1e-2, as phase 7); ln V {math.log(cfg.vocab):.4f}")
+    if not diff <= 1e-2 or abs(loss1 - math.log(cfg.vocab)) > 1.0:
+        raise AssertionError(f"step-1 loss: kernel {loss1} vs plain "
+                             f"{out['plain_loss_step1']}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, state, prow = run_steps(cfg, step_fn, params, state,
+                                        batches[steps:], "profiled")
+    kern = kernel_times(prof)
+    busy_ms = sum(k[0] for k in kern) / 1e3
+    step_ms = sum(r["ms"] for r in rows[1:]) / (steps - 1)
+    flash = [(us, n) for us, n, key in kern if "flash_attention_" in key]
+    out["profile"] = {
+        "step_ms_unprofiled": step_ms, "step_ms_profiled": prow[0]["ms"],
+        "device_busy_ms": busy_ms,
+        "busy_share": busy_ms / step_ms if kern else None,
+        "flash_attention_ms": sum(f[0] for f in flash) / 1e3,
+        "flash_attention_launches": sum(f[1] for f in flash),
+        "positions_per_s": B * T / step_ms * 1e3,
+        "top_kernels": [{"ms": us / 1e3, "count": n, "name": name[:90]}
+                        for us, n, name in kern[:8]]}
+    pr = out["profile"]
+    if not kern:
+        log("profile: the profiler recorded no device time")
+    else:
+        log(f"profile of one {cfg.name} train step: device busy "
+            f"{busy_ms:.2f} ms of {step_ms:.2f} ms unprofiled; busy share "
+            f"{pr['busy_share']:.4f}; flash_attention "
+            f"{pr['flash_attention_ms']:.3f} ms over "
+            f"{pr['flash_attention_launches']} launches; "
+            f"{pr['positions_per_s']:.0f} positions/s")
+        for k in pr["top_kernels"]:
+            log(f"  {k['ms']:9.3f} ms  x{k['count']:<6d} {k['name']}")
+    out["laps_s"]["steps_and_profile"] = time.perf_counter() - t0
+    log(f"train {cfg.name}: seconds to the end of each step "
+        f"{out['laps_s']}")
+    del params, state
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def check_flash_float32(dev, gen, cases):
+    """The flash kernel's float32 (CUDA-core) path against its plain
+    version, both in float32: 1e-5, as the card's tests hold it (the
+    two sum in another order)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rows = {}
+    for name, B, T, window, H, KVH, hd in cases:
+        q = torch.randn((B, T, H, hd), generator=gen, device=dev)
+        k = torch.randn((B, T, KVH, hd), generator=gen, device=dev)
+        v = torch.randn((B, T, KVH, hd), generator=gen, device=dev)
+        got, lse = flash_attention_fwd(q, k, v, window)
+        want, lse_want = flash_attention_ref(q, k, v, window)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        lse_err = float((lse - lse_want).abs().max())
+        if not (bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
+                and lse_err <= 1e-4):
+            raise AssertionError(f"flash_attention float32 {name}: max err "
+                                 f"o {err}, lse {lse_err}")
+        vis = sum(min(i + 1, window) if window else i + 1 for i in range(T))
+        b_ms, b_by = bound((q.numel() + k.numel() + v.numel()
+                            + got.numel()) * 4 + lse.numel() * 4,
+                           4 * hd * B * H * vis, "float32")
+        rows[name] = {"max_abs_err": err, "lse_max_abs_err": lse_err,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "ms": device_ms(lambda: flash_attention_fwd(
+                          q, k, v, window), iters=5, reps=2)}
+        log(f"flash_attention float32 {name} B={B} T={T} H={H} KV={KVH} "
+            f"d={hd}: {rows[name]}")
+    return rows
+
+
+def check_frontend_kernels(dev, gen):
+    """Phase 16 (c): the kernels at the frontends' shapes (head width 64)
+    against their plain versions, with device times, bounds and library
+    times: flash_attention at both archs' training shapes (T = 2304: 2048
+    tokens after the 256-token prefix; bf16, and float32 against the plain
+    version in float32); paged_decode at the verify shape and the 64-wide
+    prefill chunk and decode_attention at the solo sampler's, at
+    musicgen-large's G = 1 (32 heads over 32) and internvl2-1b's G = 7
+    (14 over 2); paged_write at their K/V rows of 4096 and 256 bytes;
+    spec_verify over vocabularies of 2,048 and 151,655 (odd: its scalar
+    branch)."""
+    T, hd, nb = 2048 + 256, 64, DENSE_NB
+    out = {}
+    out["flash_attention"], _ = check_flash_attention(dev, gen, (
+        ("musicgen_train", 2, T, 0, 32, 32, hd),
+        ("internvl_train", 2, T, 0, 14, 2, hd)), backward=False)
+    out["flash_attention_float32"] = check_flash_float32(dev, gen, (
+        ("musicgen_train", 2, T, 0, 32, 32, hd),
+        ("internvl_train", 2, T, 0, 14, 2, hd)))
+    out["decode_attention"], _ = check_decode_attention(dev, gen, (
+        ("musicgen_verify", 2, 8, SOLO_S, [700, 520], 0, 1, 32, hd),
+        ("internvl_verify", 2, 8, SOLO_S, [700, 520], 0, 7, 2, hd)))
+    out["paged_decode"], _ = check_paged_decode(dev, gen, (
+        ("musicgen_verify", 2, 8, [700, 520], 0, 1, nb, 32, hd),
+        ("musicgen_prefill", 1, 64, [600], 0, 1, nb, 32, hd),
+        ("internvl_verify", 2, 8, [700, 520], 0, 7, nb, 2, hd),
+        ("internvl_prefill", 1, 64, [600], 0, 7, nb, 2, hd)))
+    out["paged_write"] = check_paged_write(dev, gen, (
+        ("musicgen_verify", (2, 8, [700, 520], [1, 1]), (32, hd), nb),
+        ("internvl_verify", (2, 8, [700, 520], [1, 1]), (2, hd), nb)))
+    out["spec_verify"] = check_spec_verify(dev, gen, ((16, 2048),
+                                                      (16, 151655)))
+    return out
+
+
+def frontends_phase(dev, tol, gen):
+    """Phase 16: the kernels at the frontends' shapes, then each arch
+    served and trained, the model freed before the next."""
+    t0 = time.perf_counter()
+    out = {"kernels": check_frontend_kernels(dev, gen)}
+    log(f"phase 16 (c) took {time.perf_counter() - t0:.1f} s")
+    for arch in FRONTEND_ARCHS:
+        (out["serve_" + arch], *out["serve_launches_" + arch]) = \
+            serve_frontend(dev, tol, arch)
+        out["train_" + arch], out["train_launches_" + arch] = \
+            train_frontend(dev, arch)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 16 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: per-request fault isolation on the qwen3-1.7b engine
+# ---------------------------------------------------------------------------
+
+def serve_faults(cfg, params, dev, reqs, cancel_after_sync=None, **kw):
+    """``serve``'s engine run under a fault plan or a cancel: with
+    ``cancel_after_sync`` the engine takes one step (one host sync) and
+    that request, then running, is cancelled. Returns the done requests by
+    uid, the metrics, the wall time and the launches."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, params, batch=2, window_max=8, block_size=16,
+                        max_len=256, eps_key=1, use_verify_kernel=True,
+                        device=dev, **kw)
+    for r in reqs:
+        if not eng.submit(r):
+            raise AssertionError(f"request {r.uid} rejected: {r.error}")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    if cancel_after_sync is not None:
+        eng.step()
+        if not any(s is not None and s.uid == cancel_after_sync
+                   for s in eng.slots):
+            raise AssertionError(f"request {cancel_after_sync} is not "
+                                 "running after the first sync")
+        if not eng.cancel(cancel_after_sync):
+            raise AssertionError(f"cancel({cancel_after_sync}) failed")
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    if launches["spec_verify"] <= 0 or launches["paged_decode"] <= 0:
+        raise AssertionError(f"kernel path not taken: {launches}")
+    if len(done) != len(reqs):
+        raise AssertionError(f"{len(done)} of {len(reqs)} requests ended")
+    return {r.uid: r for r in done}, eng.export_metrics(), wall, launches
+
+
+def fault_phase(dev, tol, phase3):
+    """Phase 17 on phase 3's qwen3-1.7b engine (full width, bf16, the same
+    seed) and its 4 requests: an unfaulted run as phase 3's (adaptive W),
+    its tokens bitwise phase 3's and its ms per token beside phase 3's,
+    and the device time of the poison select a verify round makes while
+    some slot holds a poisoned stream (none without one); then, at a fixed W = 8 so that a row's every
+    product has the same shape whoever shares its batch, (a) request 1's
+    stream poisoned with one retry: it is quarantined as ``nonfinite`` and
+    retried on a fresh stream, its tokens bitwise a fault-free run of it
+    on that stream and held against the solo sampler there under the
+    margin rule, the other three bitwise the fault-free run's; (b) the
+    first block allocation failed (``alloc=@0``), one admission fails and
+    its retry's tokens equal the fault-free run's bitwise; (c) request 0
+    cancelled after the first sync: the survivors equal the fault-free
+    run's bitwise. Every run launches spec_verify and paged_decode."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving.admission import Request
+    from repro_torch.serving.engine import fresh_stream_id
+    from repro_torch.serving.faults import FaultPlan
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-1.7b")
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    serve(cfg, params, dev, make_requests(cfg, (17,), 4))      # warm-up
+    out = {}
+
+    def reqs():
+        return make_requests(cfg, PROMPT_LENS, NEW_TOKENS)
+
+    def equal(got, want, uids, label):
+        for u in uids:
+            if not (got[u].ok and np.array_equal(got[u].result, want[u])):
+                raise AssertionError(f"{label}: request {u} differs from "
+                                     f"the fault-free run: {got[u].error}")
+
+    # the unfaulted run, as phase 3's
+    done, m, wall, launches = serve_faults(cfg, params, dev, reqs(),
+                                           faults=FaultPlan())
+    base3 = {r.uid: r.result for r in phase3["done"]}
+    equal(done, base3, range(4), "no plan vs phase 3")
+    tok = m["tokens_generated"]
+    out["no_plan"] = {"ms_per_token": wall / tok * 1e3, "launches": launches,
+                      "phase3_ms_per_token": phase3["ms_per_token"],
+                      "equal_to_phase3": True}
+    # the poison select on the logits of a verify round (B = 2, W = 8),
+    # made while some slot holds a poisoned stream
+    logits = torch.randn((2, 8, cfg.vocab), device=dev)
+    pz = torch.tensor([0, 1], device=dev)
+    out["no_plan"]["poison_select_ms"] = device_ms(
+        lambda: torch.where((pz > 0)[:, None, None],
+                            torch.full_like(logits, float("nan")), logits))
+    log(f"phase 17, no plan: {out['no_plan']['ms_per_token']:.3f} ms per "
+        f"token (phase 3: {phase3['ms_per_token']:.3f}), tokens bitwise "
+        f"phase 3's; the poison select, made while a slot holds a "
+        f"poisoned stream, {out['no_plan']['poison_select_ms'] * 1e3:.3f} "
+        f"device us per verify round; launches {launches}")
+
+    fixed = dict(adaptive=False)
+    base, _, _, _ = serve_faults(cfg, params, dev, reqs(),
+                                 faults=FaultPlan(), **fixed)
+    base = {u: r.result for u, r in base.items()}
+    # (a) a poisoned stream, quarantined and retried on a fresh one
+    got, m, wall, launches = serve_faults(
+        cfg, params, dev, reqs(), faults=FaultPlan(poison_streams=(1,)),
+        request_retries=1, **fixed)
+    r1 = got[1]
+    fresh = fresh_stream_id(1, frozenset({1}))
+    if not (r1.ok and r1.retries == 1 and r1.seq_id == fresh
+            and m["retries"] == 1 and m["requests_failed"] == 0):
+        raise AssertionError(f"poisoned request 1 not retried on stream "
+                             f"{fresh}: {r1.error}, retries {r1.retries}, "
+                             f"{m}")
+    equal(got, base, (0, 2, 3), "poison")
+    alone, _, _, _ = serve_faults(
+        cfg, params, dev, [Request(uid=1, prompt=r1.prompt,
+                                   new_tokens=r1.new_tokens,
+                                   noise_seed=fresh)],
+        faults=FaultPlan(), **fixed)
+    if not np.array_equal(alone[1].result, r1.result):
+        raise AssertionError("the retried request differs from a "
+                             "fault-free run on its fresh stream")
+    log(f"phase 17 (a), request 1 poisoned: quarantined, retried on stream "
+        f"{fresh}, equal to a fault-free run there bitwise, the others "
+        f"bitwise the fault-free run's; launches {launches}; solo "
+        f"agreement on that stream (margin rule, tolerance {tol}, solo on "
+        f"decode_attention):")
+    out["poison"] = {"fresh_stream": fresh, "metrics": m,
+                     "launches": launches,
+                     "solo": solo_agreement(cfg, params, dev, [r1], tol,
+                                            use_attention_kernel=True)}
+    out["poison"]["solo_bitwise"] = out["poison"]["solo"][0]["equal"]
+    # (b) an allocation fault at the first admission
+    got, m, wall, launches = serve_faults(
+        cfg, params, dev, reqs(),
+        faults=FaultPlan(schedule={"alloc": (0,)}), request_retries=1,
+        **fixed)
+    if not (m["faults_fired_alloc"] == 1 and m["retries"] == 1
+            and got[0].retries == 1):
+        raise AssertionError(f"alloc fault: {m}")
+    equal(got, base, range(4), "alloc fault")
+    out["alloc"] = {"metrics": m, "launches": launches}
+    log(f"phase 17 (b), alloc=@0: request 0's admission failed, retried, "
+        f"all 4 bitwise the fault-free run's; launches {launches}")
+    # (c) a running request cancelled after the first sync
+    got, m, wall, launches = serve_faults(cfg, params, dev, reqs(),
+                                          cancel_after_sync=0, **fixed)
+    if not (got[0].error is not None and got[0].error.code == "cancelled"
+            and m["requests_cancelled"] == 1):
+        raise AssertionError(f"cancel: {got[0].error}, {m}")
+    equal(got, base, (1, 2, 3), "cancel")
+    out["cancel"] = {"metrics": m, "launches": launches}
+    log(f"phase 17 (c), request 0 cancelled after the first sync: the "
+        f"other 3 bitwise the fault-free run's; launches {launches}")
+    del params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 17 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -3182,6 +3714,7 @@ def main(argv=None) -> int:
             f"paged_decode launched {launches['paged_decode']} times, not "
             f"once per layer per pass ({cfg.n_layers} x {passes})")
     report["serve"] = {"metrics": m, "wall_s": wall, "launches": launches}
+    phase3 = {"done": done, "ms_per_token": wall / m["tokens_generated"] * 1e3}
     report["profile"] = profile_serve(cfg, params, dev)
 
     # ---- phase 4: the gather fallback, the writeback kernel's path -------
@@ -3254,6 +3787,12 @@ def main(argv=None) -> int:
     # ---- phase 15: the Mamba mixer, a jamba-1.5-large-398b cut ----------
     report["serve_jamba"], *served["jamba"] = serve_jamba(dev, tol, gen)
     log(f"phase 15 took {report['serve_jamba']['seconds']:.1f} s")
+
+    # ---- phase 16: the multimodal backbones at head width 64 ------------
+    report["frontends"] = frontends_phase(dev, tol, gen)
+
+    # ---- phase 17: fault isolation on phase 3's engine --------------------
+    report["faults"] = fault_phase(dev, tol, phase3)
 
     entries = []
     for name, rows, key, n, path, extra in (
@@ -3362,6 +3901,51 @@ def main(argv=None) -> int:
         entry = next(e for e in entries if e["name"] == name)
         row = (jk if key.startswith(("jamba", "R16_V65536")) else
                dense)[name][key]
+        entry[key] = {k: row[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")}
+        entry[key].update(launches=n, path=path)
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   float(row["max_abs_err"]))
+    # phase 16's shapes (head width 64: musicgen-large's G = 1, internvl2-
+    # 1b's G = 7, their vocabularies), each with the launches of its path
+    fr = report["frontends"]
+    fk = fr["kernels"]
+    for name, key, n, path in (
+            ("flash_attention", "musicgen_train",
+             fr["train_launches_musicgen-large"]["flash_attention"],
+             "train_musicgen"),
+            ("flash_attention", "internvl_train",
+             fr["train_launches_internvl2-1b"]["flash_attention"],
+             "train_internvl"),
+            ("decode_attention", "musicgen_verify",
+             fr["serve_launches_musicgen-large"][1]["decode_attention"],
+             "solo_musicgen"),
+            ("decode_attention", "internvl_verify",
+             fr["serve_launches_internvl2-1b"][1]["decode_attention"],
+             "solo_internvl"),
+            ("paged_decode", "musicgen_verify",
+             fr["serve_launches_musicgen-large"][0]["paged_decode"],
+             "serve_musicgen"),
+            ("paged_decode", "musicgen_prefill", None, "serve_musicgen"),
+            ("paged_decode", "internvl_verify",
+             fr["serve_launches_internvl2-1b"][0]["paged_decode"],
+             "serve_internvl"),
+            ("paged_decode", "internvl_prefill", None, "serve_internvl"),
+            ("paged_write", "musicgen_verify",
+             fr["serve_launches_musicgen-large"][2]["paged_write"],
+             "serve_musicgen_fallback"),
+            ("paged_write", "internvl_verify",
+             fr["serve_launches_internvl2-1b"][2]["paged_write"],
+             "serve_internvl_fallback"),
+            ("spec_verify", "R16_V2048",
+             fr["serve_launches_musicgen-large"][0]["spec_verify"],
+             "serve_musicgen"),
+            ("spec_verify", "R16_V151655",
+             fr["serve_launches_internvl2-1b"][0]["spec_verify"],
+             "serve_internvl")):
+        entry = next(e for e in entries if e["name"] == name)
+        row = fk[name][key]
         entry[key] = {k: row[k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err")}

@@ -1,12 +1,13 @@
 """Architecture registry: ``get_config(arch_id)`` returns the exact assigned
 config; ``get_config(arch_id, reduced=True)`` the CPU-sized variant of the
-same family. The port serves the dense GQA decoders (qwen3-1.7b,
-gemma-2b, gemma3-1b with its 5:1 sliding-window layers,
+same family. The port serves and trains all ten: the dense GQA decoders
+(qwen3-1.7b, gemma-2b, gemma3-1b with its 5:1 sliding-window layers,
 mistral-large-123b), DeepSeek-V3 (MLA with its dense-prefix and MoE FFNs),
-DBRX (GQA with MoE FFNs), RWKV-6 (time and channel mix) and the hybrid
-jamba (Mamba-1 and GQA layers, dense and MoE FFNs). The others raise
-until their parts are ported: musicgen-large and internvl2-1b need the
-multimodal frontends (ROADMAP.md §1 item 16)."""
+DBRX (GQA with MoE FFNs), RWKV-6 (time and channel mix), the hybrid jamba
+(Mamba-1 and GQA layers, dense and MoE FFNs), and the two multimodal
+backbones, musicgen-large (MHA, GELU, an untied head) and internvl2-1b,
+whose frozen encoders are stood in for by a prefix of embeddings
+(``models/frontends.py``)."""
 from __future__ import annotations
 
 import importlib
@@ -28,22 +29,12 @@ ARCHS = (
 )
 
 PORTED = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
-          for a in ("qwen3-1.7b", "deepseek-v3-671b", "rwkv6-7b",
-                    "dbrx-132b", "gemma3-1b", "gemma-2b",
-                    "mistral-large-123b", "jamba-1.5-large-398b")}
-
-# what each unported arch waits for (ROADMAP.md §1)
-_MISSING = {"musicgen-large": "the multimodal frontends, item 16",
-            "internvl2-1b": "the multimodal frontends, item 16"}
+          for a in ARCHS}
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; available: {sorted(ARCHS)}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet: it needs {_MISSING[arch]} "
-            "(ROADMAP.md §1)")
     mod = importlib.import_module(PORTED[arch])
     return mod.reduced_config() if reduced else mod.config()
 

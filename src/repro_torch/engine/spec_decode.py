@@ -17,9 +17,12 @@ is recomputed on demand with the reference's own threefry bits
 (``core/random.py``), so a position keeps its noise across rounds and the
 port draws the reference's noise from the same key.
 
-Token state is int64 on the port's device. Fault poisoning and
-forced-acceptance prefill of the reference are later slices (ROADMAP.md
-§1 items 10 and 11).
+Token state is int64 on the port's device. ``verify_round`` also takes
+the reference's fault-injection seam (``poison``: a row's logits replaced
+with NaN after the model) and its forced-acceptance prefill
+(``prompt_len``: window slots on prompt positions accepted as the prompt's
+tokens). The engine drives ``poison``; ``prompt_len`` waits for in-loop
+adoption (ROADMAP.md §1 item 11), and is held against the reference's.
 """
 from __future__ import annotations
 
@@ -188,7 +191,8 @@ def verify_round(params, cfg, eps_fn, state: GenState, target_len,
                  use_forecast_heads: bool = False,
                  use_verify_kernel: bool = False,
                  paged: Optional[PagedView] = None,
-                 use_attention_kernel: bool = False):
+                 use_attention_kernel: bool = False,
+                 poison=None, prompt_len=None):
     """One verify round over ``state``; W is ``state.cand.shape[1]``, so
     callers may vary the window round to round (candidates gate only
     acceptance, never token values). ``use_forecast_heads`` fills the
@@ -204,6 +208,19 @@ def verify_round(params, cfg, eps_fn, state: GenState, target_len,
     snapshot, as the reference does; that is harmless only because such a
     row is done (its state is never read again before the row is cleared
     or reset).
+
+    ``poison`` (B,) int, optional, is the engine's fault-injection seam:
+    rows with ``poison > 0`` have their float32 logits replaced with NaN
+    after the model, so the K/V the round writes stay finite and the row
+    degrades only itself, tripping its ``nonfinite`` column.
+
+    ``prompt_len`` (B,) int, optional, is forced-acceptance prefill: where
+    a row's accepted length ``n`` is still inside its prompt, the window
+    slots on prompt positions hold the prompt's tokens and are accepted
+    without the sampling gate, token writes keep the prompt, and the next
+    window carries the prompt's tokens wherever it still covers it. A row
+    with ``prompt_len <= n`` is bitwise unaffected, and so is a call with
+    ``prompt_len=None``.
 
     Returns ``(new_state, row_stats)`` where ``row_stats`` is the packed
     (B, 4) int64 per-row vector ``[accepted, done, new_length,
@@ -223,6 +240,9 @@ def verify_round(params, cfg, eps_fn, state: GenState, target_len,
         logits, h, new_cache = TransformerLM.decode_window_paged(
             params, cfg, state.cand, state.cache, paged, cache_len)
     logits = logits.float()
+    if poison is not None:
+        logits = torch.where((poison > 0)[:, None, None],
+                             torch.full_like(logits, float("nan")), logits)
     nonfinite = (~torch.isfinite(logits).flatten(1).all(dim=1)).long()
     ar = torch.arange(W, device=dev)
     out_pos = n[:, None] + ar[None, :]                    # sampled positions
@@ -234,6 +254,9 @@ def verify_round(params, cfg, eps_fn, state: GenState, target_len,
 
     # accept length: slot t+1 valid while candidate c_{n+t} matched o_t
     match = state.cand[:, 1:] == out[:, :-1]               # (B, W-1)
+    if prompt_len is not None:
+        # a candidate at a prompt position is the prompt's own token
+        match = match | (out_pos[:, :-1] <= prompt_len[:, None] - 1)
     a = 1 + torch.cumprod(match.long(), dim=1).sum(dim=1)
     a = torch.minimum(a, (target_len - n).clamp(min=1))
     a = torch.where(active, a, torch.zeros_like(a))
@@ -241,6 +264,8 @@ def verify_round(params, cfg, eps_fn, state: GenState, target_len,
     # write accepted tokens
     pos = torch.arange(max_len, device=dev)[None, :]
     newly = (pos >= n[:, None]) & (pos < (n + a)[:, None])
+    if prompt_len is not None:
+        newly = newly & (pos >= prompt_len[:, None])      # keep the prompt
     slot = (pos - n[:, None]).clamp(0, W - 1)
     tokens = torch.where(newly, torch.gather(out, 1, slot), state.tokens)
     n_new = n + a
@@ -257,6 +282,11 @@ def verify_round(params, cfg, eps_fn, state: GenState, target_len,
     if use_forecast_heads:
         cand = _forecast_fill(params, cfg, eps_fn, state.seq_ids, h, a,
                               n_new, cand, valid_fpi)
+    if prompt_len is not None:
+        # next-window slots still on the prompt carry its tokens
+        p = (n_new - 1)[:, None] + ar[None, :]
+        prompt_tok = torch.gather(tokens, 1, p.clamp(0, max_len - 1))
+        cand = torch.where(p <= prompt_len[:, None] - 1, prompt_tok, cand)
     last_tok = torch.gather(tokens, 1, (n_new - 1).clamp(min=0)[:, None])
     cand = torch.cat([last_tok, cand[:, 1:]], dim=1)
     cand = torch.where(active[:, None], cand, state.cand)

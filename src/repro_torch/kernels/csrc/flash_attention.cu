@@ -20,15 +20,21 @@
 // against ~50 MB of q, k, v, o and lse: about 35 us at the bf16 tensor-core
 // rate, 15 us at the memory rate.
 //
-// Head widths: 128 (qwen, dbrx, mistral) and 256 (gemma), both paths
-// templated on D. Shared memory sets the key tile: at D = 256 a 128-key
-// bf16 tile is 64 KB, and Q (64 KB) plus a 2-stage ring of such K and V
-// tiles would need 320 KB of the 227 KB a block may use, so D = 256 takes
-// 64-key tiles (Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB); a row is four
-// 64-column boxes in place of two, and the O accumulator two 128-column
-// halves (64 x 256 float32 over a warpgroup: 128 registers a thread, and
-// 64 for a 64-key S and its P hi + lo, where D = 128 spends 64 on O and
-// 128 on S and P: 192 either way, under setmaxnreg's 240).
+// Head widths: 64 (musicgen, internvl), 128 (qwen, dbrx, mistral) and 256
+// (gemma), both paths templated on D. Shared memory sets the key tile: at
+// D = 256 a 128-key bf16 tile is 64 KB, and Q (64 KB) plus a 2-stage ring
+// of such K and V tiles would need 320 KB of the 227 KB a block may use, so
+// D = 256 takes 64-key tiles (Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB);
+// a row is four 64-column boxes in place of two, and the O accumulator two
+// 128-column halves (64 x 256 float32 over a warpgroup: 128 registers a
+// thread, and 64 for a 64-key S and its P hi + lo, where D = 128 spends 64
+// on O and 128 on S and P: 192 either way, under setmaxnreg's 240). D = 64
+// keeps D = 128's 128-key tiles (Q 16 KB + 2 x (K 16 KB + V 16 KB) = 80
+// KB): the S tile and the P hi + lo registers are D = 128's, the steps
+// along d half as many, and O is one 64-column block (32 registers a
+// thread, the n = 64 form of the P V product) in place of a 128-column
+// half. Wider key tiles than 128 would not shorten the loop's critical
+// path (each tile's softmax waits on its S) and cost S registers.
 //
 // bfloat16 (the training path): a Hopper tensor-core kernel. One CTA of
 // three warpgroups per (128-row query tile, query head, sequence), the
@@ -287,7 +293,7 @@ constexpr int kBox = 64;           // bf16 columns per 128-byte swizzled row
 // columns, box after box; then the barriers.
 template <int D>
 struct Plan {
-  static constexpr int kBN = D == 128 ? 128 : 64;  // keys per K/V tile
+  static constexpr int kBN = D == 256 ? 64 : 128;  // keys per K/V tile
   static constexpr int kBoxes = D / kBox;          // boxes per row
   static constexpr int kQBox = kBM * 128;          // one Q box: 16 KB
   static constexpr int kKBox = kBN * 128;          // one K or V box
@@ -297,7 +303,9 @@ struct Plan {
   static constexpr int kBarOff = kQBytes + kStages * 2 * kKVBytes;
   static constexpr int kSmem = kBarOff + 64 + 1024;  // barriers, alignment
   static constexpr int kS = kBN / 2;               // score floats a thread
-  static constexpr int kHalves = D / 128;          // 128-column O halves
+  static constexpr int kON = D < 128 ? D : 128;    // columns of one O block
+  static constexpr int kHalves = D / kON;          // O blocks: 1 or 2
+  static constexpr int kOAcc = kON / 2;            // O floats a thread
   static_assert(kSmem <= 232448, "a block's shared memory on the H100");
 };
 constexpr float kLog2e = 1.4426950408889634f;
@@ -437,6 +445,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64, float32) += A (64 x 16, registers) B (16 x 64, shared,
+// MN-major: the transpose bit): the O block at head width 64
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
@@ -513,11 +533,11 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     const int wg_lo = q0 + cw * 64;            // this warpgroup's rows
     const int wg_hi = wg_lo + 63;
     const float sl2 = scale * kLog2e;          // scores in log2 units
-    float acc[P::kHalves][64];                 // O columns 128 x + ...
+    float acc[P::kHalves][P::kOAcc];           // O columns kON x + ...
 #pragma unroll
     for (int x = 0; x < P::kHalves; ++x)
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc[x][i] = 0.f;
+      for (int i = 0; i < P::kOAcc; ++i) acc[x][i] = 0.f;
     float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
     const uint8_t* qa = q_s + cw * 64 * 128;   // 64 rows of each box
     mbar_wait(q_full, 0);
@@ -594,10 +614,11 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int x = 0; x < P::kHalves; ++x)
 #pragma unroll
-        for (int j = 0; j < 64; ++j) acc[x][j] *= alpha[(j >> 1) & 1];
+        for (int j = 0; j < P::kOAcc; ++j) acc[x][j] *= alpha[(j >> 1) & 1];
 
       // O += P_hi V + P_lo V: kBN / 16 steps of 16 keys, each 16 rows of
-      // V; each 128-column half of O reads its two boxes of V
+      // V; each 128-column half of O reads its two boxes of V (at D = 64
+      // the one block reads the one box, and lbo goes unused)
 #pragma unroll
       for (int x = 0; x < P::kHalves; ++x) fence_regs(acc[x]);
       wg_fence();
@@ -628,9 +649,10 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int x = 0; x < P::kHalves; ++x)
 #pragma unroll
-        for (int c = 0; c < 16; ++c) {
+        for (int c = 0; c < P::kON / 8; ++c) {
           const int j = 4 * c + 2 * r;
-          *reinterpret_cast<__nv_bfloat162*>(orow + 128 * x + 8 * c + col0) =
+          *reinterpret_cast<__nv_bfloat162*>(orow + P::kON * x + 8 * c +
+                                              col0) =
               __floats2bfloat162_rn(acc[x][j] * inv_l,
                                     acc[x][j + 1] * inv_l);
         }
@@ -712,8 +734,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace
 
 // q, o: (B, T, H, D); k, v: (B, T, KV, D); lse: (B, H, T) float32; all
-// contiguous. dtype: 0 = float32, 1 = bfloat16. D must be 128 or 256 and H
-// a multiple of KV.
+// contiguous. dtype: 0 = float32, 1 = bfloat16. D must be 64, 128 or 256
+// and H a multiple of KV.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       int B, int Tn, int H, int KV, int D,
@@ -722,8 +744,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (KV <= 0 || H % KV != 0 || Tn <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
 #define FLASH_ARGS q, k, v, o, lse, B, Tn, H, KV, window, scale, stream
+  if (dtype == 0 && D == 64) return f32::launch<64>(FLASH_ARGS);
   if (dtype == 0 && D == 128) return f32::launch<128>(FLASH_ARGS);
   if (dtype == 0 && D == 256) return f32::launch<256>(FLASH_ARGS);
+  if (dtype == 1 && D == 64) return tc::launch<64>(FLASH_ARGS);
   if (dtype == 1 && D == 128) return tc::launch<128>(FLASH_ARGS);
   if (dtype == 1 && D == 256) return tc::launch<256>(FLASH_ARGS);
 #undef FLASH_ARGS

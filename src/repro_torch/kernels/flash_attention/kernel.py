@@ -16,7 +16,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def flash_attention_cuda(q, k, v, *, window: int, scale: float):
     """q: (B, T, H, d); k, v: (B, T, KV, d); contiguous CUDA tensors of one
-    dtype, d = 128 or 256, checked by the caller. Returns (o (B, T, H, d) in q's
+    dtype, d = 64, 128 or 256, checked by the caller. Returns (o (B, T, H, d) in q's
     dtype, lse (B, H, T) float32)."""
     B, T, H, d = q.shape
     KV = k.shape[2]

@@ -4,8 +4,8 @@ gradient.
 ``flash_attention(q, k, v, window)`` is a ``torch.autograd.Function``. Its
 forward is the CUDA kernel on CUDA tensors and the plain version in
 ``ref.py`` on CPU tensors; it raises on anything else (a device mix, a
-dtype other than float32 or bfloat16, a head width other than 128 or 256
-on the card). Its backward is the exact vector-Jacobian product of that function,
+dtype other than float32 or bfloat16, a head width other than 64, 128 or
+256 on the card). Its backward is the exact vector-Jacobian product of that function,
 written in torch ops from the saved ``(q, k, v, o, lse)``: the reference
 has no backward kernel (its gradient is XLA autodiff outside Pallas), so
 none is owed here; a hand-written one is later work (ROADMAP.md §2).
@@ -19,7 +19,7 @@ from repro_torch.kernels.flash_attention.ref import (causal_mask,
                                                      compute_dtype,
                                                      flash_attention_ref)
 
-HEAD_DIMS = (128, 256)  # the widths the kernel is compiled for
+HEAD_DIMS = (64, 128, 256)  # the widths the kernel is compiled for
 BWD_CHUNK = 512         # query rows per step of the backward
 
 

@@ -26,6 +26,7 @@ from repro_torch.core.reparam import reparam_argmax
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serving.admission import Request
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.faults import FaultPlan
 
 
 def make_serve_step(cfg, window: int = 8, low_memory: bool = False,
@@ -79,6 +80,18 @@ def main(argv=None):
                     help="verify rounds per host sync (1 = host-driven)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run there)")
+    ap.add_argument("--request-retries", type=int, default=0,
+                    help="re-admissions granted after a retryable "
+                         "per-request failure (a quarantined row, an "
+                         "admission fault) before the request fails")
+    ap.add_argument("--max-request-seconds", type=float, default=None,
+                    metavar="S",
+                    help="per-request wall-time bound: a request running "
+                         "past it fails with a 'timeout' error")
+    ap.add_argument("--fault-plan", default=None, metavar="SPEC",
+                    help="deterministic fault-injection plan, e.g. "
+                         "'seed=7,alloc=@2;5,poison=3' (default: the "
+                         "REPRO_FAULT_PLAN environment variable)")
     ap.add_argument("--use-verify-kernel", default=True,
                     action=argparse.BooleanOptionalAction,
                     help="run the Gumbel-max verify through the spec_verify "
@@ -95,6 +108,9 @@ def main(argv=None):
                            prefix_cache=not args.no_prefix_cache,
                            rounds_per_sync=args.rounds_per_sync,
                            use_verify_kernel=args.use_verify_kernel,
+                           request_retries=args.request_retries,
+                           max_request_seconds=args.max_request_seconds,
+                           faults=FaultPlan.parse(args.fault_plan or ""),
                            device=device)
     rng = np.random.default_rng(0)
     for i in range(args.requests):

@@ -6,8 +6,10 @@
         --device cpu --steps 2 --batch 2 --seq 16 --log-every 1
 
 Initializes random weights from seed 0 (or restores the latest checkpoint
-of ``--ckpt-dir``), streams the synthetic token pipeline and runs
-``make_train_step``: the loss and its gradient (accumulated over
+of ``--ckpt-dir``), streams the synthetic token pipeline (with a config's
+frontend, a random prefix of ``n_prefix_tokens`` embeddings per step,
+drawn from ``fold_in(PRNGKey(0), step)`` as the reference draws it) and
+runs ``make_train_step``: the loss and its gradient (accumulated over
 ``accum_steps`` microbatches in float32), ``zero_frozen``, clipping to a
 global norm of 1, and the optimizer's update, applied leaf by leaf in
 place. One device and no sharding. Runs on the GPU unless ``--device cpu``.
@@ -24,9 +26,11 @@ from repro_torch.checkpoint.io import (latest_step, load_pytree,
                                        params_from_numpy, reference_tree,
                                        save_pytree)
 from repro_torch.configs import get_config
+from repro_torch.core import random as jr
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.data.synthetic import token_batches
+from repro_torch.models import frontends
 from repro_torch.models.losses import lm_loss
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.optim.optimizers import (clip_scale, global_norm, tree_leaves,
@@ -44,35 +48,44 @@ def make_optimizer(cfg, steps: int = 10_000, peak_lr: float = 3e-4):
 
 def make_train_step(cfg, optimizer, remat: bool = True,
                     accum_steps: int = 1):
-    """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``; the parameters and the optimizer state are updated in
-    place. The loss is ``lm_loss``: MoE entries past the capacity factor
-    ``TRAIN_MOE_CAPACITY`` (1.25) drop, as the reference trains.
-    ``accum_steps > 1`` splits the batch's leading axis into
-    microbatches and sums their gradients in float32; the metrics are then
-    the last microbatch's, as in the reference."""
+    """``train_step(params, opt_state, batch, prefix_emb=None) ->
+    (params, opt_state, metrics)``; the parameters and the optimizer state
+    are updated in place. The loss is ``lm_loss``: MoE entries past the
+    capacity factor ``TRAIN_MOE_CAPACITY`` (1.25) drop, as the reference
+    trains. ``prefix_emb`` (B, n_prefix_tokens, d_model), the frontend's
+    stand-in, is used where the config has a frontend and ignored
+    otherwise, as in the reference. ``accum_steps > 1`` splits the batch's
+    leading axis (and the prefix's) into microbatches and sums their
+    gradients in float32; the metrics are then the last microbatch's, as in
+    the reference."""
+    has_prefix = cfg.n_prefix_tokens > 0
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, prefix_emb):
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
         loss, metrics = lm_loss(tree_unflatten(params, leaves), cfg, batch,
+                                prefix_emb if has_prefix else None,
                                 remat=remat)
         grads = torch.autograd.grad(loss, leaves)
         return ({k: v.detach() for k, v in metrics.items()},
                 tree_unflatten(params, grads))
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, prefix_emb=None):
         if accum_steps == 1:
-            metrics, grads = grads_of(params, batch)
+            metrics, grads = grads_of(params, batch, prefix_emb)
         else:
             B = batch.shape[0]
             if B % accum_steps:
                 raise ValueError(f"batch {B} is not a multiple of "
                                  f"accum_steps {accum_steps}")
+
+            def split(x):
+                return x.reshape(accum_steps, B // accum_steps, *x.shape[1:])
+            pes = ([None] * accum_steps if prefix_emb is None
+                   else split(prefix_emb))
             grads = None
-            for mb in batch.reshape(accum_steps, B // accum_steps,
-                                    *batch.shape[1:]):
-                metrics, g = grads_of(params, mb)
+            for mb, pe in zip(split(batch), pes):
+                metrics, g = grads_of(params, mb, pe)
                 if grads is None:
                     grads = tree_map(lambda a: a.float(), g)
                 else:
@@ -117,9 +130,11 @@ def main(argv=None):
     step_fn = make_train_step(cfg, optimizer, remat=False)
     pipe = TokenPipeline(token_batches(max(512, args.batch * 8), args.batch,
                                        args.seq, cfg.vocab), device)
+    key = jr.prng_key(0, device)
     t0 = time.perf_counter()
     for it, batch in zip(range(start, args.steps), pipe):
-        params, opt_state, m = step_fn(params, opt_state, batch)
+        pre = frontends.random_prefix(jr.fold_in(key, it), cfg, args.batch)
+        params, opt_state, m = step_fn(params, opt_state, batch, pre)
         if (it + 1) % args.log_every == 0:
             loss, xent = float(m["loss"]), float(m["xent"])
             dt = (time.perf_counter() - t0) / args.log_every

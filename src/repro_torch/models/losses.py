@@ -35,14 +35,19 @@ MOE_AUX_WEIGHT = 0.01
 TRAIN_MOE_CAPACITY = 1.25
 
 
-def lm_loss(params, cfg, tokens, remat: bool = False,
-            use_kernel: bool = True):
+def lm_loss(params, cfg, tokens, prefix_embeddings=None,
+            remat: bool = False, use_kernel: bool = True):
     """The training loss. Returns (loss, metrics) with ``xent``,
     ``moe_aux``, ``forecast_kl`` (with forecast heads) and ``loss``.
-    ``use_kernel`` as in ``TransformerLM.apply``."""
+    ``prefix_embeddings`` (B, n_pre, d_model) go before the tokens, and
+    their n_pre positions are dropped from the logits and from ``h``
+    before the losses. ``use_kernel`` as in ``TransformerLM.apply``."""
     logits, h, aux = TransformerLM.apply(params, cfg, tokens,
+                                         prefix_embeddings,
                                          moe_capacity=TRAIN_MOE_CAPACITY,
                                          remat=remat, use_kernel=use_kernel)
+    n_pre = 0 if prefix_embeddings is None else prefix_embeddings.shape[1]
+    logits, h = logits[:, n_pre:], h[:, n_pre:]
     xent = next_token_xent(logits, tokens)
     loss = xent + MOE_AUX_WEIGHT * aux
     metrics = {"xent": xent, "moe_aux": aux}

@@ -323,10 +323,15 @@ class TransformerLM:
 
     # -- shared embedding / head -------------------------------------------
     @staticmethod
-    def _embed(params, cfg, tokens):
+    def _embed(params, cfg, tokens, prefix_embeddings=None):
+        """Token embeddings (scaled by sqrt(d_model) where ``embed_scale``),
+        with the frontend's ``prefix_embeddings`` (B, n_pre, d_model), cast
+        to their dtype, placed before them."""
         h = Embedding.apply(params["embed"], tokens)
         if cfg.embed_scale:
             h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
+        if prefix_embeddings is not None:
+            h = torch.cat([prefix_embeddings.to(h.dtype), h], dim=1)
         return h
 
     @staticmethod
@@ -340,8 +345,11 @@ class TransformerLM:
     def apply(params, cfg: ModelConfig, tokens, prefix_embeddings=None,
               moe_capacity=None, remat: bool = False,
               use_kernel: bool = True):
-        """tokens: (B, S) int. Returns (logits (B, S, V), h, aux), ``h``
-        the final-normed states that feed the forecast heads and ``aux``
+        """tokens: (B, S) int; ``prefix_embeddings`` (B, n_pre, d_model),
+        the multimodal frontend's stand-in, go before them (at positions 0
+        .. n_pre - 1 of RoPE). Returns (logits (B, n_pre + S, V), h, aux),
+        ``h`` the final-normed states that feed the forecast heads and
+        ``aux``
         the MoE layers' load-balancing losses summed (float32; 0 without
         MoE layers). ``moe_capacity=None`` is no-drop MoE (the inference
         default, exact ARM semantics); training passes a finite capacity
@@ -351,13 +359,9 @@ class TransformerLM:
         (``GQAttention.full``) and the RWKV-6 recurrence through the WKV
         kernel (``RWKV6TimeMix.full``, which raises where a gradient is
         needed: the kernel has no backward yet)."""
-        if prefix_embeddings is not None:
-            raise NotImplementedError(
-                "prefix embeddings (multimodal frontends) are not ported "
-                "yet (ROADMAP.md §1 item 16)")
         for spec in cfg.layer_specs():
             _check_spec(spec)
-        h = TransformerLM._embed(params, cfg, tokens)
+        h = TransformerLM._embed(params, cfg, tokens, prefix_embeddings)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for p, spec in zip(params["layers"], cfg.layer_specs()):
             if remat:

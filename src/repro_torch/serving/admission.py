@@ -8,7 +8,9 @@ request only when it has a free batch slot and enough physical blocks for
 its prompt plus its full generation target (run-to-completion admission).
 ``lookahead(k)`` exposes the first ``k`` requests so a small fitting
 request behind an oversized head can admit; every such bypass ages the
-head (``Request.bypassed``).
+head (``Request.bypassed``). A request retried after a fault goes back in
+at its original rank (``requeue``). ``RequestError`` lives in
+``serving/faults.py`` and is re-exported here.
 
 Prefill is row-local and chunked: the un-cached tail of an admitted prompt
 runs through the paged decode in power-of-two chunks (``prefill_chunks``).
@@ -24,20 +26,10 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.serving.faults import RequestError
 
-@dataclass
-class RequestError:
-    """Structured failure attached to ``Request.error`` (result stays None):
-    submit-time rejections (``empty_prompt``, ``bad_new_tokens``,
-    ``too_long``, ``token_out_of_range``, ``over_capacity``) and quarantine
-    verdicts (``nonfinite``, ``stuck``)."""
-    code: str
-    detail: str = ""
-    retryable: bool = False
-    attempts: int = 1
-
-    def __str__(self):
-        return f"{self.code}({self.detail})" if self.detail else self.code
+__all__ = ["AdmissionQueue", "Request", "RequestError", "pow2_at_most",
+           "prefill_chunks"]
 
 
 @dataclass
@@ -49,7 +41,8 @@ class Request:
     deadline: Optional[float] = None   # latency SLO seconds from submit
     noise_seed: Optional[int] = None   # noise-stream id; defaults to uid
     result: Optional[np.ndarray] = None
-    error: Optional[RequestError] = None
+    error: Optional[RequestError] = None   # structured failure
+    retries: int = 0             # re-admissions consumed after failures
     calls_used: int = 0          # verify rounds this request took part in
     prefill_calls: int = 0       # row-local prefill chunks paid at admission
     prefix_hit_blocks: int = 0   # prompt blocks served from the prefix cache
@@ -127,6 +120,12 @@ class AdmissionQueue:
         req.submit_time = time.monotonic()
         heapq.heappush(self._heap, self._entry(req))
 
+    def requeue(self, req: Request):
+        """Re-insert a request that was admitted before (a retry after a
+        fault): its submit time and arrival order are kept, so it ranks
+        where its first submission did."""
+        heapq.heappush(self._heap, self._entry(req))
+
     def pop(self) -> Request:
         return heapq.heappop(self._heap)[-1]
 
@@ -144,6 +143,10 @@ class AdmissionQueue:
                 heapq.heapify(self._heap)
                 return True
         return False
+
+    def requests(self) -> list[Request]:
+        """Every queued request, in no particular order."""
+        return [e[-1] for e in self._heap]
 
     def __len__(self) -> int:
         return len(self._heap)

@@ -74,6 +74,9 @@ class BlockManager:
         self.block_of: dict[int, int] = {}         # prefix key -> block id
         self.cached_free: OrderedDict[int, None] = OrderedDict()  # LRU, oldest first
         self.stats = BlockStats()
+        # the ``alloc`` fault seam: a callable that returns True where an
+        # allocation must fail (``FaultPlan.fire``), or None
+        self.fault_hook = None
 
     def available(self) -> int:
         return len(self.free) + len(self.cached_free)
@@ -83,6 +86,9 @@ class BlockManager:
 
     def alloc(self, n: int = 1) -> list[int]:
         """Take ``n`` fresh private blocks (refcount 1, no hash)."""
+        if self.fault_hook is not None and self.fault_hook():
+            raise MemoryError(
+                "injected block allocation failure (FaultPlan seam 'alloc')")
         if self.available() < n:
             raise MemoryError(
                 f"block pool exhausted: want {n}, have {self.available()}")

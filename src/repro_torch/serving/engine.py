@@ -33,6 +33,20 @@ The port of the reference's ``serving/engine.py``, single-device:
 * **Learned forecasts** — ``use_forecast_heads`` fills the window slots
   past the fixed-point forecasts from the model's forecast (MTP) heads;
   forecasts gate acceptance only, so the tokens do not change.
+* **Fault isolation** (the reference's DESIGN.md §14) — the engine fails
+  per request, never per process: submit-time validation rejects a
+  malformed request with a ``RequestError``; a per-row health flag in the
+  packed stats (non-finite logits, stuck progress) quarantines only its
+  slot, whose blocks are released while every other row stays bitwise
+  what it would have been; an allocation fault at admission or while a
+  table grows fails only the request that hit it. Up to
+  ``request_retries`` retries requeue a failed request at its original
+  rank, a quarantined one on a fresh noise stream; ``cancel(uid)`` removes
+  a queued or running request; ``max_request_seconds`` and
+  ``max_request_rounds`` bound runaways. A ``FaultPlan``
+  (``serving/faults.py``; ``REPRO_FAULT_PLAN`` by default) scripts the
+  faults: its ``alloc`` seam in ``BlockManager.alloc``, and its poisoned
+  noise streams, whose logits ``verify_round`` replaces with NaN.
 
 The pool and the per-slot row state (tokens, lengths, windows) are updated
 in place: the reference donates them to each step, so their old values are
@@ -40,10 +54,10 @@ dead there too.
 
 Exactness: every request's tokens equal a per-request
 ``PredictiveSampler.generate`` run with the same noise key and stream id
-(``Request.seq_id``). Preemption, the host tier, staged adoption, fault
-injection, the journal and the mesh are later slices (ROADMAP.md §1
-Slices C and F). A row whose logits go non-finite is failed with a
-``RequestError`` (no retry yet).
+(``Request.seq_id``), retried ones included. Preemption, the host tier,
+staged adoption, the journal and the mesh are later slices (ROADMAP.md §1
+Slices C and F); so are the cancel of parked and staged requests and the
+fault seams of those modules.
 """
 from __future__ import annotations
 
@@ -59,9 +73,9 @@ from repro_torch.models.transformer import (PagedView, TransformerLM,
                                             has_recurrent)
 from repro_torch.serving.adaptive import AdaptiveWindowController
 from repro_torch.serving.admission import (AdmissionQueue, Request,
-                                           RequestError, pow2_at_most,
-                                           prefill_chunks)
+                                           pow2_at_most, prefill_chunks)
 from repro_torch.serving.blocks import BlockManager
+from repro_torch.serving.faults import FaultPlan, RequestError
 from repro_torch.serving.metrics import EngineMetrics
 
 
@@ -75,12 +89,16 @@ class ServingEngine:
                  use_verify_kernel: bool = False,
                  use_attention_kernel: Optional[bool] = None,
                  rounds_per_sync: int = 4, lookahead: int = 8,
-                 max_head_bypass: int = 16, device=None):
+                 max_head_bypass: int = 16, request_retries: int = 0,
+                 max_request_seconds: Optional[float] = None,
+                 max_request_rounds: Optional[int] = None,
+                 faults: Optional[FaultPlan] = None, device=None):
         if block_size < 1 or window_max < 1 or rounds_per_sync < 1 \
-                or prefill_chunk < 1 or lookahead < 1 or max_head_bypass < 0:
+                or prefill_chunk < 1 or lookahead < 1 or max_head_bypass < 0 \
+                or request_retries < 0:
             raise ValueError("block_size, window_max, rounds_per_sync, "
-                             "prefill_chunk and lookahead must be >= 1 and "
-                             "max_head_bypass >= 0")
+                             "prefill_chunk and lookahead must be >= 1, "
+                             "max_head_bypass and request_retries >= 0")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -101,6 +119,10 @@ class ServingEngine:
         self.rounds_per_sync = rounds_per_sync
         self.lookahead = lookahead
         self.max_head_bypass = max_head_bypass
+        self.request_retries = request_retries
+        self.max_request_seconds = max_request_seconds
+        self.max_request_rounds = max_request_rounds
+        self.faults = faults if faults is not None else FaultPlan.from_env()
         self.eps_fn = eps_fn if eps_fn is not None else make_eps_fn(
             eps_key, cfg.vocab)
 
@@ -110,6 +132,8 @@ class ServingEngine:
             # full occupancy + slack so unreferenced prefix blocks survive
             num_blocks = 1 + batch * self.nb + 2 * self.nb
         self.pool = BlockManager(num_blocks, block_size)
+        if self.faults is not None:
+            self.pool.fault_hook = lambda: self.faults.fire("alloc")
         self.paged = TransformerLM.init_paged_cache(
             cfg, batch, num_blocks, block_size, dtype=cfg.param_dtype,
             device=self.device)
@@ -141,11 +165,15 @@ class ServingEngine:
         self.cand = torch.zeros((batch, window_max), dtype=torch.int64,
                                 device=dev)
         self.seq_ids = np.zeros(batch, np.int64)
+        # 1 where the slot's noise stream is one of the fault plan's
+        # poisoned streams: its logits are NaN-replaced every round
+        self.poison = np.zeros(batch, np.int64)
         # device copies of host-owned admission state, re-uploaded only
         # after the host changes them
         self._tables_dev = None
         self._target_dev = None
         self._seq_dev = None
+        self._poison_dev = None
 
     # -- submission ---------------------------------------------------------
     def _validate(self, req: Request) -> Optional[RequestError]:
@@ -208,6 +236,9 @@ class ServingEngine:
         B, dev = self.B, self.device
         tables, seq_ids = self._tables_device(), self._seq_device()
         target = self._target_device()
+        # every row's logits pass through untouched where no slot holds a
+        # poisoned stream, so the select over them is left out
+        poison = self._poison_device() if self.poison.any() else None
         view = PagedView(tables, slice(0, B), self.use_attention_kernel)
         tokens, n, cand = self.tokens, self.n, self.cand
         zero = torch.zeros((B,), dtype=torch.int64, device=dev)
@@ -222,7 +253,8 @@ class ServingEngine:
             st2, rstats = verify_round(
                 self.params, self.cfg, self.eps_fn, st, tgt,
                 use_forecast_heads=self.use_forecast_heads,
-                use_verify_kernel=self.use_verify_kernel, paged=view)
+                use_verify_kernel=self.use_verify_kernel, paged=view,
+                poison=poison)
             # sticky health bits: 1 = non-finite logits, 2 = no progress
             stuck = active * (st2.n == n).long()
             bad = bad | (active * rstats[:, 3]) | (stuck << 1)
@@ -258,7 +290,9 @@ class ServingEngine:
         self.reserved[b] = 0
         self.n_host[b] = 1
         self.seq_ids[b] = 0
+        self.poison[b] = 0
         self._tables_dev = self._target_dev = self._seq_dev = None
+        self._poison_dev = None
         self.tokens[b] = 0
         self.n[b] = 1
         self.cand[b] = 0
@@ -281,6 +315,20 @@ class ServingEngine:
             self._seq_dev = torch.from_numpy(self.seq_ids.copy()).to(
                 self.device)
         return self._seq_dev
+
+    def _poison_device(self):
+        if self._poison_dev is None:
+            self._poison_dev = torch.from_numpy(self.poison.copy()).to(
+                self.device)
+        return self._poison_dev
+
+    def _set_poison(self, b: int, req: Request):
+        """Slot ``b``'s poison entry for its new occupant."""
+        v = int(self.faults is not None
+                and req.seq_id in self.faults.poison_streams)
+        if int(self.poison[b]) != v:
+            self.poison[b] = v
+            self._poison_dev = None
 
     # -- admission ----------------------------------------------------------
     def _worst_case_blocks(self, req: Request) -> int:
@@ -314,15 +362,30 @@ class ServingEngine:
             if head.bypassed >= self.max_head_bypass:
                 cands = [head]
             admitted = None
+            faulted = False
             for req in cands:
                 b = self._route(req)
                 if b is not None:
                     self.queue.remove(req)
-                    self._admit(req, b)
+                    try:
+                        self._admit(req, b)
+                    except MemoryError as e:
+                        # a block allocation failed: the failure is this
+                        # request's alone, so unwind its half-built slot
+                        # (releasing the blocks it took), retry or fail
+                        # it, and scan again
+                        self.slots[b] = None
+                        self._clear_row(b)
+                        self._fail_request(
+                            req, "admission", f"{type(e).__name__}: {e}",
+                            retryable=True)
+                        faulted = True
                     admitted = req
                     break
             if admitted is None:
                 break
+            if faulted:
+                continue
             if admitted is not head:
                 head.bypassed += 1
                 self.metrics.head_bypass_admissions += 1
@@ -372,19 +435,73 @@ class ServingEngine:
                 self.pool.register(self.owned[b][j], keys[j])
 
         self.slots[b] = req
+        self._set_poison(b, req)
         self.target[b] = L_p + req.new_tokens
         self._target_dev = None
         self.reserved[b] = self._worst_case_blocks(req)
         self.n_host[b] = L_p
 
-    def _fail_slot(self, b: int, code: str, detail: str):
-        req = self.slots[b]
-        self.slots[b] = None
-        self._clear_row(b)
-        req.error = RequestError(code, detail)
+    # -- failure and cancellation --------------------------------------------
+    def _fail_request(self, req: Request, code: str, detail: str = "", *,
+                      retryable: bool = False, fresh_stream: bool = False):
+        """Retire or retry a request that hit a fault. A retryable failure
+        under the retry budget requeues it at its original rank;
+        ``fresh_stream`` also gives it a new noise-stream id (the
+        reference's walk, skipping the plan's poisoned streams), so a
+        quarantined request does not replay the stream that failed.
+        Otherwise it finishes with a ``RequestError`` and no result."""
+        if retryable and req.retries < self.request_retries:
+            req.retries += 1
+            self.metrics.retries += 1
+            if fresh_stream:
+                req.noise_seed = fresh_stream_id(
+                    req.seq_id, self.faults.poison_streams
+                    if self.faults is not None else frozenset())
+            self.queue.requeue(req)
+            return
+        req.error = RequestError(code, detail, retryable=retryable,
+                                 attempts=req.retries + 1)
         req.result = None
         req.finish_time = time.monotonic()
         self.metrics.requests_failed += 1
+        self.done.append(req)
+
+    def _fail_slot(self, b: int, code: str, detail: str = "", *,
+                   retryable: bool = False, fresh_stream: bool = False):
+        """Quarantine running slot ``b``: free it (blocks released, its row
+        back to the inactive lane), as a finished request's slot is freed,
+        and route its request through ``_fail_request``."""
+        req = self.slots[b]
+        self.slots[b] = None
+        self._clear_row(b)
+        self._fail_request(req, code, detail, retryable=retryable,
+                           fresh_stream=fresh_stream)
+
+    def cancel(self, uid: int) -> bool:
+        """Cancel a queued or running request. It finishes through ``done``
+        with ``error.code == "cancelled"``; a running one's slot is freed
+        at once, which leaves the other rows exactly as they were. Returns
+        False for an unknown ``uid`` (finished, or never submitted)."""
+        for req in self.queue.requests():
+            if req.uid == uid:
+                self.queue.remove(req)
+                self._finalize_cancel(req)
+                return True
+        for b in range(self.B):
+            req = self.slots[b]
+            if req is not None and req.uid == uid:
+                self.slots[b] = None
+                self._clear_row(b)
+                self._finalize_cancel(req)
+                return True
+        return False
+
+    def _finalize_cancel(self, req: Request):
+        req.error = RequestError("cancelled", retryable=False,
+                                 attempts=req.retries + 1)
+        req.result = None
+        req.finish_time = time.monotonic()
+        self.metrics.requests_cancelled += 1
         self.done.append(req)
 
     # -- main loop -----------------------------------------------------------
@@ -405,7 +522,14 @@ class ServingEngine:
         k = 1 if self.queue else self.rounds_per_sync
         for b in range(self.B):
             if self.slots[b] is not None:
-                self._ensure_capacity(b, int(self.target[b]) + W)
+                try:
+                    self._ensure_capacity(b, int(self.target[b]) + W)
+                except MemoryError as e:
+                    # the reservation keeps this from happening on its own;
+                    # an injected allocation fault fails only this slot
+                    self._fail_slot(b, "capacity", str(e), retryable=True)
+        if not any(s is not None for s in self.slots):
+            return bool(self.queue)
         # THE host sync: one small packed pull per loop
         stats = self._round_loop(W, k).cpu().numpy()
         accepted, rounds_active, n_host = stats[:, 0], stats[:, 1], stats[:, 2]
@@ -427,9 +551,12 @@ class ServingEngine:
         for b in slot_rows:
             req = self.slots[b]
             if bad[b]:
+                # quarantine: a retry gets a fresh noise stream (the
+                # poisoned one would fail again)
                 code = "nonfinite" if bad[b] & 1 else "stuck"
                 self._fail_slot(b, code, f"health bits 0b{int(bad[b]):02b} "
-                                f"at n={int(n_host[b])}")
+                                f"at n={int(n_host[b])}", retryable=True,
+                                fresh_stream=True)
                 continue
             if n_host[b] >= self.target[b]:
                 req.result = self.tokens[b, :n_host[b]].cpu().numpy().copy()
@@ -438,6 +565,19 @@ class ServingEngine:
                 self.done.append(req)
                 self.slots[b] = None
                 self._clear_row(b)
+                continue
+            if (self.max_request_rounds is not None
+                    and req.calls_used >= self.max_request_rounds):
+                # not retryable: the same stream would run away again
+                self._fail_slot(
+                    b, "round_budget", f"{req.calls_used} verify rounds "
+                    f">= {self.max_request_rounds}")
+                continue
+            if (self.max_request_seconds is not None
+                    and now - req.submit_time > self.max_request_seconds):
+                self._fail_slot(
+                    b, "timeout", f"{now - req.submit_time:.3f}s "
+                    f"> {self.max_request_seconds}s wall time")
         return True
 
     def run(self, max_rounds: int = 10_000) -> list[Request]:
@@ -462,4 +602,19 @@ class ServingEngine:
         out["blocks_available"] = self.pool.available()
         out["queue_depth"] = len(self.queue)
         out["rounds_per_sync_final"] = self.rounds_per_sync
+        out["faults_injected"] = (self.faults.total_fired
+                                  if self.faults is not None else 0)
+        if self.faults is not None:
+            out.update(self.faults.fired_export())
         return out
+
+
+def fresh_stream_id(seq_id: int, poisoned=frozenset()) -> int:
+    """The noise stream a quarantined request is retried on: the next step
+    of the reference's LCG walk over 31-bit ids from ``seq_id`` that is
+    neither 0 nor one of the ``poisoned`` streams."""
+    seed = int(seq_id)
+    while True:
+        seed = (seed * 6364136223846793005 + 1442695040888963407) % 2 ** 31
+        if seed not in poisoned and seed != 0:
+            return seed

@@ -43,6 +43,8 @@ class EngineMetrics:
     head_bypass_admissions: int = 0      # lookahead admissions past the head
     requests_failed: int = 0             # finished with a RequestError
     requests_rejected: int = 0           # submit-time validation rejections
+    requests_cancelled: int = 0          # requests cancelled via cancel(uid)
+    retries: int = 0                     # failed requests re-admitted
 
     def _per_token(self, value: float) -> float:
         return value / self.tokens_generated if self.tokens_generated else 0.0
@@ -114,6 +116,8 @@ class EngineMetrics:
             "head_bypass_admissions": self.head_bypass_admissions,
             "requests_failed": self.requests_failed,
             "requests_rejected": self.requests_rejected,
+            "requests_cancelled": self.requests_cancelled,
+            "retries": self.retries,
         }
         if block_stats:
             out.update(block_stats)

@@ -28,11 +28,12 @@ state in float32 and round each output once, so they part by at most one
 bf16 ulp beyond the float32 drift). The dense flash-decode output as the
 paged decode's: 1e-5 in float32 and 1e-2 in bfloat16. The same
 tolerances hold the three attention kernels at head width 256 (gemma)
-and paged_decode at 12 query heads per kv head (mistral-large-123b). Both
-split-key decode kernels (at head widths 128 and 256) give the same
+and 64 (musicgen-large's 32 heads, G = 1, and internvl2-1b's G = 7), and
+paged_decode at 12 query heads per kv head (mistral-large-123b). Both
+split-key decode kernels (at head widths 64, 128 and 256) give the same
 output bitwise on repeated calls and in CUDA graph replay and leave their
-shared ticket counters at 0. The flash kernel (at 256) and the latent
-kernel are bitwise on repeated calls and in replay too; the latent kernel
+shared ticket counters at 0. The flash kernel (at 256 and 64) and the
+latent kernel are bitwise on repeated calls and in replay too; the latent kernel
 also reads q_lat and q_rope as the model's non-contiguous views without a
 copy (the call allocates only its output).
 The paper's image path, which has no kernel of its own, with TF32 off:
@@ -76,7 +77,8 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("R,V", [(16, 151936), (3, 1001), (64, 512)])
+@pytest.mark.parametrize("R,V", [(16, 151936), (3, 1001), (64, 512),
+                                 (16, 151655), (16, 2048)])
 def test_spec_verify_kernel_bitwise_on_gpu(cuda, R, V):
     rng = np.random.default_rng(R)
     logits = rng.standard_normal((R, V)).astype(np.float32)
@@ -302,8 +304,8 @@ def test_flash_attention_backward_matches_autograd_on_gpu(cuda, dtype, T,
 
 
 def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda):
-    q, k, v = _flash_inputs(cuda, 1, 64, 4, 2, 64, torch.bfloat16, 0)
-    with pytest.raises(ValueError, match="head width 64"):
+    q, k, v = _flash_inputs(cuda, 1, 64, 4, 2, 96, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="head width 96"):
         flash_attention_fwd(q, k, v)
     q, k, v = _flash_inputs(cuda, 1, 64, 4, 2, 128, torch.float16, 0)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -676,10 +678,13 @@ def test_decode_kernels_at_head_width_256_repeat_and_replay_on_gpu(cuda):
 
 
 @pytest.mark.parametrize("W", [1, 8, 64])
-@pytest.mark.parametrize("row", [(8, 128), (512,), (64,), (1, 256)])
+@pytest.mark.parametrize("row", [(8, 128), (512,), (64,), (1, 256),
+                                 (32, 64), (2, 64)])
 def test_paged_write_kernel_bitwise_on_gpu(cuda, W, row):
     """Rows of 2048 (qwen3-1.7b's K/V), 1024 (DeepSeek-V3's c_kv), 128
-    bytes (its k_rope) and 512 (gemma's one kv head of 256), bf16, with an
+    bytes (its k_rope), 512 (gemma's one kv head of 256), 4096
+    (musicgen-large's 32 kv heads of 64) and 256 (internvl2-1b's 2), bf16,
+    with an
     inactive row and with every row active (``active`` None); bitwise on
     every block but the sink 0."""
     g = torch.Generator(device=cuda).manual_seed(W + row[0])
@@ -701,6 +706,153 @@ def test_paged_write_kernel_bitwise_on_gpu(cuda, W, row):
         assert LAUNCHES["paged_write"] == 1
         write_window_paged(p2, new, tables, start, active)
         assert torch.equal(p1[1:], p2[1:])
+
+
+# ---------------------------------------------------------------------------
+# The frontends' head width 64: flash_attention at musicgen-large's 32 heads
+# (G = 1) and internvl2-1b's 14 over 2 (G = 7) at the training length with
+# the 256-token prefix (T = 2304), with and without a window; the decode
+# kernels at those groups, where a tile holds 8 rows (G = 1) or 56 rows
+# make 4 tiles, the last of 8 rows (G = 7).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,KV,window", [
+    (2, 2304, 32, 32, 0),      # musicgen-large's training shape
+    (2, 2304, 14, 2, 0),       # internvl2-1b's
+    (1, 2304, 14, 2, 512),     # a 512-key window
+    (1, 777, 32, 32, 128),     # ragged, a window
+    (2, 17, 14, 2, 0),         # shorter than one 128-key tile
+    (1, 129, 32, 32, 0),       # one row past a 128-row tile
+    (1, 1, 14, 2, 0)])         # one position
+def test_flash_attention_kernel_at_head_width_64_on_gpu(cuda, dtype, B, T,
+                                                        H, KV, window):
+    q, k, v = _flash_inputs(cuda, B, T, H, KV, 64, dtype, T + window + H)
+    reset_launches()
+    got, lse = flash_attention_fwd(q, k, v, window)
+    assert LAUNCHES["flash_attention"] == 1
+    want, lse_want = flash_attention_ref(q, k, v, window)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                                   atol=1e-4)
+    torch.testing.assert_close(lse, lse_want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 128])
+def test_flash_attention_backward_at_head_width_64_on_gpu(cuda, dtype,
+                                                          window):
+    q, k, v = _flash_inputs(cuda, 1, 700, 14, 2, 64, dtype, 5 + window)
+    do = torch.randn(q.shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(3)
+                     ).to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*leaves, window), leaves, do)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*ref_leaves, window)[0],
+                               ref_leaves, do)
+    for g, w in zip(got, want):
+        top = float(w.float().abs().max())
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * top)
+        else:
+            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                       atol=1e-2 * top)
+
+
+def test_flash_attention_at_head_width_64_repeats_and_replays_on_gpu(cuda):
+    """bf16, musicgen-large's heads: a second call and three replays of a
+    captured call give the first call's output and lse bitwise."""
+    q, k, v = _flash_inputs(cuda, 2, 1000, 32, 32, 64, torch.bfloat16, 13)
+    first, lse1 = flash_attention_fwd(q, k, v)
+    second, lse2 = flash_attention_fwd(q, k, v)
+    assert torch.equal(first, second) and torch.equal(lse1, lse2)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured, captured_lse = flash_attention_fwd(q, k, v)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+        assert torch.equal(captured_lse, lse1)
+
+
+# (B, W, S, lengths, H, KV): the verify rounds and 64-wide prefill chunks
+# of musicgen-large (G = 1) and internvl2-1b (G = 7), served at max_len 1024
+FRONTEND_DECODE = [
+    (2, 8, 1032, (700, 520), 32, 32),
+    (1, 64, 1032, (600,), 32, 32),
+    (2, 8, 1032, (700, 300), 14, 2),
+    (1, 64, 1032, (600,), 14, 2),
+    (2, 8, 1032, (1020, 0), 14, 2)]     # past the span; a length-0 row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,S,lengths,H,KV", FRONTEND_DECODE)
+def test_decode_kernels_at_head_width_64_on_gpu(cuda, dtype, B, W, S,
+                                                lengths, H, KV):
+    g = torch.Generator(device=cuda).manual_seed(W + H + len(lengths))
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda).to(  # noqa
+        dtype)
+    q, k, v = rn(B, W, H, 64), rn(B, S, KV, 64), rn(B, S, KV, 64)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    reset_launches()
+    got = decode_attention(q, k, v, lens)
+    assert LAUNCHES["decode_attention"] == 1
+    torch.testing.assert_close(got.float(), decode_attention_ref(
+        q, k, v, lens).float(), rtol=tol, atol=tol)
+    q, kp, vp, kn, vn, tables, lens = _paged_case(
+        cuda, dtype, B, W, lengths, W + H, H=H, KV=KV, d=64, nb=S // 16)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    got, k1, v1 = paged_attention(q, k1, v1, kn, vn, tables, lens)
+    assert LAUNCHES["paged_decode"] == 1
+    want, k2, v2 = paged_attention_fused_ref(q, k2, v2, kn, vn, tables,
+                                             lens)
+    assert torch.equal(k1[1:], k2[1:]) and torch.equal(v1[1:], v2[1:])
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_decode_kernels_at_head_width_64_repeat_and_replay_on_gpu(cuda):
+    """bf16, internvl2-1b's verify shape (G = 7): for each decode kernel a
+    second call and three replays of a captured call give the first
+    call's output (and pools) bitwise; the ticket counters are 0 after."""
+    from repro_torch.kernels.split import COUNTER_BUFS
+    g = torch.Generator(device=cuda).manual_seed(17)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda).to(  # noqa
+        torch.bfloat16)
+    q, k, v = rn(2, 8, 14, 64), rn(2, 1032, 2, 64), rn(2, 1032, 2, 64)
+    lens = torch.tensor([700, 300], device=cuda)
+    first = decode_attention(q, k, v, lens)
+    assert torch.equal(first, decode_attention(q, k, v, lens))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = decode_attention(q, k, v, lens)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+    q, kp, vp, kn, vn, tables, lens = _paged_case(
+        cuda, torch.bfloat16, 2, 8, (700, 300), 19, H=14, KV=2, d=64,
+        nb=65)
+    first, kp, vp = paged_attention(q, kp, vp, kn, vn, tables, lens)
+    k_first, v_first = kp.clone(), vp.clone()
+    second, kp, vp = paged_attention(q, kp, vp, kn, vn, tables, lens)
+    assert torch.equal(first, second)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured, _, _ = paged_attention(q, kp, vp, kn, vn, tables, lens)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+        assert torch.equal(kp, k_first) and torch.equal(vp, v_first)
+    assert int(COUNTER_BUFS[q.device].abs().sum()) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -102,3 +102,12 @@ def test_scan_covers_the_mamba_and_jamba_modules():
              if PORT in p.parents}
     assert {"configs/jamba_1_5_large_398b.py", "models/ssm.py",
             "models/transformer.py", "launch/serve.py"} <= names
+
+
+def test_scan_covers_the_frontend_and_fault_modules():
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if PORT in p.parents}
+    assert {"configs/musicgen_large.py", "configs/internvl2_1b.py",
+            "models/frontends.py", "core/random.py", "serving/faults.py",
+            "serving/engine.py", "serving/admission.py",
+            "serving/blocks.py"} <= names

@@ -189,13 +189,11 @@ def test_lm_loss_metrics_and_gradients_match(model):
     _grads_close(params_to_numpy(grads, cfg), jgrads)
 
 
-def test_apply_raises_on_unported_inputs(qwen):
+def test_capacity_factor_leaves_a_dense_stack_unchanged(qwen):
+    """A capacity factor runs (MoE is ported); without MoE layers aux is 0
+    and the logits are those of no-drop."""
     cfg, _, _, params = qwen
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        TransformerLM.apply(params, cfg, tok,
-                            prefix_embeddings=torch.zeros((1, 2, 256)))
-    # a capacity factor runs (MoE is ported); without MoE layers aux is 0
     logits, _, aux = TransformerLM.apply(params, cfg, tok, moe_capacity=1.25)
     assert float(aux) == 0.0
     assert torch.equal(logits, TransformerLM.apply(params, cfg, tok)[0])
