@@ -56,7 +56,15 @@ which fails the script when it fails:
    then (e) two requests at a fixed W = 8 with one forced
    ``preempt_slot`` after the first sync (the slot's float32 recurrent
    rows parked on the host and restored), tokens and verify rounds
-   bitwise the run without it;
+   bitwise the run without it; (a)-(e) run without the host tier
+   (``host_cache_mb=0``); (f) the host tier's recurrent snapshots at
+   ``host_cache_mb=512``: two requests sharing a 64-token prefix served
+   one after the other at ``prefill_chunk=16``, at least 4 state captures
+   and 1 restore, fewer prefill chunks than without the tier, both
+   requests' tokens bitwise the tier-less run's (the same 16-wide chunks)
+   and under the margin rule against the solo sampler; then a forced park
+   through the tier, bitwise the undisturbed run, its ms beside (e)'s
+   pageable park;
 10. the solo sampler (``PredictiveSampler``, dense cache) on qwen3-1.7b at
    full width with its attention on the dense flash-decode kernel in the
    prompt prefill and every round (28 launches per pass), its tokens
@@ -118,8 +126,8 @@ which fails the script when it fails:
    (paged_write), every request against the solo sampler on
    decode_attention and on the plain route under the margin rule; (b)
    gemma-2b (18 layers, 8 query heads over one kv head of 256, no window;
-   2.51 B) the same; (c) mistral-large-123b cut to 8 of its 88 layers (96
-   query heads over 8 kv heads of 128, G = 12; 11.9 B) the same; (d)
+   2.51 B) the same; (c) mistral-large-123b cut to 4 of its 88 layers (96
+   query heads over 8 kv heads of 128, G = 12) the same; (d)
    gemma3-1b trained 3 AdamW steps at B = 2, S = 2048 on the flash kernel
    (per step 22 windowed and 4 global launches, counted by window), its
    step-1 logits and per-position losses against the plain route within
@@ -208,7 +216,28 @@ which fails the script when it fails:
    cancelled, the others bitwise the run without the cancels; (d) the
    legacy dense round (``paged_attention=False``) on two requests,
    2 x 28 paged_write launches per pass asserted, tokens against phase
-   3's under the margin rule, ms per token.
+   3's under the margin rule, ms per token. Phase 18 runs without the
+   host tier (its parks go to pageable host memory).
+19. the host cache tier on phase 3's qwen3-1.7b at a fixed W = 8 (each run
+   through ``drive``, spec_verify and paged_decode asserted): (a) at batch
+   1 over 10 usable blocks, request A (a 64-token prefix and 1 token, 32
+   new), B (120 tokens, whose worst case takes the whole pool and evicts
+   A's 4 prefix blocks, spilled D2H into the pinned arena) and C (the same
+   prefix and another token, its 4 blocks restaged through the staging
+   ring): at least 4 spilled and restaged, C's 4 prefix hits, fewer
+   prefill chunks than the tier-less run (which drops the 4 blocks), every
+   token bitwise the tier-less run's and against the solo sampler under
+   the margin rule; spill ms and MB, restage ms and GB/s beside the
+   tier-less prefill of the same positions, the overlap fraction, and the
+   ring's own rate from pinned and pageable memory and the crc32's; (b) at
+   batch 2, two priority-5 requests sharing a 40-token prompt (96 new)
+   both preempted after the first sync by two priority-0 arrivals (17, 32
+   new): the second park adds exactly one arena entry (the shared blocks
+   are pinned, not copied), tokens and verify rounds bitwise the run
+   without the arrivals, park and resume ms beside phase 18 (a)'s pageable
+   ones; (c) ``arena_corrupt=@0`` on (b) (one resume recomputes, tokens
+   bitwise) and ``stage_drop=@0`` on (a) (one staging error, tokens
+   bitwise).
 
 Phases 11-12 run no kernel of the port's own: the reference's image path
 reaches no Pallas kernel; phase 13's MoE layer neither (the reference's is
@@ -231,11 +260,13 @@ paged_decode's, decode_attention's and flash_attention's their dbrx rows,
 with the launches of phase 13's paths, five of them phase 14's rows,
 three phase 15's and five phase 16's, with the launches of their paths);
 the last line is ``{"ok": true, "device": {...}}``. ``--report PATH``
-also writes every number measured to PATH as JSON.
+also writes every number measured to PATH as JSON, the seconds of each
+phase among them (``phase_seconds``).
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -1107,21 +1138,24 @@ class LayerTap:
         return False
 
 
-def profile_serve(cfg, params, dev, lens=PROMPT_LENS[:2], max_len=256):
+def profile_serve(cfg, params, dev, lens=PROMPT_LENS[:2], max_len=256,
+                  **kw):
     """Where the time of a short serving run on the kernel path goes (2
     requests of prompts ``lens``, 16 new tokens each): the run once without
     the profiler for its wall time, then once under ``torch.profiler`` for
     the device busy time from its kernel records and the kernels that take
     the most. The idle share is taken against the unprofiled wall, since
-    the profiler lengthens the host's time but not the kernels'."""
+    the profiler lengthens the host's time but not the kernels'. ``kw``
+    goes to the engine."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     reqs = make_requests(cfg, lens, 16)
-    _, m, wall, _ = serve(cfg, params, dev, reqs, max_len=max_len)
+    _, m, wall, _ = serve(cfg, params, dev, reqs, max_len=max_len, **kw)
     reqs = make_requests(cfg, lens, 16)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, pm, pwall, _ = serve(cfg, params, dev, reqs, max_len=max_len)
+        _, pm, pwall, _ = serve(cfg, params, dev, reqs, max_len=max_len,
+                                **kw)
     kern = kernel_times(prof)
     busy_s = sum(k[0] for k in kern) / 1e6
     # device time of each of the port's own kernels, by function name
@@ -1708,9 +1742,13 @@ def serve_rwkv(dev, cfg, tol, route_T=1024):
         f"{cfg.dtype}, {n_params / 1e9:.3f} B params, init "
         f"{time.perf_counter() - t0:.1f} s")
     out = {"params": n_params}
-    serve(cfg, params, dev, make_requests(cfg, (17,), 4))     # warm-up
+    # (a)-(e) without the host tier, whose snapshots would cut prefill at
+    # block boundaries: their passes and times stay comparable with earlier
+    # runs; (f) runs the tier
+    tierless = dict(host_cache_mb=0)
+    serve(cfg, params, dev, make_requests(cfg, (17,), 4), **tierless)
     reqs = make_requests(cfg, PROMPT_LENS, NEW_TOKENS)
-    done, m, wall, launches = serve(cfg, params, dev, reqs)
+    done, m, wall, launches = serve(cfg, params, dev, reqs, **tierless)
     tok = m["tokens_generated"]
     passes = m["verify_passes"] + m["prefill_calls"]
     log(f"serve {cfg.name} (WKV kernel path): {len(done)} requests, {tok} "
@@ -1738,7 +1776,7 @@ def serve_rwkv(dev, cfg, tol, route_T=1024):
     out["serve"] = {"metrics": m, "wall_s": wall, "launches": launches,
                     "ms_per_token": wall / tok * 1e3,
                     "ms_per_pass": wall / passes * 1e3}
-    out["profile"] = profile_serve(cfg, params, dev)
+    out["profile"] = profile_serve(cfg, params, dev, **tierless)
     log(f"solo agreement, {cfg.name}, against the solo sampler on the WKV "
         f"kernel (margin rule, tolerance {tol}):")
     out["agreement_kernel"] = solo_agreement(cfg, params, dev, done, tol,
@@ -1772,6 +1810,7 @@ def serve_rwkv(dev, cfg, tol, route_T=1024):
     log("kernel route against the WKV op's float32 plain version:")
     check_route_diffs(out["op_route_diff"], route_T - 1, RWKV_OP_LIMITS)
     out["preempt"] = preempt_rwkv(cfg, params, dev)
+    out["snapshots"] = snapshots_rwkv(cfg, params, dev, out["preempt"])
     del params
     torch.cuda.empty_cache()
     return out, launches
@@ -2709,6 +2748,9 @@ def train_dbrx(dev):
 DENSE_PROMPT_LENS = (520, 600, 700, 300)
 DENSE_MAX_LEN = 1024
 DENSE_NB = -(-(DENSE_MAX_LEN + 8) // BS)      # the engine's table width: 65
+# mistral-large-123b's depth cut (of its 88 layers, at every published
+# width, G = 12): 4 layers since phase 19 was added, 8 before
+MISTRAL_LAYERS = 4
 
 
 def serve_dense(dev, tol, arch, n_layers=None):
@@ -2794,6 +2836,8 @@ def serve_dense(dev, tol, arch, n_layers=None):
                                                    tol, **kw)}
     del params
     torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"{cfg.name} ({cfg.n_layers} layers) took {out['seconds']:.1f} s")
     return out, launches, solo_launches, fb_launches
 
 
@@ -3071,10 +3115,15 @@ def serve_jamba(dev, tol, gen):
         f"init {time.perf_counter() - t0:.1f} s; weights read per pass by "
         f"layer kind: {out['weights']}")
     kw = dict(max_len=DENSE_MAX_LEN)
-    serve(cfg, params, dev, make_requests(cfg, (17,), 4), **kw)   # warm-up
+    # without the host tier, whose snapshots would cut prefill at block
+    # boundaries: the passes and times stay comparable with earlier runs
+    tierless = dict(host_cache_mb=0)
+    serve(cfg, params, dev, make_requests(cfg, (17,), 4), **kw,
+          **tierless)                                             # warm-up
     reqs = make_requests(cfg, DENSE_PROMPT_LENS, NEW_TOKENS)
     with RouteLog() as routes:
-        done, m, wall, launches = serve(cfg, params, dev, reqs, **kw)
+        done, m, wall, launches = serve(cfg, params, dev, reqs, **kw,
+                                        **tierless)
     tok = m["tokens_generated"]
     passes = m["verify_passes"] + m["prefill_calls"]
     log(f"serve {cfg.name} {cfg.n_layers}L: {len(done)} requests (prompts "
@@ -3098,7 +3147,8 @@ def serve_jamba(dev, tol, gen):
                rounds_per_token=m["rounds"] / tok)
     with LayerTap():
         out["profile"] = profile_serve(cfg, params, dev,
-                                       DENSE_PROMPT_LENS[:2], DENSE_MAX_LEN)
+                                       DENSE_PROMPT_LENS[:2], DENSE_MAX_LEN,
+                                       **tierless)
     pr = out["profile"]
     split = {}
     for pkind, row in pr["ranges"].items():
@@ -3138,7 +3188,8 @@ def serve_jamba(dev, tol, gen):
     fb_reqs = make_requests(cfg, DENSE_PROMPT_LENS[3:], 8)
     with RouteLog() as fb_routes:
         fb_done, fm, fwall, fb_launches = serve(
-            cfg, params, dev, fb_reqs, use_attention_kernel=False, **kw)
+            cfg, params, dev, fb_reqs, use_attention_kernel=False, **kw,
+            **tierless)
     log(f"serve {cfg.name} (gather fallback): {fm['tokens_generated']} new "
         f"tokens, {fm['rounds']} verify rounds, wall {fwall:.3f} s, "
         f"launches {fb_launches}")
@@ -3647,29 +3698,34 @@ def fault_phase(dev, tol, phase3):
 # Phase 18: the scheduler under saturation on the qwen3-1.7b engine
 # ---------------------------------------------------------------------------
 
-def payload_bytes(parked) -> int:
-    """Host bytes of a parked sequence's payload (every dtype's buffer)."""
-    return sum(b.numel() * b.element_size()
-               for b in parked.payload["buffers"].values())
-
-
 def timed_engine(eng, log_to):
     """Wrap ``eng``'s ``preempt_slot`` and ``_resume`` so each call's host
     milliseconds (``torch.cuda.synchronize`` before and after) and each
-    park's blocks and bytes go to ``log_to``."""
+    park's blocks and bytes of block and recurrent rows go to ``log_to``:
+    a park without the host tier its pageable host rows, one through the
+    tier the bytes it copied into the arena (and any raw private part),
+    the arena entries it added and the shared blocks it pinned."""
     import torch
     park, resume = eng.preempt_slot, eng._resume
+    arena = eng.tier.arena if eng.tier is not None else None
 
     def timed_park(b):
+        n0 = len(arena) if arena is not None else 0
+        b0 = arena.stats.bytes_in if arena is not None else 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         req = park(b)
         torch.cuda.synchronize()
         p = eng.parked[req.uid]
-        log_to.setdefault("park", []).append({
-            "uid": req.uid, "ms": (time.perf_counter() - t0) * 1e3,
-            "blocks": p.nb_live, "bytes": payload_bytes(p),
-            "copies": len(p.payload["buffers"])})
+        row = {"uid": req.uid, "ms": (time.perf_counter() - t0) * 1e3,
+               "blocks": p.nb_live}
+        raw = sum(t.numel() * t.element_size() for t in p.private or [])
+        row["bytes"] = raw
+        if arena is not None:
+            row.update(bytes=arena.stats.bytes_in - b0 + raw,
+                       arena_entries_added=len(arena) - n0,
+                       kv_pinned=len(p.kv_keys), in_arena=p.in_arena)
+        log_to.setdefault("park", []).append(row)
         return req
 
     def timed_resume(req, b, parked):
@@ -3785,7 +3841,9 @@ def saturation_phase(dev, tol, phase3):
     cfg = get_config("qwen3-1.7b")
     params = TransformerLM.init(cfg, seed=0, device=dev)
     serve(cfg, params, dev, make_requests(cfg, (17,), 4))      # warm-up
-    fixed = dict(adaptive=False)
+    # without the host tier: parks go to pageable host memory (phase 19
+    # parks through the tier, beside these)
+    fixed = dict(adaptive=False, host_cache_mb=0)
     out = {}
     block_bytes = cfg.n_layers * 2 * BS * KV * D * 2
 
@@ -3824,7 +3882,7 @@ def saturation_phase(dev, tol, phase3):
         f"{m['preemptions']} preemption(s), {m['resumes']} resume(s), done "
         f"order {order}; parked "
         + ", ".join(f"request {p['uid']}: {p['blocks']} blocks, "
-                    f"{p['bytes'] / 1e6:.3f} MB in {p['copies']} copies "
+                    f"{p['bytes'] / 1e6:.3f} MB to pageable memory "
                     f"({block_bytes / 1e6:.3f} MB of KV a block), park "
                     f"{p['ms']:.3f} ms" for p in parks)
         + "; resume " + ", ".join(f"{r['ms']:.3f} ms" for r in resumes)
@@ -3966,7 +4024,8 @@ def saturation_phase(dev, tol, phase3):
     # (d) the legacy dense round on two requests
     reqs = make_requests(cfg, PROMPT_LENS[:2], NEW_TOKENS)
     got, m, wall, launches, _, _ = drive(cfg, params, dev, reqs,
-                                         paged_attention=False)
+                                         paged_attention=False,
+                                         host_cache_mb=0)
     need_path(launches, "phase 18 (d)", paged=False)
     passes = m["verify_passes"] + m["prefill_calls"]
     if launches["paged_decode"] != 0 or \
@@ -3999,6 +4058,424 @@ def saturation_phase(dev, tol, phase3):
     return out
 
 
+def timed_tier(eng, log_to):
+    """Wrap ``eng``'s spill hook, ``_stage_host_blocks`` and ``_prefill``
+    so each call's host milliseconds (``torch.cuda.synchronize`` before and
+    after) go to ``log_to``: "spill" (one evicted block each, with whether
+    the tier kept it), "restage" (``_restage_host_blocks``, the merge of an
+    allocated run, without the allocations, whose evictions spill, with its
+    blocks) and "prefill" (with its start and width)."""
+    import torch
+
+    def timed(name, fn, info):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            log_to.setdefault(name, []).append(
+                {"ms": (time.perf_counter() - t0) * 1e3, **info(out, *a)})
+            return out
+        return call
+    if eng.pool.spill_hook is not None:
+        eng.pool.spill_hook = timed("spill", eng.pool.spill_hook,
+                                    lambda out, bid, key: {"kept": out})
+    eng._restage_host_blocks = timed(
+        "restage", eng._restage_host_blocks,
+        lambda out, keys, block_ids, prefetched=None: {"blocks": out,
+                                                       "asked": len(keys)})
+    eng._prefill = timed(
+        "prefill", eng._prefill,
+        lambda out, table_row, b, chunk, start: {"start": start,
+                                                 "width": chunk.shape[1]})
+    return eng
+
+
+def serve_in_turn(cfg, params, dev, reqs, **kw):
+    """``reqs`` served one after the other by one engine (``drive``'s
+    arguments, ``kw`` overrides), each submitted once the one before it is
+    done; launches counted from 0 just before and read just after."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving.engine import ServingEngine
+    args = dict(batch=2, window_max=8, block_size=16, max_len=256, eps_key=1,
+                use_verify_kernel=True, device=dev)
+    args.update(kw)
+    eng = ServingEngine(cfg, params, **args)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        if not eng.submit(r):
+            raise AssertionError(f"request {r.uid} rejected: {r.error}")
+        eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = {r.uid: r for r in eng.done}
+    return done, eng.export_metrics(), wall, dict(LAUNCHES), eng
+
+
+def snapshots_rwkv(cfg, params, dev, pageable):
+    """Phase 9 (f), the host tier's recurrent snapshots on rwkv6-7b at
+    ``host_cache_mb=512``: two requests sharing a 64-token prefix served one
+    after the other, the first capturing the state at each of the 4 block
+    boundaries and the second restoring the last, against the same traffic
+    without the tier. ``prefill_chunk=16``, the block size, so both runs
+    prefill in the same 16-wide chunks and the tier's tokens must equal
+    the tier-less run's bitwise: that is the gate a wrong restore fails.
+    (With 64-wide chunks the tier-less run prefills each prompt in one
+    chunk and the snapshot split costs the first request three more
+    chunks than the second saves.) Both runs are also held against the
+    solo sampler on the plain scan under the margin rule at phase 9's
+    tolerance, twice the largest |logit difference| of the kernel and
+    plain routes over the served streams: the solo sampler prefills a
+    prompt in one pass, so its bf16 products are shaped otherwise than the
+    engine's chunks, and that check is loose. Then a forced park through
+    the tier (the float32 state rows, one park entry) resumed bitwise the
+    undisturbed run, its ms beside phase 9 (e)'s pageable park
+    (``pageable``)."""
+    import numpy as np
+    from repro_torch.serving.admission import Request
+    t0 = time.perf_counter()
+    prefix = np.random.default_rng(91).integers(0, cfg.vocab, 64)
+
+    def pair():
+        return [Request(uid=i, prompt=np.concatenate([prefix, [t]]),
+                        new_tokens=NEW_TOKENS) for i, t in enumerate((5, 9))]
+    kw = dict(adaptive=False, prefill_chunk=16)
+    runs = {}
+    for label, mb in (("tier", 512), ("tierless", 0)):
+        runs[label] = serve_in_turn(cfg, params, dev, pair(),
+                                    host_cache_mb=mb, **kw)
+        done, m, wall, launches, _ = runs[label]
+        if launches["rwkv_wkv"] <= 0 or launches["spec_verify"] <= 0:
+            raise AssertionError(f"phase 9 (f) {label}: kernel path not "
+                                 f"taken: {launches}")
+        if not all(r.ok for r in done.values()) or len(done) != 2:
+            raise AssertionError(f"phase 9 (f) {label}: {done}")
+    done, m, wall, launches, eng = runs["tier"]
+    mt = runs["tierless"][1]
+    if not (m["rec_snapshot_captures"] >= 4
+            and m["rec_snapshot_restores"] >= 1
+            and m["prefill_calls"] < mt["prefill_calls"]):
+        raise AssertionError(
+            f"phase 9 (f): captures {m['rec_snapshot_captures']}, restores "
+            f"{m['rec_snapshot_restores']}, prefill chunks "
+            f"{m['prefill_calls']} against {mt['prefill_calls']} tier-less")
+    same = sum(np.array_equal(done[u].result,
+                              runs["tierless"][0][u].result) for u in done)
+    if same != 2:
+        raise AssertionError(f"phase 9 (f): {same} of 2 requests bitwise the "
+                             f"tier-less run's, which prefills in the same "
+                             f"chunks")
+    out = {"metrics": m, "tierless_metrics": mt, "launches": launches,
+           "wall_s": wall, "tierless_wall_s": runs["tierless"][2],
+           "bitwise_vs_tierless": int(same),
+           "prefix_hit_blocks": {u: r.prefix_hit_blocks
+                                 for u, r in done.items()}}
+    log(f"phase 9 (f), rwkv6-7b snapshots (host_cache_mb=512, "
+        f"prefill_chunk=16): {m['rec_snapshot_captures']} captures "
+        f"({m['host_bytes_resident'] / 1e6:.1f} MB resident), "
+        f"{m['rec_snapshot_restores']} restore(s), prefill chunks "
+        f"{m['prefill_calls']} against {mt['prefill_calls']} without the "
+        f"tier, prefix hit blocks {out['prefix_hit_blocks']}, {same} of 2 "
+        f"requests bitwise the tier-less run's, wall {wall:.3f} s against "
+        f"{runs['tierless'][2]:.3f}; launches {launches}")
+    gap = route_logit_gap(params, cfg, dev, list(done.values()))
+    out["route_logit_gap"] = gap
+    log(f"phase 9 (f): largest |logit difference| of the kernel and plain "
+        f"routes over these streams {gap:.4g}; against the solo sampler on "
+        f"the plain scan (margin rule, tolerance 2 x that = {2 * gap:.4g}):")
+    out["solo"] = solo_agreement(cfg, params, dev, list(done.values()),
+                                 2 * gap)
+    # a forced park through the tier, against the undisturbed run
+    reqs = lambda: make_requests(cfg, PROMPT_LENS[:2], NEW_TOKENS)  # noqa
+    pkw = dict(adaptive=False, host_cache_mb=512)
+    base, _, _, _, _, _ = drive(cfg, params, dev, reqs(), **pkw)
+
+    def park(e):
+        occ = [b for b in range(2) if e.slots[b] is not None]
+        e.preempt_slot(occ[-1])
+    got, pm, _, plaunches, _, ev = drive(cfg, params, dev, reqs(),
+                                         hooks=[(1, park)], **pkw)
+    if plaunches["rwkv_wkv"] <= 0 or plaunches["spec_verify"] <= 0:
+        raise AssertionError(f"phase 9 (f) park: kernel path not taken: "
+                             f"{plaunches}")
+    if not (pm["preemptions"] == 1 and pm["resumes"] == 1
+            and pm["resume_recomputes"] == 0):
+        raise AssertionError(f"phase 9 (f) park: {pm}")
+    for u in base:
+        if not (got[u].ok and np.array_equal(got[u].result, base[u].result)
+                and got[u].calls_used == base[u].calls_used):
+            raise AssertionError(f"phase 9 (f) park: request {u} differs "
+                                 f"from the run without the preemption")
+    p, r = ev["park"][0], ev["resume"][0]
+    out.update(park=p, resume=r, park_launches=plaunches,
+               pageable_park=pageable["park"],
+               pageable_resume=pageable["resume"])
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 9 (f), a forced park through the tier: request {p['uid']} "
+        f"parked ({p['bytes'] / 1e6:.3f} MB into the arena, in arena "
+        f"{p['in_arena']}, {p['ms']:.3f} ms; phase 9 (e)'s pageable park "
+        f"{pageable['park']['ms']:.3f} ms) and resumed ({r['ms']:.3f} ms; "
+        f"pageable {pageable['resume']['ms']:.3f} ms); both requests' tokens "
+        f"and verify rounds bitwise the undisturbed run; phase 9 (f) took "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the host cache tier on the qwen3-1.7b engine
+# ---------------------------------------------------------------------------
+
+def ring_rates(tier, dev, reps=10):
+    """The staging ring's H2D rate from the arena's pinned kv entries (each
+    staged and taken ``reps`` times, host clock after ``synchronize``),
+    the same bytes copied from pageable copies of them, the crc32's host
+    rate over them, and the ms of a fresh page-locked buffer of each."""
+    import torch
+    from repro_torch.serving.hostcache import StagingRing, checksum
+    rows = [e.tensors for k, e in tier.arena._entries.items()
+            if k[0] == "kv"]
+    nbytes = sum(t.numel() * t.element_size() for r in rows for t in r)
+    ring = StagingRing(depth=2, device=dev)
+    pageable = [[t.clone() for t in r] for r in rows]
+    out = {"entries": len(rows), "bytes": nbytes}
+    for label, src in (("pinned", rows), ("pageable", pageable)):
+        for _ in range(2):                       # the first pass warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                for r in src:
+                    ring.stage(None, r)
+                while ring.take() is not None:
+                    pass
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        out[f"{label}_gbps"] = reps * nbytes / dt / 1e9
+    t0 = time.perf_counter()
+    for r in rows:
+        checksum(r)
+    out["crc32_gbps"] = nbytes / (time.perf_counter() - t0) / 1e9
+    out["overlap_frac"] = ring.stats_export()["h2d_overlap_frac"]
+    # what a new arena entry's page-locked buffer costs, kept alive so
+    # none comes back from the allocator's cache
+    held, ms = [], []
+    for r in rows:
+        t0 = time.perf_counter()
+        held.append([torch.empty_like(t, pin_memory=tier.arena.pinned)
+                     for t in r])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["pinned_alloc_ms"] = ms
+    return out
+
+
+def host_tier_phase(dev, tol, sat):
+    """Phase 19: the host tier on qwen3-1.7b at full width (bf16, seed 0)
+    at a fixed W = 8, every run through ``drive`` (launches counted from 0,
+    spec_verify and paged_decode asserted): (a) spill and restage, (b) a
+    tiered park of two requests sharing a prompt, (c) faults on the tier;
+    park and resume ms beside phase 18 (a)'s pageable ones (``sat``)."""
+    import numpy as np
+    import torch
+    from repro_torch.engine.agreement import check_token_agreement
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving.admission import Request
+    from repro_torch.serving.faults import FaultPlan
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-1.7b")
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    serve(cfg, params, dev, make_requests(cfg, (17,), 4))      # warm-up
+    block_bytes = cfg.n_layers * 2 * BS * KV * D * 2
+    out = {"block_bytes": block_bytes}
+
+    # (a) A's 4 prefix blocks evicted by B, restaged for C
+    def abc():
+        rng = np.random.default_rng(190)
+        prefix = rng.integers(0, cfg.vocab, 64)
+        return [Request(uid=0, prompt=np.concatenate([prefix, [11]]),
+                        new_tokens=NEW_TOKENS),
+                Request(uid=1, prompt=rng.integers(0, cfg.vocab, 120),
+                        new_tokens=NEW_TOKENS),
+                Request(uid=2, prompt=np.concatenate([prefix, [12]]),
+                        new_tokens=NEW_TOKENS)]
+    # 10 usable blocks: B's worst case (120 + 32 + 8 positions) takes all
+    akw = dict(batch=1, num_blocks=11, adaptive=False)
+    # once untimed: a process's first page-locked allocation and first
+    # upload on a side stream take ~25 ms each on the H100, which the
+    # timed runs below should not carry
+    drive(cfg, params, dev, abc(), **akw)
+    runs = {}
+    for label, extra in (("tier", {}), ("tierless", {"host_cache_mb": 0}),
+                         ("stage_drop", {"faults": FaultPlan.parse(
+                             "stage_drop=@0")})):
+        timers = {}
+        got, m, wall, launches, eng, _ = drive(
+            cfg, params, dev, abc(), hooks=[(0, lambda e, t=timers:
+                                             timed_tier(e, t))],
+            **akw, **extra)
+        need_path(launches, f"phase 19 (a) {label}")
+        if len(got) != 3 or not all(r.ok for r in got.values()):
+            raise AssertionError(f"phase 19 (a) {label}: {got}")
+        runs[label] = dict(done=got, metrics=m, wall_s=wall,
+                           launches=launches, timers=timers, eng=eng)
+    m, mt = runs["tier"]["metrics"], runs["tierless"]["metrics"]
+    c = runs["tier"]["done"][2]
+    if not (m["blocks_spilled"] >= 4 and m["host_hits"] >= 1
+            and m["host_staged_blocks"] >= 4 and c.prefix_hit_blocks >= 4
+            and m["prefill_calls"] < mt["prefill_calls"]
+            and mt["blocks_dropped"] >= 4):
+        raise AssertionError(
+            f"phase 19 (a): spilled {m['blocks_spilled']}, host hits "
+            f"{m['host_hits']}, staged {m['host_staged_blocks']}, C's prefix "
+            f"hits {c.prefix_hit_blocks}, prefill chunks {m['prefill_calls']}"
+            f" against {mt['prefill_calls']}, dropped tier-less "
+            f"{mt['blocks_dropped']}")
+    for label in ("tierless", "stage_drop"):
+        for u in range(3):
+            if not np.array_equal(runs[label]["done"][u].result,
+                                  runs["tier"]["done"][u].result):
+                raise AssertionError(f"phase 19 (a): request {u} of the "
+                                     f"{label} run differs from the tier's")
+    md = runs["stage_drop"]["metrics"]
+    if not (md["staging_errors"] == 1 and md["faults_fired_stage_drop"] == 1):
+        raise AssertionError(f"phase 19 (c) stage_drop: {md}")
+    tm, tt = runs["tier"]["timers"], runs["tierless"]["timers"]
+    spills = [x for x in tm.get("spill", []) if x["kept"]]
+    restage = tm["restage"]
+    staged_bytes = sum(x["blocks"] for x in restage) * block_bytes
+    restage_ms = sum(x["ms"] for x in restage)
+    # the tier-less run's prefill of the same positions: C's chunks below
+    # the restaged blocks (C is admitted last, so its chunks come last)
+    c_chunks = [x for x in tt["prefill"] if x["start"] < 4 * BS][-1:]
+    rates = ring_rates(runs["tier"]["eng"].tier, dev)
+    out["spill_restage"] = {
+        "metrics": m, "tierless_metrics": mt, "stage_drop_metrics": md,
+        "launches": runs["tier"]["launches"],
+        "spill_ms": [x["ms"] for x in spills],
+        "spill_mb": len(spills) * block_bytes / 1e6,
+        "restage_ms": restage_ms, "restage_bytes": staged_bytes,
+        "restage_gbps": staged_bytes / restage_ms / 1e6,
+        "tierless_prefill_ms": sum(x["ms"] for x in c_chunks),
+        "tierless_prefill_chunks": c_chunks,
+        "h2d_overlap_frac": m["h2d_overlap_frac"], "ring": rates,
+        "ms_per_token": runs["tier"]["wall_s"] / m["tokens_generated"] * 1e3,
+        "tierless_ms_per_token":
+            runs["tierless"]["wall_s"] / mt["tokens_generated"] * 1e3}
+    sr = out["spill_restage"]
+    log(f"phase 19 (a), spill and restage (batch 1, 10 usable blocks): "
+        f"{m['blocks_spilled']} blocks spilled ({len(spills)} copies, "
+        f"{sr['spill_mb']:.3f} MB, "
+        + ", ".join(f"{x:.3f}" for x in sr["spill_ms"])
+        + f" ms each), {m['host_staged_blocks']} restaged in "
+        f"{restage_ms:.3f} ms ({sr['restage_gbps']:.2f} GB/s end to end, "
+        f"checksums and merges included) against "
+        f"{sr['tierless_prefill_ms']:.3f} ms for the tier-less prefill of "
+        f"the same positions; prefill "
+        f"chunks {m['prefill_calls']} against {mt['prefill_calls']} "
+        f"tier-less ({mt['blocks_dropped']} dropped there); h2d_overlap_frac "
+        f"{m['h2d_overlap_frac']:.4f}; the ring alone "
+        f"{rates['pinned_gbps']:.2f} GB/s from pinned memory, "
+        f"{rates['pageable_gbps']:.2f} from pageable, crc32 "
+        f"{rates['crc32_gbps']:.3f} GB/s on the host, a fresh pinned "
+        f"buffer of a block " + ", ".join(
+            f"{x:.3f}" for x in rates["pinned_alloc_ms"])
+        + f" ms; C's tokens bitwise "
+        f"the tier-less run's; (c) stage_drop=@0: staging_errors "
+        f"{md['staging_errors']}, tokens bitwise; launches "
+        f"{runs['tier']['launches']}; against the solo sampler (margin rule, "
+        f"tolerance {tol}):")
+    sr["solo"] = solo_agreement(cfg, params, dev,
+                                list(runs["tier"]["done"].values()), tol)
+    out["seconds_after_a"] = time.perf_counter() - t0
+
+    # (b) two priority-5 requests sharing a 40-token prompt, both preempted
+    # after the first sync by two priority-0 arrivals
+    shared = np.random.default_rng(191).integers(0, cfg.vocab, 40)
+
+    def lows():
+        return [Request(uid=i, prompt=shared, new_tokens=96, priority=5)
+                for i in range(2)]
+
+    def highs(e):
+        rng = np.random.default_rng(192)
+        for uid in (2, 3):
+            e.submit(Request(uid=uid, prompt=rng.integers(0, cfg.vocab, 17),
+                             new_tokens=NEW_TOKENS, priority=0))
+    bkw = dict(adaptive=False)
+    base, _, _, _, _, _ = drive(cfg, params, dev, lows(), **bkw)
+    parked = {}
+    for label, extra in (("tier", {}), ("arena_corrupt", {
+            "faults": FaultPlan.parse("arena_corrupt=@0")})):
+        got, pm, wall, launches, eng, ev = drive(
+            cfg, params, dev, lows(), hooks=[(1, highs)], **bkw, **extra)
+        need_path(launches, f"phase 19 (b) {label}")
+        for u in (0, 1) if label == "tier" else ():
+            if not (got[u].ok and np.array_equal(got[u].result,
+                                                 base[u].result)
+                    and got[u].calls_used == base[u].calls_used):
+                raise AssertionError(
+                    f"phase 19 (b) {label}: request {u} differs from the run "
+                    f"without the arrivals")
+        parked[label] = dict(metrics=pm, launches=launches, ev=ev,
+                             done=got)
+    pm, ev = parked["tier"]["metrics"], parked["tier"]["ev"]
+    parks, resumes = ev.get("park", []), ev.get("resume", [])
+    if not (pm["preemptions"] == 2 and pm["resumes"] == 2
+            and len(parks) == 2 and parks[1]["arena_entries_added"] == 1
+            and pm["resume_recomputes"] == 0):
+        raise AssertionError(f"phase 19 (b): parks {parks}, {pm}")
+    pc = parked["arena_corrupt"]["metrics"]
+    if not (pc["resume_recomputes"] == 1 and pc["checksum_failures"] == 1):
+        raise AssertionError(f"phase 19 (c) arena_corrupt: {pc}")
+    # the arrivals and the warm resume bitwise (b)'s; the cold resume
+    # re-prefills in chunks the positions verify windows of another width
+    # wrote, so on the card it holds (b)'s tokens under the margin rule
+    corrupt = parked["arena_corrupt"]["done"]
+    differ = [u for u in range(4) if not np.array_equal(
+        corrupt[u].result, parked["tier"]["done"][u].result)]
+    if not set(differ) <= {0, 1} or len(differ) > 1:
+        raise AssertionError(f"phase 19 (c) arena_corrupt: requests "
+                             f"{differ} differ from (b)'s")
+    cold_split = {u: check_token_agreement(
+        base[u].result, corrupt[u].result,
+        margin_fn(cfg, params, dev, base[u].result, corrupt[u].seq_id), tol,
+        start=len(shared)) for u in differ}
+    pageable = sat["preempt"]
+    out["park"] = {"metrics": pm, "launches": parked["tier"]["launches"],
+                   "park": parks, "resume": resumes,
+                   "corrupt_metrics": pc, "cold_split": cold_split,
+                   "pageable_park": pageable["park"],
+                   "pageable_resume": pageable["resume"]}
+    log(f"phase 19 (b), two requests sharing a 40-token prompt parked "
+        f"through the tier: "
+        + ", ".join(f"request {p['uid']}: {p['blocks']} blocks, "
+                    f"{p['bytes'] / 1e6:.3f} MB into the arena, "
+                    f"{p['arena_entries_added']} entries added, "
+                    f"{p['kv_pinned']} shared blocks pinned, {p['ms']:.3f} ms"
+                    for p in parks)
+        + "; resume " + ", ".join(f"{r['ms']:.3f} ms" for r in resumes)
+        + "; phase 18 (a)'s pageable park "
+        + ", ".join(f"{p['ms']:.3f} ms ({p['bytes'] / 1e6:.3f} MB)"
+                    for p in pageable["park"])
+        + ", resume " + ", ".join(f"{r['ms']:.3f} ms"
+                                  for r in pageable["resume"])
+        + f"; tokens and verify rounds bitwise the run without the arrivals;"
+        f" (c) arena_corrupt=@0: resume_recomputes "
+        f"{pc['resume_recomputes']}, "
+        + (", ".join(f"the cold-resumed request {u} split from (b)'s at "
+                     f"{c['position']} (margin {c['margin']:.4g} < {tol})"
+                     for u, c in cold_split.items()) if cold_split else
+           "every request bitwise (b)'s")
+        + f"; launches {parked['tier']['launches']}")
+    del params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 19 took {out['seconds']:.1f} s")
+    return out
+
+
 def preempt_rwkv(cfg, params, dev):
     """Phase 9 (e): rwkv6-7b at a fixed W = 8, one forced ``preempt_slot``
     after the first sync (the slot's recurrent rows, float32, parked and
@@ -4006,13 +4483,14 @@ def preempt_rwkv(cfg, params, dev):
     bitwise."""
     import numpy as np
     reqs = lambda: make_requests(cfg, PROMPT_LENS[:2], NEW_TOKENS)  # noqa
-    base, _, _, _, _, _ = drive(cfg, params, dev, reqs(), adaptive=False)
+    kw = dict(adaptive=False, host_cache_mb=0)
+    base, _, _, _, _, _ = drive(cfg, params, dev, reqs(), **kw)
 
     def park(e):
         occ = [b for b in range(2) if e.slots[b] is not None]
         e.preempt_slot(occ[-1])
     got, m, wall, launches, _, ev = drive(
-        cfg, params, dev, reqs(), hooks=[(1, park)], adaptive=False)
+        cfg, params, dev, reqs(), hooks=[(1, park)], **kw)
     if launches["rwkv_wkv"] <= 0 or launches["spec_verify"] <= 0:
         raise AssertionError(f"phase 9 (e): kernel path not taken: "
                              f"{launches}")
@@ -4025,7 +4503,7 @@ def preempt_rwkv(cfg, params, dev):
                                  f"the run without the preemption")
     p, r = ev["park"][0], ev["resume"][0]
     log(f"phase 9 (e), a forced preemption at W = 8: request {p['uid']} "
-        f"parked ({p['bytes'] / 1e6:.3f} MB in {p['copies']} copies, "
+        f"parked ({p['bytes'] / 1e6:.3f} MB to pageable memory, "
         f"{p['ms']:.3f} ms) and resumed ({r['ms']:.3f} ms); both requests' "
         f"tokens and verify rounds bitwise the run without it; launches "
         f"{launches}")
@@ -4038,6 +4516,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None,
                     help="write every number measured to this JSON file")
+    ap.add_argument("--mistral-depths", type=int, nargs="+", default=None,
+                    metavar="LAYERS",
+                    help="instead of the phases: build the kernels, run "
+                    "phase 14 (c) (the mistral-large-123b cut served and "
+                    "checked) at each of these depths, log its seconds, "
+                    "and exit without the result lines")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4061,7 +4545,18 @@ def main(argv=None) -> int:
     log(f"gpu: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
-    report = {"gpu": smi}
+    report = {"gpu": smi, "phase_seconds": {}}
+    mark = [time.perf_counter()]
+
+    def lap(phase):
+        """The seconds since the last lap, logged as ``phase``'s; the
+        phase's engines, whose timing wrappers make reference cycles, are
+        collected."""
+        gc.collect()
+        now = time.perf_counter()
+        report["phase_seconds"][phase] = now - mark[0]
+        log(f"phase {phase}: {now - mark[0]:.1f} s")
+        mark[0] = now
 
     # ---- phase 2: build, then each kernel against its plain version ------
     t0 = time.perf_counter()
@@ -4081,6 +4576,18 @@ def main(argv=None) -> int:
         log("SASS of flash_attention: not available (no cuobjdump)")
     for fn, n in (report["sass"] or {}).items():
         log(f"SASS of {fn}: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA")
+    if args.mistral_depths:
+        # at phase 5's tolerance, as phase 14 runs it
+        report["mistral_depths"] = {
+            n: serve_dense(dev, 0.25, "mistral-large-123b", n)[0]["seconds"]
+            for n in args.mistral_depths}
+        log("phase 14 (c) seconds by depth: "
+            + json.dumps(report["mistral_depths"]))
+        if args.report:
+            path = Path(args.report)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps(report, indent=1, default=str))
+        return 0
     gen = torch.Generator(device=dev).manual_seed(0)
     sv = check_spec_verify(dev, gen)
     pd, pd_err = check_paged_decode(dev, gen)
@@ -4101,6 +4608,7 @@ def main(argv=None) -> int:
     report["eps_ms_B2_W8"] = device_ms(lambda: eps_fn(sid, pos), iters=5)
     log(f"eps generation (B=2, W=8, V={V}): "
         f"{report['eps_ms_B2_W8']:.4f} device ms per round")
+    lap("2")
 
     # ---- phase 3: the full-width serving run on the kernel path ----------
     cfg = get_config("qwen3-1.7b")
@@ -4131,6 +4639,7 @@ def main(argv=None) -> int:
     report["serve"] = {"metrics": m, "wall_s": wall, "launches": launches}
     phase3 = {"done": done, "ms_per_token": wall / m["tokens_generated"] * 1e3}
     report["profile"] = profile_serve(cfg, params, dev)
+    lap("3")
 
     # ---- phase 4: the gather fallback, the writeback kernel's path -------
     fb_reqs = make_requests(cfg, PROMPT_LENS[:2], 8)
@@ -4143,6 +4652,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"fallback path not taken: {fb_launches}")
     report["serve_fallback"] = {"metrics": fm, "wall_s": fwall,
                                 "launches": fb_launches}
+    lap("4")
 
     # ---- phase 5: agreement with the solo sampler ------------------------
     # bf16 logits of magnitude ~1 after 28 layers; the fused kernel keeps
@@ -4153,26 +4663,34 @@ def main(argv=None) -> int:
     report["agreement"] = solo_agreement(cfg, params, dev, done, tol)
     del params
     torch.cuda.empty_cache()
+    lap("5")
 
     # ---- phase 6: DeepSeek-V3's MLA layers at full width ------------------
     report["deepseek"], ds_launches = serve_deepseek(dev, tol)
+    lap("6")
 
     # ---- phase 7: training qwen3-1.7b on the flash-attention kernel ------
     report["train"], tr_launches = train_qwen(dev)
+    lap("7")
 
     # ---- phase 8: the forecast-KL objective on DeepSeek-V3 ---------------
     report["train_deepseek"] = train_deepseek(dev, tol)
+    lap("8")
 
     # ---- phase 9: rwkv6-7b served at full width on the WKV kernel --------
     report["rwkv"], rw_launches = serve_rwkv(dev, get_config("rwkv6-7b"),
                                              tol)
+    lap("9")
 
     # ---- phase 10: the solo sampler's dense cache on its kernel ----------
     report["solo_dense"], sd_launches = solo_dense(dev, cfg, done, tol)
+    lap("10")
 
     # ---- phases 11-12: the samplers of Tables 1 and 2 at full width -----
     report["table1"] = table1(dev)
+    lap("11")
     report["table2"] = table2(dev)
+    lap("12")
 
     # ---- phase 13: the MoE layer, DeepSeek-V3 and dbrx-132b --------------
     t13 = time.perf_counter()
@@ -4182,7 +4700,7 @@ def main(argv=None) -> int:
                                                   latent=False)
     report["train_dbrx"], dbrx_train_launches = train_dbrx(dev)
     report["phase13_s"] = time.perf_counter() - t13
-    log(f"phase 13 took {report['phase13_s']:.1f} s")
+    lap("13")
     dbrx_solo = report["moe_dbrx"]["fpi"]["solo_launches"]
 
     # ---- phase 14: gemma3-1b, gemma-2b, a mistral-large-123b cut ---------
@@ -4192,25 +4710,35 @@ def main(argv=None) -> int:
     served = {}
     for key, arch, n_layers in (("gemma3", "gemma3-1b", None),
                                 ("gemma2b", "gemma-2b", None),
-                                ("mistral", "mistral-large-123b", 8)):
+                                ("mistral", "mistral-large-123b",
+                                 MISTRAL_LAYERS)):
         report["serve_" + key], *served[key] = serve_dense(dev, tol, arch,
                                                           n_layers)
     report["train_gemma3"], g3_train = train_gemma3(dev)
     report["phase14_s"] = time.perf_counter() - t14
-    log(f"phase 14 took {report['phase14_s']:.1f} s")
+    lap("14")
 
     # ---- phase 15: the Mamba mixer, a jamba-1.5-large-398b cut ----------
     report["serve_jamba"], *served["jamba"] = serve_jamba(dev, tol, gen)
-    log(f"phase 15 took {report['serve_jamba']['seconds']:.1f} s")
+    lap("15")
 
     # ---- phase 16: the multimodal backbones at head width 64 ------------
     report["frontends"] = frontends_phase(dev, tol, gen)
+    lap("16")
 
     # ---- phase 17: fault isolation on phase 3's engine --------------------
     report["faults"] = fault_phase(dev, tol, phase3)
+    lap("17")
 
     # ---- phase 18: the scheduler under saturation ------------------------
     report["saturation"] = saturation_phase(dev, tol, phase3)
+    lap("18")
+
+    # ---- phase 19: the host cache tier -----------------------------------
+    report["host_tier"] = host_tier_phase(dev, tol, report["saturation"])
+    lap("19")
+    log("seconds by phase: " + json.dumps(
+        {k: round(v, 1) for k, v in report["phase_seconds"].items()}))
 
     entries = []
     for name, rows, key, n, path, extra in (

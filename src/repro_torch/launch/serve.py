@@ -106,6 +106,20 @@ def main(argv=None):
     ap.add_argument("--preempt-floor", type=float, default=0.75,
                     help="progress floor: running slots past this fraction "
                          "of their generation target are never preempted")
+    ap.add_argument("--host-cache-mb", type=float, default=None,
+                    metavar="MB",
+                    help="host cache tier budget in MiB (spilled prefix "
+                         "blocks, parked sequences and recurrent-state "
+                         "snapshots share one bounded LRU arena, pinned on "
+                         "the GPU); default: REPRO_HOST_CACHE_MB or 256")
+    ap.add_argument("--no-host-cache", action="store_true",
+                    help="no host cache tier (evicted prefix blocks drop, "
+                         "parked payloads stay raw host copies, recurrent "
+                         "archs never hit a prefix)")
+    ap.add_argument("--no-integrity-checks", action="store_true",
+                    help="skip the host tier's checksum stamp and verify "
+                         "(corruption then goes undetected; to measure "
+                         "what the checks cost)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run there)")
     ap.add_argument("--request-retries", type=int, default=0,
@@ -145,6 +159,9 @@ def main(argv=None):
                            request_retries=args.request_retries,
                            max_request_seconds=args.max_request_seconds,
                            faults=FaultPlan.parse(args.fault_plan or ""),
+                           host_cache_mb=(0 if args.no_host_cache
+                                          else args.host_cache_mb),
+                           integrity_checks=not args.no_integrity_checks,
                            device=device)
     rng = np.random.default_rng(0)
     for i in range(args.requests):

@@ -1,9 +1,10 @@
 """Paged KV-cache block manager with a hash-based prefix cache.
 
 A numpy-only copy of the reference's ``serving/blocks.py``: the device
-prefix cache, ``spill`` (a preempted sequence's release) and the staging
-ledger (the host tier's spill hook and the sharded pool are later slices).
-Same ids, same hashes, same decisions on the same traffic.
+prefix cache, the host tier's spill hook and tiered lookup, ``spill`` (a
+preempted sequence's release) and the staging ledger (the sharded pool is
+a later slice). Same ids, same hashes, same decisions on the same
+traffic.
 
 Invariants:
 
@@ -48,8 +49,11 @@ class BlockStats:
     prefix_hits: int = 0
     prefix_misses: int = 0
     evictions: int = 0
-    spilled: int = 0             # blocks released by a preemption whose
-    #                              contents were parked on the host
+    spilled: int = 0             # block contents kept on the host: a
+    #                              preemption's release, an eviction the
+    #                              spill hook saved
+    dropped: int = 0             # hashed contents evicted outright: no
+    #                              host tier, or it refused the spill
 
     def export(self) -> dict:
         total = self.prefix_hits + self.prefix_misses
@@ -61,6 +65,7 @@ class BlockStats:
             "prefix_hit_rate": (self.prefix_hits / total) if total else 0.0,
             "evictions": self.evictions,
             "blocks_spilled": self.spilled,
+            "blocks_dropped": self.dropped,
         }
 
 
@@ -78,6 +83,11 @@ class BlockManager:
         self.block_of: dict[int, int] = {}         # prefix key -> block id
         self.cached_free: OrderedDict[int, None] = OrderedDict()  # LRU, oldest first
         self.stats = BlockStats()
+        # the host tier's hook: called with ``(block_id, prefix_key)`` when
+        # a registered cached-free block is about to be evicted (still
+        # registered, contents readable); True iff it kept the contents on
+        # the host (``spilled``), else they are ``dropped``
+        self.spill_hook = None
         # the ``alloc`` fault seam: a callable that returns True where an
         # allocation must fail (``FaultPlan.fire``), or None
         self.fault_hook = None
@@ -102,6 +112,13 @@ class BlockManager:
                 b = self.free.pop()
             else:
                 b, _ = self.cached_free.popitem(last=False)  # evict oldest
+                key = self.hash_of.get(b)
+                saved = bool(key is not None and self.spill_hook is not None
+                             and self.spill_hook(b, key))
+                if saved:
+                    self.stats.spilled += 1
+                else:
+                    self.stats.dropped += 1
                 self._unregister(b)
                 self.stats.evictions += 1
             self.refcount[b] = 1
@@ -129,6 +146,19 @@ class BlockManager:
         self.stats.prefix_hits += len(hits)
         self.stats.prefix_misses += len(keys) - len(hits)
         return hits, keys
+
+    def lookup_prefix_tiered(self, tokens, max_blocks: int, tier=None,
+                             shard: int = 0):
+        """``lookup_prefix`` with the host tier behind it: returns ``(hits,
+        keys, host_keys)``, ``host_keys`` the contiguous run of chained keys
+        right after the device hits whose contents the tier holds (a
+        resident block behind a gap is of no use)."""
+        hits, keys = self.lookup_prefix(tokens, max_blocks)
+        host_keys: list[int] = []
+        if tier is not None and len(hits) < len(keys):
+            run = tier.kv_run(shard, keys[len(hits):])
+            host_keys = keys[len(hits):len(hits) + run]
+        return hits, keys, host_keys
 
     def register(self, b: int, key: int):
         """Publish a (still-referenced) block under a prefix key. First

@@ -21,9 +21,26 @@ The port of the reference's ``serving/engine.py``, single-device:
   it.
 * **Prefix cache** — full prompt blocks are content-hashed (chained keys);
   admissions sharing a prompt prefix point their tables at the cached
-  blocks and skip recomputing them. Off for stacks with recurrent layers,
-  whose state after a prefix is not paged (the reference reaches it only
-  through its host tier's snapshots, not ported).
+  blocks and skip recomputing them. A stack with recurrent layers, whose
+  state after a prefix is not paged, reaches a prefix only through the host
+  tier's state snapshots (``rec_prefix``).
+* **Host tier** (the reference's DESIGN.md §13; ``host_cache_mb``, 256 MiB
+  or ``REPRO_HOST_CACHE_MB`` by default, 0 turns it off) — one
+  byte-budgeted arena of host memory (pinned on CUDA,
+  ``serving/hostcache``) behind the device prefix cache: a hashed block
+  evicted from the pool is spilled to it (one D2H copy per dtype), and a
+  later admission that misses on the device restages the contiguous
+  resident run through the staging ring (a copy stream and events) instead
+  of prefilling it; with ``staging_slots`` the blocks of queued requests
+  are prefetched while they wait (``host_prefetch``). Recurrent stacks
+  split their prefill at block boundaries and snapshot the state rows at
+  each into the tier; an admission resumes from the largest boundary
+  covered on both sides. A preemption parks through the tier: shared full
+  prompt blocks once, pinned, in the ``kv`` namespace; the private tail and
+  recurrent rows as one park entry (raw host memory where the arena
+  refuses it); a resume that finds a piece gone recomputes by prefill
+  (``_resume_cold``). Every host read is checksummed, and a circuit breaker
+  turns a failing tier into misses.
 * **Row-local chunked prefill** — an admitted row prefills its un-cached
   prompt tail through batch-1 windows over its own blocks, in power-of-two
   chunks of at most ``prefill_chunk``.
@@ -74,8 +91,9 @@ The port of the reference's ``serving/engine.py``, single-device:
   a queued, parked, staged or running request; ``max_request_seconds``
   and ``max_request_rounds`` bound runaways. A ``FaultPlan``
   (``serving/faults.py``; ``REPRO_FAULT_PLAN`` by default) scripts the
-  faults: its ``alloc`` seam in ``BlockManager.alloc``, and its poisoned
-  noise streams, whose logits ``verify_round`` replaces with NaN.
+  faults: its ``alloc`` seam in ``BlockManager.alloc``, its host-tier
+  seams (``arena_put``, ``arena_corrupt``, ``stage_drop``), and its
+  poisoned noise streams, whose logits ``verify_round`` replaces with NaN.
 
 The pool and the per-slot row state (tokens, lengths, windows) are updated
 in place: the reference donates them to each step, so their old values are
@@ -83,13 +101,15 @@ dead there too.
 
 Exactness: every request's tokens equal a per-request
 ``PredictiveSampler.generate`` run with the same noise key and stream id
-(``Request.seq_id``), retried, preempted and adopted ones included. The
-host tier, the journal, the disk tier and the mesh (migration) are later
-slices (ROADMAP.md §1 Slices C and F); so are the fault seams of those
-modules.
+(``Request.seq_id``), retried, preempted, adopted, restaged and
+snapshot-resumed ones included. The journal, the disk tier and the mesh
+(migration) are later slices (ROADMAP.md §1 Slices C and F); so are the
+fault seams of those modules.
 """
 from __future__ import annotations
 
+import functools
+import os
 import time
 from dataclasses import dataclass
 from types import SimpleNamespace
@@ -108,8 +128,11 @@ from repro_torch.serving.admission import (AdmissionQueue, Request,
                                            StagedEntry,
                                            pack_staged_descriptors,
                                            pow2_at_most, prefill_chunks)
-from repro_torch.serving.blocks import BlockManager, StagingLedger
-from repro_torch.serving.faults import FaultPlan, RequestError
+from repro_torch.serving.blocks import (BlockManager, StagingLedger,
+                                       chain_hashes)
+from repro_torch.serving.faults import (CircuitBreaker, FaultPlan,
+                                        RequestError, StagingFault)
+from repro_torch.serving.hostcache import HostTier
 from repro_torch.serving.metrics import EngineMetrics
 
 
@@ -118,40 +141,70 @@ class ParkedSequence:
     """What the exact resume of a preempted slot needs, on the host: the
     accepted length ``n``, the token row and the verify window (the window
     gates only acceptance, and restoring it keeps even the count of verify
-    rounds an uninterrupted run's), and in ``payload`` the contents of the
-    ``nb_live`` leading blocks that hold positions ``[0, n - 1)`` and the
-    slot's recurrent rows (position ``n - 1`` onward is rewritten by the
-    next window, so later blocks need no copy). ``payload`` is
-    ``host_pack``'s: one host buffer per dtype."""
+    rounds an uninterrupted run's), and the contents of the ``nb_live``
+    leading blocks that hold positions ``[0, n - 1)`` and the slot's
+    recurrent rows (position ``n - 1`` onward is rewritten by the next
+    window, so later blocks need no copy).
+
+    With a host tier the leading ``kv_keys`` blocks are shared prompt
+    blocks pinned in the tier's ``kv`` namespace. The private rest, the
+    ``n_rec`` recurrent row tensors then ``rows_per_block`` tensors for
+    each later block, is the park entry ``("park", uid)`` (``in_arena``)
+    or, without a tier or where the arena refused it, the raw host tensors
+    in ``private``."""
     n: int
     tokens: np.ndarray           # (max_len,) accepted-token row
     cand: np.ndarray             # (W_max,) verify-window snapshot
     nb_live: int                 # leading owned blocks whose contents matter
-    payload: Optional[dict] = None
+    kv_keys: tuple = ()          # tier-pinned chain keys of blocks [0, len)
+    n_rec: int = 0               # leading private tensors: the recurrent row
+    rows_per_block: int = 0      # private tensors per tail block
+    in_arena: bool = False       # private part parked under ("park", uid)
+    private: Optional[list] = None   # the private part, when not in the arena
+    shard: int = 0               # the tier partition the pins live under
 
 
-def host_pack(parts) -> dict:
-    """Device tensors to the host with one copy per dtype: the parts of one
-    dtype are flattened into one device buffer, which is copied once.
-    Returns ``{"buffers": {dtype: cpu tensor}, "layout": [(dtype, offset,
-    shape), ...]}`` in the order of ``parts``."""
-    groups, layout = {}, []
-    for t in parts:
-        g = groups.setdefault(t.dtype, [])
-        layout.append((t.dtype, sum(x.numel() for x in g), tuple(t.shape)))
-        g.append(t.reshape(-1))
-    return {"buffers": {dt: torch.cat(g).cpu() for dt, g in groups.items()},
-            "layout": layout}
+def _to_host(t: torch.Tensor, pin: bool) -> torch.Tensor:
+    """``t`` on the host, in page-locked memory with ``pin``."""
+    if not pin:
+        return t.cpu()
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
 
 
-def host_unpack(payload: dict, device) -> list:
-    """``host_pack``'s parts on ``device``, with one copy per dtype."""
-    bufs = {dt: b.to(device) for dt, b in payload["buffers"].items()}
-    out = []
-    for dt, off, shape in payload["layout"]:
-        numel = int(np.prod(shape, dtype=np.int64))
-        out.append(bufs[dt][off:off + numel].view(shape))
-    return out
+def pull_rows(leaves, idx, pin: bool) -> list:
+    """Rows ``idx`` of each leaf on the host, for each row one flat tensor
+    per dtype (the dtypes in the leaves' order of first appearance, each
+    holding its leaves' rows in leaf order): one concatenation of the rows'
+    views and one D2H copy per dtype, into page-locked memory with
+    ``pin``."""
+    groups = {}
+    for leaf in leaves:
+        groups.setdefault(leaf.dtype, []).append(leaf)
+    host = [_to_host(torch.cat([leaf[int(i)].reshape(-1) for i in idx
+                                for leaf in g]), pin).view(len(idx), -1)
+            for g in groups.values()]
+    return [[h[j] for h in host] for j in range(len(idx))]
+
+
+def push_rows(leaves, idx, rows, device):
+    """Write ``rows`` (``pull_rows``' encoding, on the host or on
+    ``device``) into rows ``idx`` of each leaf: one H2D copy per dtype,
+    then one index assignment into each leaf."""
+    if not rows:
+        return
+    cols = {}
+    for k, first in enumerate(rows[0]):
+        col = (first.reshape(1, -1) if len(rows) == 1 else
+               torch.stack([r[k] for r in rows]))
+        cols[first.dtype] = col.to(device)
+    gids = torch.as_tensor([int(i) for i in idx], dtype=torch.int64,
+                           device=device)
+    off = dict.fromkeys(cols, 0)
+    for leaf in leaves:
+        o, numel = off[leaf.dtype], leaf[0].numel()
+        leaf[gids] = cols[leaf.dtype][:, o:o + numel].view(
+            len(idx), *leaf.shape[1:])
+        off[leaf.dtype] = o + numel
 
 
 class ServingEngine:
@@ -171,14 +224,19 @@ class ServingEngine:
                  max_request_rounds: Optional[int] = None,
                  faults: Optional[FaultPlan] = None,
                  staging_slots: int = 0,
-                 adaptive_rounds: Optional[bool] = None, device=None):
+                 adaptive_rounds: Optional[bool] = None,
+                 host_cache_mb: Optional[float] = None, host_tier=None,
+                 integrity_checks: bool = True,
+                 host_prefetch: Optional[bool] = None,
+                 prefetch_budget: int = 4, device=None):
         if block_size < 1 or window_max < 1 or rounds_per_sync < 1 \
                 or prefill_chunk < 1 or lookahead < 1 or max_head_bypass < 0 \
-                or request_retries < 0 or staging_slots < 0:
+                or request_retries < 0 or staging_slots < 0 \
+                or prefetch_budget < 0:
             raise ValueError("block_size, window_max, rounds_per_sync, "
                              "prefill_chunk and lookahead must be >= 1, "
-                             "max_head_bypass, request_retries and "
-                             "staging_slots >= 0")
+                             "max_head_bypass, request_retries, "
+                             "staging_slots and prefetch_budget >= 0")
         if not 0.0 <= preempt_floor <= 1.0:
             raise ValueError(f"preempt_floor={preempt_floor}, want [0, 1]")
         self.device = resolve_device(device)
@@ -211,6 +269,12 @@ class ServingEngine:
                                 and staging_slots > 0)
         self.rounds_ctrl = RoundsPerSyncController(
             k_max=rounds_per_sync, enabled=self.adaptive_rounds)
+        # restage the host-resident prefix blocks of queued requests while
+        # they wait (on by default with staging), at most
+        # ``prefetch_budget`` blocks a step
+        self.host_prefetch = (staging_slots > 0 if host_prefetch is None
+                              else bool(host_prefetch))
+        self.prefetch_budget = prefetch_budget
         self.lookahead = lookahead
         self.max_head_bypass = max_head_bypass
         # priority preemption, and the progress floor past which a running
@@ -231,15 +295,52 @@ class ServingEngine:
             num_blocks = 1 + batch * self.nb + 2 * self.nb
         self.pool = BlockManager(num_blocks, block_size)
         if self.faults is not None:
-            self.pool.fault_hook = lambda: self.faults.fire("alloc")
+            # the plan's bound method, not a closure over the engine (a
+            # cycle through the block manager would outlive the engine)
+            self.pool.fault_hook = functools.partial(self.faults.fire,
+                                                     "alloc")
         self.paged = TransformerLM.init_paged_cache(
             cfg, batch, num_blocks, block_size, dtype=cfg.param_dtype,
             device=self.device)
         self.tables = np.zeros((batch, self.nb), np.int32)
         self.owned: list[list[int]] = [[] for _ in range(batch)]
-        # a prefix hit would skip the recurrent state's prefill
+
+        # ---- host cache tier --------------------------------------------
+        if host_tier is not None:
+            # a tier staging to another device, or an arena pinned for
+            # another, would copy through the wrong path unnoticed
+            if (host_tier.staging.device.type != self.device.type
+                    or host_tier.arena.pinned != (self.device.type
+                                                  == "cuda")):
+                raise ValueError(
+                    f"host_tier stages to {host_tier.staging.device} "
+                    f"(arena pinned={host_tier.arena.pinned}); the engine "
+                    f"runs on {self.device}")
+            self.tier = host_tier
+        else:
+            mb = host_cache_mb
+            if mb is None:
+                mb = float(os.environ.get("REPRO_HOST_CACHE_MB", 256))
+            self.tier = (HostTier(int(mb * 2 ** 20),
+                                  integrity=integrity_checks,
+                                  faults=self.faults,
+                                  breaker=CircuitBreaker(),
+                                  device=self.device)
+                         if mb > 0 else None)
+        # the prefix cache per state kind: paged KV blocks are shareable
+        # (``kv_prefix``); a recurrent stack's state after a prefix is not
+        # paged, so its prefix hits go through the tier's snapshots
+        # (``rec_prefix``), a hybrid's KV blocks beside them (``_kv_share``)
         self.recurrent = has_recurrent(cfg)
+        self.has_attn = bool(TransformerLM.pool_leaves(cfg, self.paged))
         self.kv_prefix = prefix_cache and not self.recurrent
+        self.rec_prefix = (prefix_cache and self.recurrent
+                           and self.tier is not None)
+        self._kv_share = self.kv_prefix or (self.rec_prefix and self.has_attn)
+        # host copies are page-locked for the tier's uploads; a tier-less
+        # park stays in pageable memory
+        self._pin_host = self.tier is not None and self.device.type == "cuda"
+        self.pool.spill_hook = self._make_spill_hook()
 
         # ---- control / telemetry ---------------------------------------
         self.controller = AdaptiveWindowController(
@@ -261,6 +362,9 @@ class ServingEngine:
         # the staging area, FIFO, and the ledger of its block claims
         self.staged: list[StagedEntry] = []
         self.ledger = StagingLedger(staging_slots)
+        # queued requests' prefetched prefix blocks on the device, by uid:
+        # {chain key: that block's rows}
+        self._prefetched: dict[int, dict] = {}
 
         # ---- per-slot device state (updated in place) --------------------
         dev = self.device
@@ -562,6 +666,12 @@ class ServingEngine:
             self.owned[b].append(blk)
             self._tables_dev = None
 
+    def _grow_run(self, b: int, pos0: int, n: int) -> list:
+        """Slot ``b``'s table grown to ``pos0 + n`` blocks; the ids at
+        positions ``[pos0, pos0 + n)``."""
+        self._ensure_capacity(b, (pos0 + n) * self.block_size)
+        return self.owned[b][pos0:pos0 + n]
+
     def _clear_row(self, b: int, release: bool = True):
         """Reset slot ``b`` to the inactive no-op lane: n=1, cache_len=0,
         an all-zero table (sink block 0), zeroed recurrent rows.
@@ -636,6 +746,187 @@ class ServingEngine:
             self._plen_dev = None
         self.reserved[b] = self._worst_case_blocks(req)
 
+    # -- host tier plumbing ----------------------------------------------------
+    def _collect_block_payload(self, gids) -> list:
+        """The pool rows of blocks ``gids`` on the host, per block its flat
+        tensors (one per dtype), with one D2H copy per dtype."""
+        if len(gids) == 0:
+            return []
+        return pull_rows(TransformerLM.pool_leaves(self.cfg, self.paged),
+                         gids, self._pin_host)
+
+    def _merge_block_rows(self, gids, rows):
+        """Write blocks' rows (``_collect_block_payload``'s encoding, one
+        entry per block of ``gids``) into the pool; the reference's
+        ``.at[gid].set`` merge is an index assignment here too."""
+        push_rows(TransformerLM.pool_leaves(self.cfg, self.paged), gids,
+                  rows, self.device)
+
+    def _collect_rec_row(self, b: int) -> list:
+        """Slot ``b``'s recurrent state rows on the host (one flat tensor
+        per dtype)."""
+        return pull_rows(TransformerLM.state_leaves(self.cfg, self.paged),
+                         [b], self._pin_host)[0]
+
+    def _restore_rec_row(self, b: int, rows):
+        push_rows(TransformerLM.state_leaves(self.cfg, self.paged), [b],
+                  [rows], self.device)
+
+    def _make_spill_hook(self):
+        """The pool's eviction hook: a hashed cached-free block about to be
+        reclaimed is copied into the tier under its chain key (no copy
+        when the key is resident already: keys are content-addressed).
+        None (dropped outright) without a tier or attention pools. The
+        hook holds the tier and the pool tensors, not the engine: the
+        engine holds the block manager that holds the hook, and a cycle
+        would keep the device pools alive until a garbage collection."""
+        if self.tier is None or not self.has_attn:
+            return None
+        tier = self.tier
+        leaves = TransformerLM.pool_leaves(self.cfg, self.paged)
+        pin = self._pin_host
+
+        def hook(bid: int, key) -> bool:
+            if tier.has_kv(0, key):
+                return True
+            return tier.put_kv(0, key, pull_rows(leaves, [bid], pin)[0])
+        return hook
+
+    def _stage_host_blocks(self, host_keys, blocks_for,
+                           prefetched: Optional[dict] = None) -> int:
+        """Restage tier-resident KV blocks into the blocks that
+        ``blocks_for(n)`` allocates (or names) for the first ``n`` keys.
+        The run is pinned before those allocations, whose evictions spill
+        into the same arena, so they cannot evict it; a pin that fails cuts
+        the run, and prefill covers the rest. Keys in ``prefetched`` have a
+        device copy already and need no pin. Returns the number of blocks
+        restaged."""
+        pinned = []
+        for key in host_keys:
+            if prefetched is not None and key in prefetched:
+                pinned.append(key)
+                continue
+            if not self.tier.pin_kv(0, key):
+                break
+            pinned.append(key)
+        try:
+            return self._restage_host_blocks(
+                pinned, blocks_for(len(pinned)), prefetched=prefetched)
+        finally:
+            for key in pinned:
+                if prefetched is None or key not in prefetched:
+                    self.tier.unpin_kv(0, key)
+
+    def _through_ring(self, uploads):
+        """Push ``uploads``, ``(tag, tensors, on_device)`` items, through
+        the staging ring with ``depth`` uploads in flight, and yield
+        ``(tag, device tensors)`` in their order; an ``on_device`` item
+        (a device copy already) passes through once the ring has
+        drained."""
+        ring = self.tier.staging
+        for tag, tensors, on_device in uploads:
+            if on_device:
+                while (item := ring.take()) is not None:
+                    yield item
+                yield tag, tensors
+                continue
+            ring.stage(tag, tensors)
+            if len(ring) >= ring.depth:
+                yield ring.take()
+        while (item := ring.take()) is not None:
+            yield item
+
+    def _staging_failed(self):
+        """A run through the ring died: drop its uploads and count it."""
+        self.tier.staging.clear()
+        self.metrics.staging_errors += 1
+        self.tier.record_failure()
+
+    def _restage_host_blocks(self, host_keys, block_ids,
+                             prefetched: Optional[dict] = None) -> int:
+        """Merge the tier entries under ``host_keys`` into the allocated
+        ``block_ids`` (1:1, in key order) through the staging ring, each
+        merged block registered; ``depth`` uploads are in flight while
+        earlier ones merge. Prefetched device rows merge directly
+        (``prefetch_hits``), after the ring drains, so the merged blocks
+        are always a prefix in key order. A run that dies (a
+        ``StagingFault``) clears the ring and counts only what merged:
+        prefill rewrites the rest. Returns the number of blocks merged."""
+        def uploads():
+            for gid, key in zip(block_ids, host_keys):
+                if prefetched is not None and key in prefetched:
+                    yield (gid, key, True), prefetched[key], True
+                    continue
+                rows = self.tier.get_kv(0, key)      # counts the host hit
+                if rows is None:     # corrupt, or the tier tripped: cut
+                    return
+                yield (gid, key, False), rows, False
+
+        staged = 0
+        try:
+            for (gid, key, pre), devs in self._through_ring(uploads()):
+                self._merge_block_rows([gid], [devs])
+                self.pool.register(gid, key)
+                staged += 1
+                self.metrics.prefetch_hits += pre
+        except StagingFault:
+            self._staging_failed()
+        self.metrics.host_staged_blocks += staged
+        return staged
+
+    def _take_prefetched(self, uid: int) -> Optional[dict]:
+        """Claim ``uid``'s prefetched device rows for its admission or
+        staging; None when nothing was prefetched."""
+        return self._prefetched.pop(uid, None)
+
+    def _drop_prefetched(self, uid: int):
+        self._prefetched.pop(uid, None)
+
+    def _prefetch_queued(self):
+        """While a request waits in the queue, push its tier-resident
+        prefix blocks through the staging ring ahead of its admission,
+        which then merges the device copies (``prefetch_hits``). No pins
+        are held: the copies are content-addressed and immutable, the ring
+        holds its sources until they land, and the arena waits for that
+        before it rewrites a recycled buffer. Entries of requests that left
+        the queue are dropped here."""
+        if (not self.host_prefetch or self.tier is None
+                or not self.kv_prefix or self.prefetch_budget == 0):
+            return
+        queued = {r.uid for r in self.queue.requests()}
+        for uid in list(self._prefetched):
+            if uid not in queued:
+                self._drop_prefetched(uid)
+        budget = self.prefetch_budget
+
+        def uploads(prompt):
+            # the leading resident run, within the step's budget
+            nonlocal budget
+            nb_full = (len(prompt) - 1) // self.block_size
+            for key in chain_hashes(prompt, self.block_size, nb_full):
+                if budget <= 0 or not self.tier.has_kv(0, key):
+                    return
+                rows = self.tier.get_kv(0, key)
+                if rows is None:
+                    return
+                yield key, rows, False
+                budget -= 1
+
+        for req in self.queue.lookahead(max(self.lookahead, 1)):
+            if budget <= 0:
+                break
+            if req.uid in self._prefetched or req.uid in self.parked:
+                continue
+            rows_by_key = {}
+            try:
+                for key, devs in self._through_ring(
+                        uploads(np.asarray(req.prompt, np.int64))):
+                    rows_by_key[key] = devs
+            except StagingFault:
+                self._staging_failed()
+            if rows_by_key:
+                self._prefetched[req.uid] = rows_by_key
+
     # -- priority preemption ---------------------------------------------
     def _live_blocks(self, b: int) -> int:
         """Leading owned blocks whose contents the next round still reads:
@@ -643,35 +934,18 @@ class ServingEngine:
         position n - 1 onward every round, so later blocks need no copy."""
         return -(-max(int(self.n_host[b]) - 1, 0) // self.block_size)
 
-    def _park_payload(self, b: int, nb_live: int) -> dict:
-        """Slot ``b``'s token row, window, the ``nb_live`` leading blocks of
-        every pool (in table order) and its recurrent rows, on the host
-        with one copy per dtype."""
-        gids = torch.from_numpy(self.tables[b, :nb_live].astype(
-            np.int64)).to(self.device)
-        parts = [self.tokens[b], self.cand[b]]
-        parts += [leaf[gids] for leaf in
-                  TransformerLM.pool_leaves(self.cfg, self.paged)]
-        parts += [leaf[b] for leaf in
-                  TransformerLM.state_leaves(self.cfg, self.paged)]
-        return host_pack(parts)
-
     def preempt_slot(self, b: int) -> Request:
         """Evict running slot ``b``: park its live block contents, recurrent
-        rows, tokens and window on the host, spill its blocks (hashed prompt
-        blocks stay hittable), free the slot and requeue the request at its
-        original rank for an exact resume. The parked window and the
-        position-keyed noise make the resumed run's tokens, and its verify
-        rounds, those of an uninterrupted one."""
+        rows, tokens and window on the host (through the tier when there is
+        one), spill its blocks (hashed prompt blocks stay hittable), free
+        the slot and requeue the request at its original rank for an exact
+        resume. The parked window and the position-keyed noise make the
+        resumed run's tokens, and its verify rounds, those of an
+        uninterrupted one."""
         req = self.slots[b]
         assert req is not None, f"slot {b} is not occupied"
         nb_live = self._live_blocks(b)
-        payload = self._park_payload(b, nb_live)
-        # the token row and window: views of the payload's int64 buffer
-        tokens, cand = host_unpack(payload, "cpu")[:2]
-        self.parked[req.uid] = ParkedSequence(
-            n=int(self.n_host[b]), tokens=tokens.numpy(), cand=cand.numpy(),
-            nb_live=nb_live, payload=payload)
+        self.parked[req.uid] = self._park_tiered(req, b, nb_live)
         self.pool.spill(self.owned[b])
         self.owned[b] = []
         self.slots[b] = None
@@ -682,23 +956,99 @@ class ServingEngine:
         self.metrics.blocks_parked += nb_live
         return req
 
+    def _park_tiered(self, req: Request, b: int,
+                     nb_live: int) -> ParkedSequence:
+        """Park slot ``b`` on the host. With a tier its full prompt blocks
+        go to the shared ``kv`` namespace, pinned, stored once however many
+        parked sequences share the prefix (a resident key is pinned, not
+        copied again), and the private rest (the recurrent rows, then the
+        tail blocks) is one park entry. Without one, or where the arena
+        refuses the entry, the private part stays as raw host tensors (a
+        park never fails)."""
+        prompt = np.asarray(req.prompt)
+        nb_pub = (min((len(prompt) - 1) // self.block_size, nb_live)
+                  if self._kv_share and self.tier is not None else 0)
+        keys = chain_hashes(prompt, self.block_size, nb_pub)
+        # pull only the blocks whose keys are not resident already
+        need = [jb for jb in range(nb_pub)
+                if not self.tier.has_kv(0, keys[jb])]
+        payloads = dict(zip(need, self._collect_block_payload(
+            [int(self.tables[b, jb]) for jb in need])))
+        kv_keys = []
+        for jb in range(nb_pub):
+            ok = (self.tier.put_kv(0, keys[jb], payloads[jb], pin=True)
+                  if jb in payloads else self.tier.pin_kv(0, keys[jb]))
+            if not ok:           # arena full or entry gone: rest is private
+                break
+            kv_keys.append(keys[jb])
+        tail = self._collect_block_payload(
+            [int(self.tables[b, jb]) for jb in range(len(kv_keys), nb_live)]
+        ) if self.has_attn else [[] for _ in range(len(kv_keys), nb_live)]
+        rec = self._collect_rec_row(b) if self.recurrent else []
+        private = list(rec)
+        for rows in tail:
+            private.extend(rows)
+        in_arena = (self.tier is not None
+                    and self.tier.put_park(req.uid, private))
+        row = pull_rows([self.tokens, self.cand], [b], self._pin_host)[0][0]
+        return ParkedSequence(
+            n=int(self.n_host[b]), tokens=row[:self.max_len].numpy(),
+            cand=row[self.max_len:].numpy(), nb_live=nb_live,
+            kv_keys=tuple(kv_keys), n_rec=len(rec),
+            rows_per_block=len(tail[0]) if tail else 0, in_arena=in_arena,
+            private=None if in_arena else private, shard=0)
+
+    def _restore_row(self, b: int, req: Request, parked: ParkedSequence):
+        """Slot ``b``'s park-time ``tokens``/``n``/``cand`` and stream."""
+        self.tokens[b] = torch.from_numpy(parked.tokens).to(self.device)
+        self.n[b] = parked.n
+        self.cand[b] = torch.from_numpy(parked.cand).to(self.device)
+        self.seq_ids[b] = req.seq_id
+        self._seq_dev = None
+        self.n_host[b] = parked.n
+
     def _resume(self, req: Request, b: int, parked: ParkedSequence):
-        """Re-admit a parked request into slot ``b`` where it left off: hit
-        its prompt blocks that survived in the prefix cache, upload the
-        parked contents of the rest and its recurrent rows (one copy per
-        dtype), restore ``tokens``/``n``/``cand``, and publish the uploaded
-        full prompt blocks again."""
+        """Re-admit a parked request into slot ``b`` where it left off."""
         req.admit_time = time.monotonic()
+        self._resume_tiered(req, b, parked)
+
+    def _resume_tiered(self, req: Request, b: int, parked: ParkedSequence):
+        """The exact resume of a park: device hits first (the spill left
+        hashed blocks cached-free), then the pinned shared ``kv`` entries
+        of a park through the tier, then the private tail (one H2D copy
+        per dtype); the recurrent rows come from the private part. The
+        full prompt blocks rebuilt are published again. The whole payload
+        is fetched before any engine state is touched: a piece gone (a
+        checksum failure, a tripped tier) sends the resume to
+        ``_resume_cold`` with nothing to unwind."""
         prompt = np.asarray(req.prompt, np.int64)
         L_p = len(prompt)
+        shard = parked.shard
         nb_live = parked.nb_live
+        n_shared = len(parked.kv_keys)
+        private = (self.tier.take_park(req.uid) if parked.in_arena
+                   else (parked.private or []))
+        shared, missing = [], parked.in_arena and private is None
+        if not missing:
+            for key in parked.kv_keys:
+                rows = self.tier.get_kv(shard, key)
+                if rows is None:      # pinned entry corrupt, tier tripped
+                    missing = True
+                    break
+                shared.append(rows)
+        if missing:
+            self._discard_park(req.uid, parked)
+            self.metrics.resume_recomputes += 1
+            return self._resume_cold(req, b, parked)
+        # the private part: the recurrent rows, then the tail blocks'
+        rec_rows = private[:parked.n_rec]
+        tail = private[parked.n_rec:]
+        rpb = parked.rows_per_block
+
         hits, keys = [], []
         nb_full = min((L_p - 1) // self.block_size, nb_live)
-        if self.kv_prefix and nb_full:
+        if self._kv_share and nb_full:
             hits, keys = self.pool.lookup_prefix(prompt, nb_full)
-        req.prefix_hit_blocks += len(hits)
-        # hits are owned once looked up: record them before the (fault-
-        # injectable) allocation, so an unwind releases them
         self.owned[b] = list(hits)
         self.tables[b] = 0
         self.tables[b, :len(hits)] = hits
@@ -708,36 +1058,89 @@ class ServingEngine:
         self.owned[b] = list(owned)
         self.tables[b, :nb_live] = owned
 
-        parts = host_unpack(parked.payload, self.device)
-        pools = TransformerLM.pool_leaves(self.cfg, self.paged)
-        states = TransformerLM.state_leaves(self.cfg, self.paged)
-        tokens, cand = parts[:2]
-        if fresh:
-            dev = self.device
-            gids = torch.as_tensor(fresh, dtype=torch.int64, device=dev)
-            pos = torch.arange(len(hits), nb_live, device=dev)
-            for leaf, part in zip(pools, parts[2:2 + len(pools)]):
-                leaf[gids] = part[pos]
-        for leaf, part in zip(states, parts[2 + len(pools):]):
-            leaf[b] = part
-        # the exact park-time row state
-        self.tokens[b] = tokens
-        self.n[b] = parked.n
-        self.cand[b] = cand
-        self.seq_ids[b] = req.seq_id
-        self._seq_dev = None
-        self.n_host[b] = parked.n
-        if self.kv_prefix:
-            for j in range(len(hits), nb_full):
-                self.pool.register(owned[j], keys[j])
+        rows = []
+        for jb in range(len(hits), nb_live):
+            if jb < n_shared:
+                rows.append(shared[jb])
+            else:
+                t0 = (jb - n_shared) * rpb
+                rows.append(tail[t0:t0 + rpb])
+        self._merge_block_rows(owned[len(hits):], rows)
+        host_restored = max(0, n_shared - len(hits))
+        req.prefix_hit_blocks += len(hits) + host_restored
+        if self.recurrent:
+            self._restore_rec_row(b, rec_rows)
+        self._restore_row(b, req, parked)
+        # publish the rebuilt full prompt blocks again, drop the park pins
+        if self._kv_share:
+            for jb in range(len(hits), nb_full):
+                self.pool.register(owned[jb], keys[jb])
+        for key in parked.kv_keys:
+            self.tier.unpin_kv(shard, key)
+        self._occupy(b, req, L_p)
+        self.metrics.resumes += 1
+
+    def _resume_cold(self, req: Request, b: int, parked: ParkedSequence):
+        """Rebuild a parked slot by recompute when a piece of its payload is
+        gone: prefill positions ``[0, n - 1)`` from the parked token row,
+        then restore the ``tokens``/``n``/``cand`` snapshot. K/V and
+        recurrent states at a position are functions of the tokens before
+        it; on the CPU the chunks change no number, so the tokens equal a
+        warm resume's bitwise, while on the card the chunks' products round
+        otherwise than the verify windows that wrote those positions, and
+        the tokens agree under the margin rule. It costs prefill. Attention
+        stacks hit the device cache and restage from the tier first;
+        recurrent stacks rebuild from the zero state, their snapshot having
+        gone with the payload."""
+        prompt = np.asarray(req.prompt, np.int64)
+        L_p = len(prompt)
+        n = parked.n
+        nb_live = parked.nb_live
+        toks = np.asarray(parked.tokens, np.int64)
+        hits, keys, host_keys = [], [], []
+        nb_full = min((L_p - 1) // self.block_size, nb_live)
+        if self._kv_share and nb_full and not self.recurrent:
+            hits, keys, host_keys = self.pool.lookup_prefix_tiered(
+                prompt, nb_full, tier=self.tier)
+        self.owned[b] = list(hits)
+        self.tables[b] = 0
+        self.tables[b, :len(hits)] = hits
+        self._tables_dev = None
+        staged = (self._stage_host_blocks(
+            host_keys, functools.partial(self._grow_run, b, len(hits)))
+            if host_keys else 0)
+        req.prefix_hit_blocks += len(hits) + staged
+        self._ensure_capacity(b, nb_live * self.block_size)
+        TransformerLM.reset_rows(self.cfg, self.paged, b)
+        start = (len(hits) + staged) * self.block_size
+        table_row = torch.from_numpy(self.tables[b:b + 1].copy()).to(
+            self.device)
+        for C in prefill_chunks(n - 1 - start, self.prefill_chunk):
+            chunk = torch.from_numpy(toks[None, start:start + C]).to(
+                self.device)
+            self._prefill(table_row, b, chunk, start)
+            start += C
+            req.prefill_calls += 1
+            self.metrics.prefill_calls += 1
+        if self._kv_share and not self.recurrent:
+            for j in range(len(hits) + staged, nb_full):
+                self.pool.register(self.owned[b][j], keys[j])
+        self._restore_row(b, req, parked)
         self._occupy(b, req, L_p)
         self.metrics.resumes += 1
 
     def _discard_park(self, uid: int, parked: ParkedSequence):
         """Drop a parked payload that will not be resumed (a cancel, a
-        failed resume): its host buffers. Without a host tier it holds no
-        other resource."""
-        parked.payload = None
+        failed resume): its host buffers, its park entry and its pins on
+        the shared blocks, once (a second call finds nothing to release)."""
+        parked.private = None
+        if self.tier is None:
+            return
+        if parked.in_arena:
+            self.tier.drop_park(uid)
+        for key in parked.kv_keys:
+            self.tier.unpin_kv(parked.shard, key)
+        parked.in_arena, parked.kv_keys = False, ()
 
     def _evictable(self, head: Request) -> list[int]:
         """Running slots the queue head may preempt: of strictly lower
@@ -818,27 +1221,40 @@ class ServingEngine:
 
     def _build_staged(self, req: Request, need: int) -> StagedEntry:
         """Stage ``req``: its worst-case blocks allocated now (an adopted
-        row never allocates in the loop), prefix hits covering its leading
-        prompt positions. Fresh blocks are not published: their contents
-        become valid only as the forced prefill writes them."""
+        row never allocates in the loop), device prefix hits and blocks
+        restaged from the host tier covering its leading prompt positions.
+        Recurrent stacks stage from scratch: their state row is zeroed at
+        adoption, and a KV prefix without its snapshot would not match it.
+        Fresh blocks are not published: their contents become valid only
+        as the forced prefill writes them."""
         prompt = np.asarray(req.prompt, np.int64)
         L_p = len(prompt)
-        hits = []
+        hits, host_keys = [], []
         nb_full = (L_p - 1) // self.block_size
-        if self.kv_prefix and nb_full:
-            hits, _ = self.pool.lookup_prefix(prompt, nb_full)
+        if self._kv_share and nb_full and not self.recurrent:
+            hits, _, host_keys = self.pool.lookup_prefix_tiered(
+                prompt, nb_full, tier=self.tier)
         try:
             fresh = self.pool.alloc(need - len(hits))
         except Exception:
             self.pool.release_all(hits)
             raise
         blocks = list(hits) + fresh
-        req.prefix_hit_blocks = len(hits)
+        try:
+            staged_host = (self._stage_host_blocks(
+                host_keys, lambda n: blocks[len(hits):len(hits) + n],
+                prefetched=self._take_prefetched(req.uid))
+                if host_keys else 0)
+        except Exception:
+            self.pool.release_all(blocks)
+            raise
+        cov = len(hits) + staged_host
+        req.prefix_hit_blocks = cov
         table_row = np.zeros(self.nb, np.int32)
         table_row[:len(blocks)] = blocks
         return StagedEntry(
             req=req, shard=0, prompt=prompt.astype(np.int32),
-            n0=len(hits) * self.block_size + 1, plen=L_p,
+            n0=cov * self.block_size + 1, plen=L_p,
             target=L_p + req.new_tokens, blocks=blocks,
             table_row=table_row, poison=int(self._poisoned(req)),
             key=(req.priority, req.deadline_time, req._seq))
@@ -870,6 +1286,7 @@ class ServingEngine:
                 self.ledger.release(0, req.uid)
                 break
             self.queue.remove(req)
+            self._drop_prefetched(req.uid)
             self.staged.append(entry)
             self.metrics.staged_sequences += 1
 
@@ -1008,17 +1425,55 @@ class ServingEngine:
         L_p = len(prompt)
         # prefix cache: reuse full blocks strictly below position L_p - 1
         # (the verify window rewrites position n-1 = L_p-1 onward, so those
-        # blocks stay read-only and shareable)
-        hits, keys = [], []
+        # blocks stay read-only and shareable); device misses fall through
+        # to the host tier
+        hits, keys, host_keys = [], [], []
         nb_full = (L_p - 1) // self.block_size
-        if self.kv_prefix and nb_full:
-            hits, keys = self.pool.lookup_prefix(prompt, nb_full)
+        if self._kv_share and nb_full:
+            hits, keys, host_keys = self.pool.lookup_prefix_tiered(
+                prompt, nb_full, tier=self.tier)
+        elif self.rec_prefix and nb_full:
+            keys = chain_hashes(prompt, self.block_size, nb_full)
+
+        rec_rows, rec_bound = None, 0
+        if self.rec_prefix and nb_full:
+            # a recurrent prefix hit needs both halves at one block boundary
+            # j: KV blocks [0, j) covered (device hits and the host run; all
+            # of them without attention layers) and the state snapshot at
+            # keys[j - 1]; take the largest such j
+            cover = (len(hits) + len(host_keys)) if self.has_attn else nb_full
+            rec_rows, rec_bound = self._snapshot_at_or_below(keys, cover)
+            # prefill rewrites blocks >= j through the table, so device hits
+            # past the boundary (shared blocks) are released
+            if len(hits) > rec_bound:
+                self.pool.release_all(hits[rec_bound:])
+                hits = hits[:rec_bound]
+            host_keys = keys[len(hits):rec_bound] if self.has_attn else []
+
         self.owned[b] = list(hits)
         self.tables[b] = 0
         self.tables[b, :len(hits)] = hits
         self._tables_dev = None
+        pre = self._take_prefetched(req.uid)
+        staged = (self._stage_host_blocks(
+            host_keys, functools.partial(self._grow_run, b, len(hits)),
+            prefetched=pre) if host_keys else 0)
+        if (self.rec_prefix and self.has_attn
+                and rec_bound > len(hits) + staged):
+            # staging was cut short: the best boundary it still covers.
+            # Prefill rewrites the blocks past it, so they go back (shared
+            # hits and registered restaged blocks stay hittable, unchanged)
+            rec_rows, rec_bound = self._snapshot_at_or_below(
+                keys, len(hits) + staged)
+            self.pool.release_all(self.owned[b][rec_bound:])
+            self.owned[b] = self.owned[b][:rec_bound]
+            self.tables[b, rec_bound:] = 0
+            self._tables_dev = None
+            staged = max(0, rec_bound - len(hits))
+            hits = hits[:rec_bound]
         self._ensure_capacity(b, L_p)
-        req.prefix_hit_blocks = len(hits)
+        start_blocks = rec_bound if self.rec_prefix else len(hits) + staged
+        req.prefix_hit_blocks = start_blocks
 
         dev = self.device
         row_tokens = torch.zeros((self.max_len,), dtype=torch.int64)
@@ -1029,24 +1484,55 @@ class ServingEngine:
         self.cand[b, 0] = int(prompt[-1])
         self.seq_ids[b] = req.seq_id
         self._seq_dev = None
-
-        # chunked row-local prefill of the un-cached prompt tail, from the
-        # zero state
         TransformerLM.reset_rows(self.cfg, self.paged, b)
-        start = len(hits) * self.block_size
+        if rec_rows is not None and start_blocks > 0:
+            # the state after positions [0, start_blocks * bs), captured at
+            # this boundary by an earlier admission
+            self._restore_rec_row(b, rec_rows)
+            self.metrics.rec_snapshot_restores += 1
+
+        # chunked row-local prefill of the un-cached prompt tail; recurrent
+        # stacks cut it at every block boundary to snapshot the state there
+        # (on the CPU the chunks change no number, so neither the tokens)
+        start = start_blocks * self.block_size
         table_row = torch.from_numpy(self.tables[b:b + 1].copy()).to(dev)
-        for C in prefill_chunks(L_p - 1 - start, self.prefill_chunk):
-            chunk = torch.from_numpy(prompt[None, start:start + C]).to(dev)
-            self._prefill(table_row, b, chunk, start)
-            start += C
-            req.prefill_calls += 1
-            self.metrics.prefill_calls += 1
-        # publish this prompt's freshly computed full blocks
-        if self.kv_prefix:
-            for j in range(len(hits), nb_full):
+        seg_ends = ([jb * self.block_size
+                     for jb in range(start_blocks + 1, nb_full + 1)]
+                    if self.rec_prefix else [])
+        if not seg_ends or seg_ends[-1] != L_p - 1:
+            seg_ends.append(L_p - 1)
+        for end in seg_ends:
+            for C in prefill_chunks(end - start, self.prefill_chunk):
+                chunk = torch.from_numpy(prompt[None, start:start + C]).to(dev)
+                self._prefill(table_row, b, chunk, start)
+                start += C
+                req.prefill_calls += 1
+                self.metrics.prefill_calls += 1
+            if (self.rec_prefix and end > 0 and end == start
+                    and end % self.block_size == 0
+                    and end <= nb_full * self.block_size):
+                key = keys[end // self.block_size - 1]
+                if not self.tier.has_rec(0, key) and self.tier.put_rec(
+                        0, key, self._collect_rec_row(b)):
+                    self.metrics.rec_snapshot_captures += 1
+        # publish this prompt's freshly computed full blocks (restaged ones
+        # were registered as they merged)
+        if self._kv_share:
+            for j in range(len(hits) + staged, nb_full):
                 self.pool.register(self.owned[b][j], keys[j])
         self._occupy(b, req, L_p)
         self.n_host[b] = L_p
+
+    def _snapshot_at_or_below(self, keys, cover: int):
+        """The recurrent snapshot at the largest block boundary ``j <=
+        cover`` the tier holds, copied out of the arena (the allocations
+        that follow may spill into it and recycle its buffers), and ``j``;
+        ``(None, 0)`` when there is none."""
+        for j in range(cover, 0, -1):
+            rows = self.tier.get_rec(0, keys[j - 1])
+            if rows is not None:
+                return self.tier.arena.copy_out(rows), j
+        return None, 0
 
     # -- failure and cancellation --------------------------------------------
     def _fail_request(self, req: Request, code: str, detail: str = "", *,
@@ -1095,6 +1581,7 @@ class ServingEngine:
         for req in self.queue.requests():
             if req.uid == uid:
                 self.queue.remove(req)
+                self._drop_prefetched(uid)
                 parked = self.parked.pop(uid, None)
                 if parked is not None:
                     self._discard_park(uid, parked)
@@ -1105,6 +1592,7 @@ class ServingEngine:
                 self.pool.release_all(e.blocks)
                 self.ledger.release(0, uid)
                 del self.staged[i]
+                self._drop_prefetched(uid)
                 self._finalize_cancel(e.req)
                 return True
         for b in range(self.B):
@@ -1133,7 +1621,8 @@ class ServingEngine:
     def step(self) -> bool:
         """Count queued deadline expiries, reconcile the staging area, admit
         what fits (preempting for a higher-priority head), stage what
-        waits, run one loop of up to ``rounds_per_sync`` verify rounds,
+        waits, prefetch the tier-resident prefixes of what is still queued,
+        run one loop of up to ``rounds_per_sync`` verify rounds,
         harvest adoptions and finished requests. Without staging the loop
         runs one round while requests are queued, so freed slots refill
         promptly; with staging, backlog is when a long loop pays (freed
@@ -1145,6 +1634,7 @@ class ServingEngine:
         self._reconcile_staging()
         self._admit_pending()
         self._stage_pending()
+        self._prefetch_queued()
         if not any(s is not None for s in self.slots):
             # a free slot unstages, so an empty engine has no staged entry
             if self.queue:
@@ -1264,12 +1754,20 @@ class ServingEngine:
 
     # -- telemetry -----------------------------------------------------------
     def export_metrics(self) -> dict:
-        out = self.metrics.export(self.pool.stats.export())
+        out = self.metrics.export(
+            self.pool.stats.export(),
+            self.tier.stats_export() if self.tier is not None else None)
         out["blocks_in_use"] = self.pool.blocks_in_use()
         out["blocks_available"] = self.pool.available()
         out["parked_requests"] = len(self.parked)
         out["queue_depth"] = len(self.queue)
         out["staged_requests"] = len(self.staged)
+        out["prefetched_requests"] = len(self._prefetched)
+        # the tier's failure counters are present without a tier too
+        out.setdefault("checksum_failures", 0)
+        out.setdefault("tier_tripped", 0)
+        out.setdefault("tier_state", "closed")
+        out.setdefault("tier_denied_ops", 0)
         out["rounds_per_sync_final"] = (self.rounds_ctrl.k
                                         if self.staging_slots
                                         else self.rounds_per_sync)

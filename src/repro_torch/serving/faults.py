@@ -14,9 +14,12 @@ seam                fires inside
 ==================  =====================================================
 ``alloc``           ``BlockManager.alloc``: a MemoryError before it takes
                     a block (admission and capacity-growth faults)
-``arena_put``       the host arena's put (host tier: not ported yet)
-``arena_corrupt``   the host arena's get (host tier: not ported yet)
-``stage_drop``      the host tier's staging ring (not ported yet)
+``arena_put``       ``HostArena.put``: the put is refused, as if the host
+                    allocation failed (the caller keeps or drops the data)
+``arena_corrupt``   ``HostArena.get``: one stored byte is flipped before
+                    the integrity check, which demotes the get to a miss
+``stage_drop``      ``StagingRing.stage``: a ``StagingFault``, as a failed
+                    upload; the engine clears the ring and prefills instead
 ``disk_full``       the disk tier's put (not ported yet)
 ``disk_torn_write`` the disk tier's put (not ported yet)
 ``disk_slow``       the disk tier's get (not ported yet)
@@ -24,8 +27,8 @@ seam                fires inside
 ==================  =====================================================
 
 Every seam is parsed, so one plan drives both packages; the seams of the
-modules the port lacks fire nowhere yet (ROADMAP.md §1, items 9 and 12:
-the host tier with its staging ring, the disk tier and the journal).
+modules the port lacks fire nowhere yet (ROADMAP.md §1, item 12: the disk
+tier and the journal).
 Preemption and staged adoption (items 8 and 11) have no seam of their
 own: a parked resume and a staged entry allocate through ``alloc``. Besides, ``poison_streams`` names noise streams whose verify-round
 logits the engine replaces with NaN on the device, which trips the

@@ -1,8 +1,8 @@
 """Serving telemetry: per-request and engine-level counters as plain dicts,
 copied from the reference's ``serving/metrics.py`` (the counters of the
-serving layers the port has: preemption and staged adoption among them). The engine updates them from values it
-already pulls to the host once per sync, so telemetry adds no device
-round-trips."""
+serving layers the port has: preemption, staged adoption and the host tier
+among them). The engine updates them from values it already pulls to the
+host once per sync, so telemetry adds no device round-trips."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -61,6 +61,17 @@ class EngineMetrics:
     requests_rejected: int = 0           # submit-time validation rejections
     requests_cancelled: int = 0          # requests cancelled via cancel(uid)
     retries: int = 0                     # failed requests re-admitted
+    host_staged_blocks: int = 0          # KV blocks restaged from the host
+    #                                      tier (H2D through the ring)
+    rec_snapshot_captures: int = 0       # recurrent state rows put into the
+    #                                      tier at block boundaries
+    rec_snapshot_restores: int = 0       # admissions started from a tier
+    #                                      snapshot
+    staging_errors: int = 0              # staging runs aborted mid-ring
+    resume_recomputes: int = 0           # parked resumes rebuilt by prefill
+    #                                      (a piece of the payload was gone)
+    prefetch_hits: int = 0               # blocks merged from a queued
+    #                                      request's prefetched copies
 
     def _per_token(self, value: float) -> float:
         return value / self.tokens_generated if self.tokens_generated else 0.0
@@ -96,7 +107,8 @@ class EngineMetrics:
             if req.missed_deadline:
                 self.deadline_miss_count += 1
 
-    def export(self, block_stats: dict | None = None) -> dict:
+    def export(self, block_stats: dict | None = None,
+               host_stats: dict | None = None) -> dict:
         calls = np.asarray(self.request_calls, np.float64)
         new = np.asarray(self.request_new_tokens, np.float64)
         out = {
@@ -151,7 +163,16 @@ class EngineMetrics:
             "requests_rejected": self.requests_rejected,
             "requests_cancelled": self.requests_cancelled,
             "retries": self.retries,
+            "host_staged_blocks": self.host_staged_blocks,
+            "rec_snapshot_captures": self.rec_snapshot_captures,
+            "rec_snapshot_restores": self.rec_snapshot_restores,
+            "staging_errors": self.staging_errors,
+            "resume_recomputes": self.resume_recomputes,
+            "prefetch_hits": self.prefetch_hits,
         }
         if block_stats:
             out.update(block_stats)
+        if host_stats:
+            # the arena's, the staging ring's and the breaker's counters
+            out.update(host_stats)
         return out

@@ -54,6 +54,11 @@ preempted and resumed request equal to the undisturbed engine's, tokens
 and verify rounds, bitwise in float32 and bfloat16; a staged drain of
 one-token prompts through one slot, every adopted request equal to the
 solo sampler bitwise on both routes.
+The host cache tier: the arena's buffers page-locked; an upload staged
+behind a busy copy counted as overlapped; taken uploads bitwise their
+sources; a slab recycled while an upload from it is queued leaves that
+upload's bytes intact; a reduced qwen3-1.7b engine that spills and
+restages prefix blocks bitwise the tier-less engine.
 """
 import numpy as np
 import pytest
@@ -1364,3 +1369,122 @@ def test_staged_drain_equals_solo_on_gpu(cuda, no_tf32, route):
         np.testing.assert_array_equal(
             r.result, t[0, :len(r.prompt) + r.new_tokens].cpu().numpy(),
             err_msg=f"request {r.uid}")
+
+
+# ---------------------------------------------------------------------------
+# the host cache tier: the pinned arena and the staging ring on the card
+# ---------------------------------------------------------------------------
+
+def test_host_arena_entries_are_pinned_on_gpu(cuda):
+    """With the engine's device a card, every arena buffer and a taken
+    park's copy are page-locked, so uploads from them run asynchronously."""
+    from repro_torch.serving.hostcache import HostTier
+    tier = HostTier(1 << 20, device=cuda)
+    src = [torch.randn(64, 32).to(torch.bfloat16), torch.arange(10)]
+    assert tier.put_kv(0, 1, src) and tier.put_park(2, src)
+    got = tier.get_kv(0, 1)
+    assert all(t.is_pinned() for t in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, src))
+    assert all(t.is_pinned() for t in tier.take_park(2))
+
+
+def test_staging_ring_overlaps_a_busy_copy_on_gpu(cuda):
+    """An upload staged while a 128 MB one is still in flight counts as
+    overlapped, and the host does not wait for either."""
+    from repro_torch.serving.hostcache import StagingRing
+    ring = StagingRing(depth=4, device=cuda)
+    busy = torch.empty(128 << 20, dtype=torch.uint8, pin_memory=True)
+    small = torch.arange(4096, dtype=torch.float32).pin_memory()
+    ring.stage("busy", [busy])
+    ring.stage("small", [small])
+    st = ring.stats_export()
+    assert st["h2d_staged"] == 2 and st["h2d_overlapped"] >= 1
+    assert ring.take()[0] == "busy"
+    tag, devs = ring.take()
+    assert tag == "small" and torch.equal(devs[0].cpu(), small)
+
+
+def test_staged_upload_equals_its_source_bytes_on_gpu(cuda):
+    """A staged bf16, float32 and int64 upload, taken after its event,
+    equals its host source bit for bit, and is ordered before the current
+    stream's later work."""
+    from repro_torch.serving.hostcache import StagingRing
+    ring = StagingRing(depth=2, device=cuda)
+    g = torch.Generator().manual_seed(0)
+    src = [torch.randn(17, 8, 128, generator=g).to(torch.bfloat16)
+           .pin_memory(),
+           torch.randn(3, 5, generator=g).pin_memory(),
+           torch.randint(0, 1 << 40, (33,), generator=g).pin_memory()]
+    for i in range(3):
+        ring.stage(i, src)
+    for i in range(3):
+        tag, devs = ring.take()
+        out = [(d * 1).cpu() for d in devs]     # work on the current stream
+        assert tag == i
+        for a, b in zip(out, src):
+            assert a.dtype == b.dtype and torch.equal(
+                a.view(torch.uint8), b.view(torch.uint8))
+    assert ring.take() is None
+
+
+def test_recycled_slab_leaves_an_upload_in_flight_intact_on_gpu(cuda):
+    """An entry's buffer is staged behind a 128 MB upload, then the entry
+    is dropped and a put of the same shape recycles that buffer while the
+    upload from it is still queued: the arena waits for the upload first,
+    so the taken bytes are the old entry's and the new entry holds its
+    own."""
+    from repro_torch.serving.hostcache import HostTier
+    n = 4 << 20                                   # 16 MB of float32
+    tier = HostTier(40 << 20, device=cuda)
+    old = torch.randn(n, generator=torch.Generator().manual_seed(1))
+    assert tier.put_kv(0, 1, [old])
+    rows = tier.get_kv(0, 1)
+    ring = tier.staging
+    ring.stage("busy", [torch.empty(128 << 20, dtype=torch.uint8,
+                                    pin_memory=True)])
+    ring.stage("old", rows)
+    tier.arena.drop(("kv", 0, 1))
+    new = torch.full((n,), 7.0)
+    assert tier.put_kv(0, 2, [new])
+    assert tier.arena.stats.slab_reuses == 1
+    assert tier.get_kv(0, 2)[0].data_ptr() == rows[0].data_ptr()
+    assert ring.take()[0] == "busy"
+    tag, devs = ring.take()
+    assert tag == "old" and torch.equal(devs[0].cpu(), old)
+    assert torch.equal(tier.get_kv(0, 2)[0], new)
+
+
+def test_spill_and_restage_equal_the_tierless_engine_on_gpu(cuda, no_tf32):
+    """Reduced qwen3-1.7b at batch 1 over a pool B fills: A's prefix
+    blocks are spilled into the pinned arena and restaged for C through the
+    copy stream; every request equals the tier-less engine's bitwise, which
+    prefills C's prefix instead, and both launch paged_decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving.admission import Request
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("qwen3-1.7b", reduced=True)
+    params = TransformerLM.init(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(8)
+    prefix = rng.integers(0, cfg.vocab, 32)
+    prompts = [np.concatenate([prefix, [1]]), rng.integers(0, cfg.vocab, 40),
+               np.concatenate([prefix, [2]])]
+
+    def run(mb):
+        eng = ServingEngine(cfg, params, batch=1, window_max=8, max_len=56,
+                            eps_key=3, block_size=16, num_blocks=5,
+                            adaptive=False, use_verify_kernel=True,
+                            host_cache_mb=mb, device=cuda)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, new_tokens=8))
+        reset_launches()
+        done = {r.uid: r.result for r in eng.run()}
+        assert LAUNCHES["paged_decode"] > 0 and LAUNCHES["spec_verify"] > 0
+        return done, eng.export_metrics()
+    tiered, m = run(None)
+    plain, mt = run(0)
+    assert m["host_staged_blocks"] == 2 and m["h2d_staged"] == 2
+    assert mt["blocks_dropped"] >= 2
+    assert m["prefill_calls"] < mt["prefill_calls"]
+    for u in range(3):
+        np.testing.assert_array_equal(tiered[u], plain[u])

@@ -120,3 +120,12 @@ def test_scan_covers_the_preemption_and_staging_modules():
             "serving/engine.py", "serving/admission.py", "serving/blocks.py",
             "serving/adaptive.py", "serving/metrics.py", "serving/faults.py",
             "models/transformer.py", "launch/serve.py"} <= names
+
+
+def test_scan_covers_the_host_tier_modules():
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if PORT in p.parents}
+    assert {"serving/hostcache/__init__.py", "serving/hostcache/arena.py",
+            "serving/hostcache/staging.py", "serving/hostcache/tier.py",
+            "serving/engine.py", "serving/blocks.py",
+            "serving/metrics.py"} <= names

@@ -383,12 +383,13 @@ def _solo(cfg, params, uid, prompt, new, max_len=64):
 def test_engine_matches_port_solo_bitwise(jamba):
     """Five ragged requests through two slots (chunked prefill, slot
     reuse, mid-flight admission, an adaptive window): every request equals
-    its solo run bit for bit. The prefix cache was asked for and is off for
-    the hybrid stack (a hit would skip the Mamba states' prefill)."""
+    its solo run bit for bit. The prefix cache was asked for and, without
+    a host tier to hold the Mamba states' snapshots, is off for the hybrid
+    stack (a hit would skip their prefill)."""
     cfg, _, _, params, _ = jamba
     eng = ServingEngine(cfg, params, batch=2, window_max=8, max_len=64,
                         eps_key=EPS_SEED, block_size=4, prefix_cache=True,
-                        prefill_chunk=8, device=CPU)
+                        prefill_chunk=8, host_cache_mb=0, device=CPU)
     assert not eng.kv_prefix
     rng = np.random.default_rng(8)
     shared = rng.integers(0, cfg.vocab, size=9)
@@ -420,7 +421,7 @@ def test_engine_matches_jax_engine(jamba):
     kw = dict(batch=2, window_max=4, max_len=48, block_size=4,
               adaptive=False)
     eng = ServingEngine(cfg, params, eps_fn=_jax_eps_for_port(cfg.vocab),
-                        device=CPU, **kw)
+                        device=CPU, host_cache_mb=0, **kw)
     jeng = JaxEngine(jcfg, jparams, eps_key=EPS_KEY, host_cache_mb=0, **kw)
     rng = np.random.default_rng(13)
     for i in range(2):

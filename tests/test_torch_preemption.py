@@ -195,7 +195,8 @@ def test_preempting_run_matches_the_jax_engine():
     # chunk) bound the reference's compiles
     kw = dict(batch=2, window_max=4, max_len=64, block_size=4,
               adaptive=False, rounds_per_sync=1)
-    eng = ServingEngine(cfg, params, eps_fn=eps_fn, device=CPU, **kw)
+    eng = ServingEngine(cfg, params, eps_fn=eps_fn, device=CPU,
+                        host_cache_mb=0, **kw)
     jeng = JaxEngine(jcfg, jparams, eps_key=key, host_cache_mb=0,
                      adaptive_rounds=False, **kw)
     rng = np.random.default_rng(12)
@@ -369,7 +370,7 @@ def test_cancel_of_a_parked_request(models):
         victim = eng.preempt_slot(1)
         if cancel:
             parked = eng.parked[victim.uid]
-            assert eng.cancel(victim.uid) and parked.payload is None
+            assert eng.cancel(victim.uid) and parked.private is None
             assert victim.uid not in eng.parked
         return {r.uid: r for r in eng.run()}, eng, victim.uid
 

@@ -368,12 +368,13 @@ def _traffic(seed, n, vocab, shared=None):
 def test_engine_matches_port_solo_bitwise(rwkv):
     """Ragged prompts sharing a 9-token prefix, chunked prefill, slot
     reuse, mid-flight admission and an adaptive window: every request
-    equals its solo run bit for bit. The prefix cache was asked for and is
-    off for the recurrent stack (a hit would skip the state's prefill)."""
+    equals its solo run bit for bit. The prefix cache was asked for and,
+    without a host tier to hold its state snapshots, is off for the
+    recurrent stack (a hit would skip the state's prefill)."""
     cfg, _, _, params = rwkv
     eng = ServingEngine(cfg, params, batch=2, window_max=8, max_len=64,
                         eps_key=EPS_SEED, block_size=4, prefix_cache=True,
-                        prefill_chunk=4, device=CPU)
+                        prefill_chunk=4, host_cache_mb=0, device=CPU)
     assert not eng.kv_prefix
     shared = np.random.default_rng(8).integers(0, cfg.vocab, size=9)
     traffic = _traffic(9, 5, cfg.vocab, shared=shared)

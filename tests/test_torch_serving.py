@@ -114,7 +114,8 @@ def test_engine_matches_jax_engine(qwen):
 
     kw = dict(batch=2, window_max=8, max_len=64, block_size=4,
               adaptive=True)
-    eng = ServingEngine(cfg, params, eps_fn=eps_fn, device=CPU, **kw)
+    eng = ServingEngine(cfg, params, eps_fn=eps_fn, device=CPU,
+                        host_cache_mb=0, **kw)
     jeng = JaxEngine(jcfg, jparams, eps_key=key, host_cache_mb=0, **kw)
     shared = np.random.default_rng(7).integers(0, cfg.vocab, size=10)
     traffic = _traffic(3, 4, cfg.vocab, shared=shared)

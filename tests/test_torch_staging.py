@@ -246,7 +246,7 @@ def test_staged_run_matches_the_jax_engine():
     kw = dict(batch=2, window_max=4, max_len=48, block_size=4,
               adaptive=False, rounds_per_sync=8, staging_slots=2)
     eng = ServingEngine(cfg, params, eps_fn=eps_fn, device=CPU,
-                        adaptive_rounds=False, **kw)
+                        adaptive_rounds=False, host_cache_mb=0, **kw)
     jeng = JaxEngine(jcfg, jparams, eps_key=key, host_cache_mb=0,
                      adaptive_rounds=False, **kw)
     for r in _traffic(cfg, n=7):
