@@ -238,6 +238,37 @@ which fails the script when it fails:
    ones; (c) ``arena_corrupt=@0`` on (b) (one resume recomputes, tokens
    bitwise) and ``stage_drop=@0`` on (a) (one staging error, tokens
    bitwise).
+20. crash-safe serving on phase 3's qwen3-1.7b at a fixed W = 8, the
+   durable directories temporary ones under ``build/`` (their filesystem
+   type from ``/proc/mounts`` logged): (a) phase 19 (b)'s workload on an
+   engine with ``durable_dir`` and ``journal_fsync_every=1`` against the
+   volatile one: tokens and verify rounds bitwise, the journal records
+   the schedule implies (4 submits, an admit per admission and resume, a
+   park per preemption, 4 finishes), a checkpoint per host sync, the
+   parks' 2 shared blocks flushed to disk; ms per token of both runs, ms
+   per fsync and per checkpoint (mean, max), the journal's bytes; (b)
+   phase 19 (a)'s traffic through a 4 MiB arena (two of qwen's 1.835 MB
+   blocks) over the disk tier: A's prefix blocks go pool -> arena ->
+   disk and C restages its 4 through disk and arena, at least 2 disk
+   hits and promotions, fewer prefill chunks than the tier-less run,
+   tokens bitwise its; disk put and get ms and MB/s a block, the restage
+   ms beside the tier-less prefill of the same positions; (c) the script
+   run again as a child on the card (``--recovery-child serve DIR``),
+   which serves (a)'s workload printing a JSON event per submit and
+   finish, killed by ``REPRO_KILL_POINT`` (in its environment only) at
+   ``post_sync:1`` (after the checkpoint that holds the parks) and at
+   ``mid_spill:0`` (in the first disk put), each death a SIGKILL; a
+   child (``--recovery-child resume DIR``) restores and drains, and for
+   ``post_sync`` a second one from a copy of the directory without the
+   disk tier: every accepted request delivered by the two processes, a
+   re-delivery equal to the first, at least one request recovered, a
+   park restored after ``post_sync`` and the disk resume's prefixes hit
+   on disk; requests admitted again from their prompt bitwise (a)'s
+   volatile run, a restored park under the margin rule (its first split
+   and margin logged); the ms to recover (the engine's construction and
+   ``restore``, first), a second, warm pass of the replay and the
+   checkpoint load, each child's seconds, prefill chunks with and
+   without the disk.
 
 Phases 11-12 run no kernel of the port's own: the reference's image path
 reaches no Pallas kernel; phase 13's MoE layer neither (the reference's is
@@ -261,7 +292,9 @@ with the launches of phase 13's paths, five of them phase 14's rows,
 three phase 15's and five phase 16's, with the launches of their paths);
 the last line is ``{"ok": true, "device": {...}}``. ``--report PATH``
 also writes every number measured to PATH as JSON, the seconds of each
-phase among them (``phase_seconds``).
+phase among them (``phase_seconds``), phase 20's under ``durable``.
+``--recovery-child {serve,resume} DIR [--no-disk-tier]`` runs phase 20
+(c)'s child instead of the phases.
 """
 from __future__ import annotations
 
@@ -269,6 +302,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -4270,6 +4304,48 @@ def ring_rates(tier, dev, reps=10):
     return out
 
 
+def spill_traffic(cfg):
+    """Phase 19 (a)'s and 20 (b)'s traffic at batch 1 over 10 usable
+    blocks: A (a 64-token prefix and 1 token), B (120 tokens, whose worst
+    case takes the whole pool and evicts A's 4 prefix blocks) and C (the
+    same prefix and another token), 32 new each."""
+    import numpy as np
+    from repro_torch.serving.admission import Request
+    rng = np.random.default_rng(190)
+    prefix = rng.integers(0, cfg.vocab, 64)
+    return [Request(uid=0, prompt=np.concatenate([prefix, [11]]),
+                    new_tokens=NEW_TOKENS),
+            Request(uid=1, prompt=rng.integers(0, cfg.vocab, 120),
+                    new_tokens=NEW_TOKENS),
+            Request(uid=2, prompt=np.concatenate([prefix, [12]]),
+                    new_tokens=NEW_TOKENS)]
+
+
+def shared_lows(cfg):
+    """Phase 19 (b)'s and 20's two priority-5 requests sharing a 40-token
+    prompt, 96 new each."""
+    import numpy as np
+    from repro_torch.serving.admission import Request
+    shared = np.random.default_rng(191).integers(0, cfg.vocab, 40)
+    return [Request(uid=i, prompt=shared, new_tokens=96, priority=5)
+            for i in range(2)]
+
+
+def shared_highs(cfg):
+    """The two priority-0 arrivals (17 tokens, 32 new) that preempt
+    ``shared_lows`` after the first sync."""
+    import numpy as np
+    from repro_torch.serving.admission import Request
+    rng = np.random.default_rng(192)
+    return [Request(uid=uid, prompt=rng.integers(0, cfg.vocab, 17),
+                    new_tokens=NEW_TOKENS, priority=0) for uid in (2, 3)]
+
+
+def submit_highs(e):
+    for r in shared_highs(e.cfg):
+        e.submit(r)
+
+
 def host_tier_phase(dev, tol, sat):
     """Phase 19: the host tier on qwen3-1.7b at full width (bf16, seed 0)
     at a fixed W = 8, every run through ``drive`` (launches counted from 0,
@@ -4281,7 +4357,6 @@ def host_tier_phase(dev, tol, sat):
     from repro_torch.engine.agreement import check_token_agreement
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import TransformerLM
-    from repro_torch.serving.admission import Request
     from repro_torch.serving.faults import FaultPlan
     t0 = time.perf_counter()
     cfg = get_config("qwen3-1.7b")
@@ -4292,14 +4367,7 @@ def host_tier_phase(dev, tol, sat):
 
     # (a) A's 4 prefix blocks evicted by B, restaged for C
     def abc():
-        rng = np.random.default_rng(190)
-        prefix = rng.integers(0, cfg.vocab, 64)
-        return [Request(uid=0, prompt=np.concatenate([prefix, [11]]),
-                        new_tokens=NEW_TOKENS),
-                Request(uid=1, prompt=rng.integers(0, cfg.vocab, 120),
-                        new_tokens=NEW_TOKENS),
-                Request(uid=2, prompt=np.concatenate([prefix, [12]]),
-                        new_tokens=NEW_TOKENS)]
+        return spill_traffic(cfg)
     # 10 usable blocks: B's worst case (120 + 32 + 8 positions) takes all
     akw = dict(batch=1, num_blocks=11, adaptive=False)
     # once untimed: a process's first page-locked allocation and first
@@ -4392,17 +4460,10 @@ def host_tier_phase(dev, tol, sat):
 
     # (b) two priority-5 requests sharing a 40-token prompt, both preempted
     # after the first sync by two priority-0 arrivals
-    shared = np.random.default_rng(191).integers(0, cfg.vocab, 40)
-
     def lows():
-        return [Request(uid=i, prompt=shared, new_tokens=96, priority=5)
-                for i in range(2)]
-
-    def highs(e):
-        rng = np.random.default_rng(192)
-        for uid in (2, 3):
-            e.submit(Request(uid=uid, prompt=rng.integers(0, cfg.vocab, 17),
-                             new_tokens=NEW_TOKENS, priority=0))
+        return shared_lows(cfg)
+    highs = submit_highs
+    shared = lows()[0].prompt
     bkw = dict(adaptive=False)
     base, _, _, _, _, _ = drive(cfg, params, dev, lows(), **bkw)
     parked = {}
@@ -4510,12 +4571,442 @@ def preempt_rwkv(cfg, params, dev):
     return {"park": p, "resume": r, "metrics": m, "launches": launches}
 
 
+def fs_type(path) -> str:
+    """The type of the filesystem that holds ``path``: the longest mount
+    point of ``/proc/mounts`` above it."""
+    real = os.path.realpath(path)
+    best, kind = "", "unknown"
+    for line in Path("/proc/mounts").read_text().splitlines():
+        f = line.split()
+        if len(f) < 3:
+            continue
+        mnt = f[1].replace("\\040", " ")
+        inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+        if inside and len(mnt) > len(best):
+            best, kind = mnt, f[2]
+    return kind
+
+
+def timed_durable(eng, log_to):
+    """Wrap ``eng``'s journal fsync, checkpoint, disk put and get and the
+    tier's disk promotion (read, crc, layout and arena put) so each call's
+    host milliseconds go to ``log_to`` ("fsync", "checkpoint", "disk_put"
+    with the array bytes and whether it wrote a file (not a dedup),
+    "disk_get" with the bytes read, "disk_promote"). All of them run on the
+    host only."""
+    import torch
+
+    def nbytes(arrays):
+        return sum(a.numel() * a.element_size() if isinstance(a, torch.Tensor)
+                   else a.nbytes for a in arrays or ())
+
+    def timed(name, fn, info=lambda out, *a: {}):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            log_to.setdefault(name, []).append(
+                {"ms": (time.perf_counter() - t0) * 1e3, **info(out, *a)})
+            return out
+        return call
+    if eng.journal is not None:
+        eng.journal.sync = timed("fsync", eng.journal.sync)
+        eng._checkpoint = timed("checkpoint", eng._checkpoint)
+    if eng.disk is not None:
+        disk, puts = eng.disk, [eng.disk.stats.puts]
+
+        def wrote(out, name, arrays):
+            new = disk.stats.puts > puts[0]
+            puts[0] = disk.stats.puts
+            return {"ok": out, "wrote": new, "bytes": nbytes(arrays)}
+        eng.disk.put = timed("disk_put", eng.disk.put, wrote)
+        eng.disk.get = timed("disk_get", eng.disk.get,
+                             lambda out, name: {"bytes": nbytes(out)})
+        if eng.tier is not None:
+            eng.tier._disk_get = timed(
+                "disk_promote", eng.tier._disk_get,
+                lambda out, *a: {"bytes": nbytes(out)})
+    return eng
+
+
+def ms_stats(rows):
+    ms = [x["ms"] for x in rows]
+    return {"n": len(ms), "mean_ms": sum(ms) / len(ms) if ms else None,
+            "max_ms": max(ms) if ms else None}
+
+
+def rate_mbps(rows):
+    """MB/s of each timed disk call that moved bytes."""
+    return [x["bytes"] / x["ms"] / 1e3 for x in rows
+            if x.get("bytes") and x["ms"] > 0]
+
+
+RECOVERY_KILLS = ("post_sync:1", "mid_spill:0")
+DISK_ARENA_MB = 4                  # phase 20 (b): two of qwen's blocks
+CHILD_KEYS = ("requests_finished", "prefill_calls", "preemptions",
+              "recovered_requests", "recovered_parked", "checkpoints_written",
+              "disk_spills", "disk_hits", "disk_promotes", "journal_appends",
+              "resume_recomputes", "host_staged_blocks", "tokens_generated")
+
+
+def recovery_child(make_engine, mode, first, later, keys, extra=dict):
+    """One process of a crash-and-restart test: phase 20 (c)'s child on the
+    card, ``tests/torch_recovery_driver.py``'s on the CPU. ``serve`` builds
+    the engine with ``make_engine``, submits ``first``, steps once, submits
+    ``later`` and runs to the end; ``resume`` builds it, restores from its
+    durable directory and drains what is left. Prints one flushed JSON
+    event per submit ("submitted", once ``submit`` returned: the journal
+    holds it), per delivered result ("finish", with its tokens), the
+    restore ("recovered": its count, the cold parks, ``recover_ms`` for the
+    engine's construction and ``restore`` together, as a restarted process
+    spends them, ``restore_ms`` for the ``restore`` call within it, then a
+    second, warm pass of the journal's replay and the checkpoint's load),
+    then "metrics": ``keys`` of the export, the seconds and ``extra()``.
+    ``REPRO_KILL_POINT`` in the environment arms a kill point."""
+    from repro_torch.serving.journal import RequestJournal
+
+    def emit(event):
+        print(json.dumps(event), flush=True)
+    emitted = set()
+
+    def drain():
+        for r in eng.done:
+            if r.uid not in emitted and r.result is not None:
+                emitted.add(r.uid)
+                emit({"event": "finish", "uid": int(r.uid),
+                      "tokens": [int(t) for t in r.result]})
+    t0 = time.perf_counter()
+    eng = make_engine()
+    if mode == "resume":
+        t = time.perf_counter()
+        n = eng.restore()
+        restore_ms = (time.perf_counter() - t) * 1e3
+        recover_ms = (time.perf_counter() - t0) * 1e3
+        t = time.perf_counter()
+        RequestJournal.replay(eng.journal.path)
+        replay_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        eng._load_checkpoint()
+        load_ms = (time.perf_counter() - t) * 1e3
+        emit({"event": "recovered", "n": n,
+              "cold": sorted(u for u, p in eng.parked.items() if p.cold),
+              "recover_ms": recover_ms, "restore_ms": restore_ms,
+              "warm_replay_ms": replay_ms, "warm_load_ms": load_ms})
+        drain()
+    else:
+        for r in first:
+            eng.submit(r)
+            emit({"event": "submitted", "uid": int(r.uid)})
+        eng.step()
+        drain()
+        for r in later:
+            eng.submit(r)
+            emit({"event": "submitted", "uid": int(r.uid)})
+    while eng._pending():
+        if not eng.step():
+            break
+        drain()
+    drain()
+    eng.close()
+    m = eng.export_metrics()
+    emit({"event": "metrics", **{k: m.get(k, 0) for k in keys},
+          "serve_s": time.perf_counter() - t0, **extra()})
+
+
+def run_child(mode, ddir, kill=None, disk_tier=True):
+    """``chip_smoke.py --recovery-child`` as a child process on the card,
+    ``REPRO_KILL_POINT`` in its environment alone. Returns its return
+    code, its events and its wall seconds."""
+    env = dict(os.environ)
+    env.pop("REPRO_KILL_POINT", None)
+    if kill:
+        env["REPRO_KILL_POINT"] = kill
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--recovery-child",
+           mode, str(ddir)] + ([] if disk_tier else ["--no-disk-tier"])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    events = [json.loads(line) for line in proc.stdout.splitlines()
+              if line.startswith("{")]
+    if kill is None and proc.returncode != 0:
+        raise AssertionError(f"phase 20 (c) {mode} child failed "
+                             f"(rc {proc.returncode}): {proc.stderr[-3000:]}")
+    return proc.returncode, events, wall
+
+
+def durable_phase(dev, tol):
+    """Phase 20: crash-safe serving of qwen3-1.7b at full width (bf16,
+    seed 0) at a fixed W = 8, every in-process run through ``drive``
+    (spec_verify and paged_decode asserted): (a) phase 19 (b)'s workload
+    on a durable engine against the volatile one, (b) phase 19 (a)'s
+    through a 4 MiB arena over the disk tier, (c) crash and restart in
+    child processes."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine.agreement import check_token_agreement
+    from repro_torch.models.transformer import TransformerLM
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-1.7b")
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    serve(cfg, params, dev, make_requests(cfg, (17,), 4))      # warm-up
+    block_bytes = cfg.n_layers * 2 * BS * KV * D * 2
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="durable-", dir=ROOT / "build"))
+    out = {"block_bytes": block_bytes, "fs_type": fs_type(root)}
+    try:
+        # (a) durability is invisible
+        bkw = dict(adaptive=False)
+        vol, mv, vwall, vl, _, _ = drive(
+            cfg, params, dev, shared_lows(cfg), hooks=[(1, submit_highs)],
+            **bkw)
+        timers = {}
+        dur, md, dwall, dl, _, _ = drive(
+            cfg, params, dev, shared_lows(cfg),
+            hooks=[(0, lambda e: timed_durable(e, timers)),
+                   (1, submit_highs)],
+            durable_dir=str(root / "a"), journal_fsync_every=1, **bkw)
+        need_path(vl, "phase 20 (a) volatile")
+        need_path(dl, "phase 20 (a) durable")
+        for u in vol:
+            if not (dur[u].ok and np.array_equal(dur[u].result,
+                                                 vol[u].result)
+                    and dur[u].calls_used == vol[u].calls_used):
+                raise AssertionError(f"phase 20 (a): request {u} differs "
+                                     f"from the volatile run")
+        # 4 submits, an admit per admission and resume, a park per
+        # preemption, a finish per request
+        appends = 4 + (4 + md["resumes"]) + md["preemptions"] + 4
+        if not (md["journal_appends"] == appends and md["preemptions"] == 2
+                and md["checkpoints_written"] >= md["host_syncs"]
+                and md["disk_spills"] >= 2):
+            raise AssertionError(
+                f"phase 20 (a): journal_appends {md['journal_appends']} "
+                f"(want {appends}), checkpoints {md['checkpoints_written']}"
+                f" for {md['host_syncs']} syncs, disk_spills "
+                f"{md['disk_spills']}, preemptions {md['preemptions']}")
+        out["a"] = {
+            "metrics": md, "volatile_metrics": mv, "launches": dl,
+            "ms_per_token": dwall / md["tokens_generated"] * 1e3,
+            "volatile_ms_per_token": vwall / mv["tokens_generated"] * 1e3,
+            "fsync": ms_stats(timers["fsync"]),
+            "checkpoint": ms_stats(timers["checkpoint"]),
+            "journal_appends_expected": appends,
+            "journal_bytes": (root / "a" / "journal.wal").stat().st_size,
+            "checkpoint_bytes":
+                (root / "a" / "checkpoint.json").stat().st_size}
+        a = out["a"]
+        log(f"phase 20 (a), phase 19 (b)'s workload on a durable engine "
+            f"({out['fs_type']} under build/, journal_fsync_every=1): tokens "
+            f"and verify rounds bitwise the volatile run; "
+            f"{a['ms_per_token']:.3f} ms per token against "
+            f"{a['volatile_ms_per_token']:.3f} volatile; "
+            f"{md['journal_appends']} journal records (as the schedule "
+            f"implies), {a['journal_bytes']} bytes, {a['fsync']['n']} fsyncs "
+            f"(mean {a['fsync']['mean_ms']:.3f} ms, max "
+            f"{a['fsync']['max_ms']:.3f}), {md['checkpoints_written']} "
+            f"checkpoints for {md['host_syncs']} host syncs (mean "
+            f"{a['checkpoint']['mean_ms']:.3f} ms, max "
+            f"{a['checkpoint']['max_ms']:.3f}, {a['checkpoint_bytes']} "
+            f"bytes), {md['disk_spills']} blocks flushed to disk; launches "
+            f"{dl}")
+
+        # (b) the disk fall-through within one process: a 4 MiB arena holds
+        # two of the 1.835 MB blocks, so A's 4 prefix blocks go on to disk
+        akw = dict(batch=1, num_blocks=11, adaptive=False)
+        tt, tm = {}, {}
+        base, mt, _, tl, _, _ = drive(
+            cfg, params, dev, spill_traffic(cfg),
+            hooks=[(0, lambda e: timed_tier(e, tt))], host_cache_mb=0, **akw)
+        got, mb, bwall, bl, _, _ = drive(
+            cfg, params, dev, spill_traffic(cfg),
+            hooks=[(0, lambda e: timed_durable(timed_tier(e, tm), tm))],
+            host_cache_mb=DISK_ARENA_MB, durable_dir=str(root / "b"),
+            **akw)
+        need_path(tl, "phase 20 (b) tier-less")
+        need_path(bl, "phase 20 (b) disk")
+        for u in base:
+            if not (got[u].ok and np.array_equal(got[u].result,
+                                                 base[u].result)):
+                raise AssertionError(f"phase 20 (b): request {u} differs "
+                                     f"from the tier-less run")
+        if not (mb["disk_hits"] >= 2 and mb["disk_promotes"] >= 2
+                and got[2].prefix_hit_blocks >= 4
+                and mb["prefill_calls"] < mt["prefill_calls"]):
+            raise AssertionError(
+                f"phase 20 (b): disk hits {mb['disk_hits']}, promotes "
+                f"{mb['disk_promotes']}, C's prefix hits "
+                f"{got[2].prefix_hit_blocks}, prefill chunks "
+                f"{mb['prefill_calls']} against {mt['prefill_calls']}")
+        puts = [x for x in tm.get("disk_put", []) if x["wrote"]]
+        c_chunks = [x for x in tt["prefill"] if x["start"] < 4 * BS][-1:]
+        out["b"] = {
+            "metrics": mb, "tierless_metrics": mt, "launches": bl,
+            "disk_put": puts, "disk_put_mbps": rate_mbps(puts),
+            "disk_get": tm.get("disk_get", []),
+            "disk_get_mbps": rate_mbps(tm.get("disk_get", [])),
+            "disk_promote": tm.get("disk_promote", []),
+            "disk_promote_mbps": rate_mbps(tm.get("disk_promote", [])),
+            "restage": tm.get("restage", []),
+            "restage_ms": sum(x["ms"] for x in tm.get("restage", [])),
+            "tierless_prefill_ms": sum(x["ms"] for x in c_chunks),
+            "tierless_prefill_chunks": c_chunks,
+            "ms_per_token": bwall / mb["tokens_generated"] * 1e3}
+        b = out["b"]
+        log(f"phase 20 (b), phase 19 (a)'s traffic through a 4 MiB arena "
+            f"over the disk tier: {mb['disk_puts']} disk puts ("
+            + ", ".join(f"{x['ms']:.3f}" for x in puts) + " ms, "
+            + ", ".join(f"{r:.0f}" for r in b["disk_put_mbps"])
+            + " MB/s), " + f"{mb['disk_hits']} disk hits (read and crc "
+            + ", ".join(f"{x['ms']:.3f}" for x in b["disk_get"]) + " ms, "
+            + ", ".join(f"{r:.0f}" for r in b["disk_get_mbps"])
+            + " MB/s; with the layout and the arena promotion "
+            + ", ".join(f"{x['ms']:.3f}" for x in b["disk_promote"])
+            + f" ms), {mb['disk_promotes']} promoted; C's "
+            f"{got[2].prefix_hit_blocks} prefix blocks restaged in "
+            f"{b['restage_ms']:.3f} ms against {b['tierless_prefill_ms']:.3f}"
+            f" ms for the tier-less prefill of the same positions; prefill "
+            f"chunks {mb['prefill_calls']} against {mt['prefill_calls']}; "
+            f"tokens bitwise the tier-less run's; launches {bl}")
+
+        # (c) crash and restart in child processes
+        out["c"] = {}
+        for kill in RECOVERY_KILLS:
+            point = kill.split(":")[0]
+            d = root / f"c_{point}"
+            rc, served, swall = run_child("serve", d, kill=kill)
+            if rc != -9:
+                raise AssertionError(f"phase 20 (c): {kill} child ended "
+                                     f"with {rc}, not SIGKILL")
+            runs = {"disk": None, "nodisk": None}
+            if point == "post_sync":
+                shutil.copytree(d, root / "c_nodisk")
+            runs["disk"] = run_child("resume", d)
+            if point == "post_sync":
+                runs["nodisk"] = run_child("resume", root / "c_nodisk",
+                                           disk_tier=False)
+            submitted = {e["uid"] for e in served
+                         if e["event"] == "submitted"}
+            row = {"serve_wall_s": swall, "submitted": sorted(submitted)}
+            for label, run in runs.items():
+                if run is None:
+                    continue
+                _, resumed, rwall = run
+                (rec,) = [e for e in resumed if e["event"] == "recovered"]
+                (m,) = [e for e in resumed if e["event"] == "metrics"]
+                need_path(m["launches"], f"phase 20 (c) {kill} {label}")
+                merged, splits = {}, {}
+                for e in served + resumed:
+                    if e["event"] != "finish":
+                        continue
+                    u, toks = e["uid"], np.asarray(e["tokens"])
+                    if u in merged and not np.array_equal(merged[u], toks):
+                        raise AssertionError(
+                            f"phase 20 (c) {kill} {label}: request {u} "
+                            f"delivered again with other tokens")
+                    merged[u] = toks
+                    want = vol[u].result
+                    if u in rec["cold"]:
+                        # a restored park: its prefill chunks are not the
+                        # verify windows that wrote those positions first
+                        splits[u] = check_token_agreement(
+                            want, toks, margin_fn(cfg, params, dev, want,
+                                                  vol[u].seq_id), tol,
+                            start=len(vol[u].prompt)) or "bitwise"
+                    elif not np.array_equal(toks, want):
+                        raise AssertionError(
+                            f"phase 20 (c) {kill} {label}: request {u}, "
+                            f"admitted again from its prompt, differs from "
+                            f"(a)'s volatile run")
+                lost = submitted - set(merged)
+                if lost or m["recovered_requests"] < 1:
+                    raise AssertionError(
+                        f"phase 20 (c) {kill} {label}: lost {lost}, {m}")
+                if point == "post_sync" and m["recovered_parked"] < 1:
+                    raise AssertionError(f"phase 20 (c) {kill}: no park "
+                                         f"restored: {m}")
+                if label == "disk" and point == "post_sync" \
+                        and m["disk_hits"] < 1:
+                    raise AssertionError(f"phase 20 (c) {kill}: the restart "
+                                         f"hit nothing on disk: {m}")
+                row[label] = {"wall_s": rwall, "recovered": rec,
+                              "metrics": m, "splits": splits}
+            out["c"][point] = row
+            dr = row["disk"]
+            log(f"phase 20 (c), {kill}: the serving child died by SIGKILL "
+                f"after {swall:.1f} s having accepted {sorted(submitted)}; "
+                + "; ".join(
+                    f"{label} resume ({row[label]['wall_s']:.1f} s): "
+                    f"{row[label]['recovered']['n']} recovered, cold parks "
+                    f"{row[label]['recovered']['cold']}, engine built and "
+                    f"restored in {row[label]['recovered']['recover_ms']:.3f}"
+                    f" ms (restore {row[label]['recovered']['restore_ms']:.3f};"
+                    f" a second, warm pass: replay "
+                    f"{row[label]['recovered']['warm_replay_ms']:.3f}, "
+                    f"checkpoint load "
+                    f"{row[label]['recovered']['warm_load_ms']:.3f}), prefill "
+                    f"chunks {row[label]['metrics']['prefill_calls']}, disk "
+                    f"hits {row[label]['metrics']['disk_hits']}, "
+                    + (", ".join(
+                        f"request {u} " + (s if s == "bitwise" else
+                                           f"split at {s['position']} "
+                                           f"(margin {s['margin']:.4g} < "
+                                           f"{tol})")
+                        for u, s in row[label]["splits"].items())
+                       or "every request bitwise (a)'s volatile run")
+                    for label in ("disk", "nodisk") if label in row)
+                + f"; launches {dr['metrics']['launches']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 20 took {out['seconds']:.1f} s")
+    return out
+
+
+def recovery_child_main(mode, ddir, disk_tier) -> int:
+    """``--recovery-child``: phase 20 (c)'s child on the card, (a)'s
+    workload on a durable engine over ``ddir`` (two priority-5 requests,
+    two priority-0 arrivals after the first sync)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving.engine import ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.build()
+    dev = torch.device("cuda")
+    cfg = get_config("qwen3-1.7b")
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    kernels.reset_launches()
+    recovery_child(
+        lambda: ServingEngine(
+            cfg, params, batch=2, window_max=8, block_size=16, max_len=256,
+            eps_key=1, use_verify_kernel=True, adaptive=False,
+            durable_dir=ddir, journal_fsync_every=1, disk_tier=disk_tier,
+            device=dev),
+        mode, shared_lows(cfg), shared_highs(cfg), CHILD_KEYS,
+        extra=lambda: {"launches": dict(kernels.LAUNCHES)})
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None,
                     help="write every number measured to this JSON file")
+    ap.add_argument("--recovery-child", nargs=2, default=None,
+                    metavar=("MODE", "DIR"),
+                    help="instead of the phases: phase 20 (c)'s child, "
+                    "'serve' or 'resume' over the durable directory DIR "
+                    "(JSON events on stdout)")
+    ap.add_argument("--no-disk-tier", action="store_true",
+                    help="with --recovery-child: no disk tier")
     ap.add_argument("--mistral-depths", type=int, nargs="+", default=None,
                     metavar="LAYERS",
                     help="instead of the phases: build the kernels, run "
@@ -4526,6 +5017,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.recovery_child:
+        mode, ddir = args.recovery_child
+        return recovery_child_main(mode, ddir, not args.no_disk_tier)
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.engine.spec_decode import make_eps_fn
@@ -4737,6 +5231,10 @@ def main(argv=None) -> int:
     # ---- phase 19: the host cache tier -----------------------------------
     report["host_tier"] = host_tier_phase(dev, tol, report["saturation"])
     lap("19")
+
+    # ---- phase 20: crash-safe serving -------------------------------------
+    report["durable"] = durable_phase(dev, tol)
+    lap("20")
     log("seconds by phase: " + json.dumps(
         {k: round(v, 1) for k, v in report["phase_seconds"].items()}))
 

@@ -11,7 +11,12 @@ through ``ServingEngine``. Runs on the GPU unless ``--device cpu``.
 priority preemption with exact resume); ``--staging-slots`` /
 ``--adaptive-rounds`` turn on staged adoption (queued requests adopted by
 freed rows inside the round loop, ``rounds_per_sync`` retuned from idle
-row-rounds).
+row-rounds). ``--durable-dir DIR`` makes the engine crash-safe: a
+write-ahead request journal, a scheduler checkpoint at every host sync and
+a disk tier below the host arena, all under DIR; a run over a DIR a killed
+run left recovers every request it had accepted (``restore``) before it
+submits its own. ``--journal-fsync-every`` batches the journal's fsync;
+``--no-disk-tier`` keeps the journal and checkpoint without the disk tier.
 
 Also exports ``make_serve_step``, the reference's one-round verify step
 over a dense cache, with its two-pass low-memory form for recurrent and
@@ -134,6 +139,22 @@ def main(argv=None):
                     help="deterministic fault-injection plan, e.g. "
                          "'seed=7,alloc=@2;5,poison=3' (default: the "
                          "REPRO_FAULT_PLAN environment variable)")
+    ap.add_argument("--durable-dir", default=None, metavar="DIR",
+                    help="crash-safety root: the write-ahead request "
+                         "journal, scheduler checkpoints at host syncs and "
+                         "the disk tier below the host arena live here; a "
+                         "restarted engine over the same DIR recovers every "
+                         "accepted request. Default: a volatile engine")
+    ap.add_argument("--journal-fsync-every", type=int, default=1,
+                    metavar="N",
+                    help="fsync the request journal every N records (1: an "
+                         "accepted submit is on media before submit() "
+                         "returns; more batch the fsync, exposing at most "
+                         "N-1 records past the last host sync)")
+    ap.add_argument("--no-disk-tier", action="store_true",
+                    help="with --durable-dir: keep the journal and the "
+                         "checkpoint but no disk tier (arena victims drop; "
+                         "a restart prefills every prefix again)")
     ap.add_argument("--use-verify-kernel", default=True,
                     action=argparse.BooleanOptionalAction,
                     help="run the Gumbel-max verify through the spec_verify "
@@ -162,16 +183,29 @@ def main(argv=None):
                            host_cache_mb=(0 if args.no_host_cache
                                           else args.host_cache_mb),
                            integrity_checks=not args.no_integrity_checks,
+                           durable_dir=args.durable_dir,
+                           journal_fsync_every=args.journal_fsync_every,
+                           disk_tier=not args.no_disk_tier,
                            device=device)
+    first_uid = 0
+    if args.durable_dir:
+        recovered = engine.restore()
+        if recovered:
+            print(f"recovered {recovered} journaled requests from "
+                  f"{args.durable_dir}")
+        # this run's requests after every uid the journal knows
+        first_uid = 1 + max((r.uid for r in engine.queue.requests()
+                             + engine.done), default=-1)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         engine.submit(Request(
-            uid=i, prompt=rng.integers(0, cfg.vocab,
-                                       size=int(rng.integers(2, 8))),
+            uid=first_uid + i,
+            prompt=rng.integers(0, cfg.vocab, size=int(rng.integers(2, 8))),
             new_tokens=args.new_tokens))
     t0 = time.time()
     done = engine.run()
     dt = time.time() - t0
+    engine.close()
     m = engine.export_metrics()
     total_new = sum(r.new_tokens for r in done)
     print(f"served {len(done)} requests / {total_new} tokens "

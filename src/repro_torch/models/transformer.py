@@ -511,6 +511,40 @@ class TransformerLM:
                 for leaf in entry.values()]
 
     @staticmethod
+    def reference_walk(cfg: ModelConfig, paged_cache, kind: str) -> list:
+        """The reference's order of the ``kind`` leaves (``"pool"``: those
+        of ``pool_leaves``, ``"state"``: those of ``state_leaves``), which
+        it keeps as one array per leaf of its tree: its cache walk visits
+        the prefix layers, then the suffix layers, each leaf alone, then
+        each layer of the repeated block with its leaf stacked over the
+        repeats; within a layer the mixer before the channel mix, keys in
+        sorted order. Returns ``(leaf indices, stacked)`` per reference
+        array, the indices into ``pool_leaves`` / ``state_leaves``."""
+        index, i = {}, 0
+        for layer, (spec, c) in enumerate(zip(cfg.layer_specs(),
+                                              paged_cache["layers"])):
+            parts = (_recurrent_keys(spec) if kind == "state" else
+                     [] if spec[0] in _RECURRENT else ["mixer"])
+            for part in parts:
+                for key in c[part]:
+                    index[layer, part, key] = i
+                    i += 1
+        pre, blk = len(cfg.layer_prefix), len(cfg.layer_block)
+        suf0 = pre + blk * cfg.n_blocks
+        walk = ([([layer], False) for layer in range(pre)]
+                + [([suf0 + j], False) for j in range(len(cfg.layer_suffix))]
+                + [([pre + r * blk + j for r in range(cfg.n_blocks)], True)
+                   for j in range(blk if cfg.n_blocks else 0)])
+        out = []
+        for layers, stacked in walk:
+            for part in ("mixer", "ffn"):
+                keys = sorted({k for (l, p, k) in index
+                               if l == layers[0] and p == part})
+                out += [([index[l, part, k] for l in layers], stacked)
+                        for k in keys]
+        return out
+
+    @staticmethod
     def gather_paged(cfg: ModelConfig, paged_cache, tables, rows):
         """A dense cache view for ``decode_window``: each pool gathered
         through ``tables`` (R, nb) to (R, nb * bs, ...), and the recurrent

@@ -227,6 +227,12 @@ class AdmissionQueue:
                 return True
         return False
 
+    def advance_seq(self, past: int) -> None:
+        """The restore path: restart the arrival counter past the highest
+        recovered rank, so requests submitted after a restart rank behind
+        every request recovered with its original ``_seq``."""
+        self._seq = itertools.count(max(int(past) + 1, 0))
+
     def requests(self) -> list[Request]:
         """Every queued request, in no particular order."""
         return [e[-1] for e in self._heap]

@@ -92,8 +92,27 @@ The port of the reference's ``serving/engine.py``, single-device:
   and ``max_request_rounds`` bound runaways. A ``FaultPlan``
   (``serving/faults.py``; ``REPRO_FAULT_PLAN`` by default) scripts the
   faults: its ``alloc`` seam in ``BlockManager.alloc``, its host-tier
-  seams (``arena_put``, ``arena_corrupt``, ``stage_drop``), and its
-  poisoned noise streams, whose logits ``verify_round`` replaces with NaN.
+  seams (``arena_put``, ``arena_corrupt``, ``stage_drop``), its disk and
+  journal seams (``disk_full``, ``disk_torn_write``, ``disk_slow``,
+  ``journal_truncate``), and its poisoned noise streams, whose logits
+  ``verify_round`` replaces with NaN.
+* **Crash safety** (the reference's DESIGN.md §16; ``durable_dir``, None
+  by default: a volatile engine) — under ``durable_dir`` the engine keeps
+  a write-ahead request journal (``journal.wal``: every submit, admission,
+  park, retry and outcome, fsynced every ``journal_fsync_every`` records
+  and at every host sync), a scheduler checkpoint (``checkpoint.json``,
+  written atomically at every host sync: each live request's clocks,
+  rank and retries, each park's token row, window and prompt-block chain
+  keys) and, unless ``disk_tier=False``, a disk tier below the host arena
+  (``disk/``, ``disk_cache_mb``, 1024 MiB by default: the arena's spilled
+  blocks and snapshots as crc-framed files, which a restarted engine hits
+  again). ``restore()`` on a new engine over the same directory replays
+  the journal, re-enqueues every accepted request that did not finish at
+  its original rank (a checkpointed park as a cold park, rebuilt by
+  prefill over what the disk still holds) and delivers journaled outcomes
+  again. ``kill_point`` sites (``post_admit``, ``post_sync``, and in the
+  journal and the disk tier ``pre_fsync`` and ``mid_spill``) let a test
+  SIGKILL the process anywhere in that protocol.
 
 The pool and the per-slot row state (tokens, lengths, windows) are updated
 in place: the reference donates them to each step, so their old values are
@@ -102,13 +121,15 @@ dead there too.
 Exactness: every request's tokens equal a per-request
 ``PredictiveSampler.generate`` run with the same noise key and stream id
 (``Request.seq_id``), retried, preempted, adopted, restaged and
-snapshot-resumed ones included. The journal, the disk tier and the mesh
-(migration) are later slices (ROADMAP.md §1 Slices C and F); so are the
-fault seams of those modules.
+snapshot-resumed ones included, and so are those a restored engine
+delivers after a crash (on the CPU bitwise; a restored park's re-prefill
+rounds otherwise on the card, where it holds under the margin rule). The
+mesh (migration) is a later slice (ROADMAP.md §1 Slice F).
 """
 from __future__ import annotations
 
 import functools
+import json
 import os
 import time
 from dataclasses import dataclass
@@ -131,8 +152,10 @@ from repro_torch.serving.admission import (AdmissionQueue, Request,
 from repro_torch.serving.blocks import (BlockManager, StagingLedger,
                                        chain_hashes)
 from repro_torch.serving.faults import (CircuitBreaker, FaultPlan,
-                                        RequestError, StagingFault)
-from repro_torch.serving.hostcache import HostTier
+                                        RequestError, StagingFault,
+                                        kill_point)
+from repro_torch.serving.hostcache import DiskTier, HostTier, LeafLayout
+from repro_torch.serving.journal import RequestJournal
 from repro_torch.serving.metrics import EngineMetrics
 
 
@@ -151,7 +174,9 @@ class ParkedSequence:
     ``n_rec`` recurrent row tensors then ``rows_per_block`` tensors for
     each later block, is the park entry ``("park", uid)`` (``in_arena``)
     or, without a tier or where the arena refused it, the raw host tensors
-    in ``private``."""
+    in ``private``. A ``cold`` park is one a restore rebuilt from the
+    checkpoint: no payload or pin of it exists in this process, and its
+    resume prefills what the tiers do not hold."""
     n: int
     tokens: np.ndarray           # (max_len,) accepted-token row
     cand: np.ndarray             # (W_max,) verify-window snapshot
@@ -162,6 +187,7 @@ class ParkedSequence:
     in_arena: bool = False       # private part parked under ("park", uid)
     private: Optional[list] = None   # the private part, when not in the arena
     shard: int = 0               # the tier partition the pins live under
+    cold: bool = False           # restored from a checkpoint: no payload
 
 
 def _to_host(t: torch.Tensor, pin: bool) -> torch.Tensor:
@@ -228,13 +254,17 @@ class ServingEngine:
                  host_cache_mb: Optional[float] = None, host_tier=None,
                  integrity_checks: bool = True,
                  host_prefetch: Optional[bool] = None,
-                 prefetch_budget: int = 4, device=None):
+                 prefetch_budget: int = 4,
+                 durable_dir: Optional[str] = None,
+                 journal_fsync_every: int = 1, disk_tier: bool = True,
+                 disk_cache_mb: Optional[float] = None, device=None):
         if block_size < 1 or window_max < 1 or rounds_per_sync < 1 \
                 or prefill_chunk < 1 or lookahead < 1 or max_head_bypass < 0 \
                 or request_retries < 0 or staging_slots < 0 \
-                or prefetch_budget < 0:
+                or prefetch_budget < 0 or journal_fsync_every < 1:
             raise ValueError("block_size, window_max, rounds_per_sync, "
-                             "prefill_chunk and lookahead must be >= 1, "
+                             "prefill_chunk, lookahead and "
+                             "journal_fsync_every must be >= 1, "
                              "max_head_bypass, request_retries, "
                              "staging_slots and prefetch_budget >= 0")
         if not 0.0 <= preempt_floor <= 1.0:
@@ -305,6 +335,25 @@ class ServingEngine:
         self.tables = np.zeros((batch, self.nb), np.int32)
         self.owned: list[list[int]] = [[] for _ in range(batch)]
 
+        # ---- durability -------------------------------------------------
+        # under ``durable_dir``: ``disk/`` (the tier below the arena),
+        # ``journal.wal`` and ``checkpoint.json``; ``disk_tier=False`` keeps
+        # the journal and the checkpoint but drops the spill to disk
+        self.durable_dir = durable_dir
+        self.journal = None
+        self._ckpt_path = None
+        self.disk = None
+        if durable_dir is not None:
+            if disk_tier:
+                dmb = 1024.0 if disk_cache_mb is None else float(disk_cache_mb)
+                self.disk = DiskTier(os.path.join(durable_dir, "disk"),
+                                     int(dmb * 2 ** 20), faults=self.faults,
+                                     breaker=CircuitBreaker())
+            self.journal = RequestJournal(
+                os.path.join(durable_dir, "journal.wal"),
+                fsync_every=journal_fsync_every, faults=self.faults)
+            self._ckpt_path = os.path.join(durable_dir, "checkpoint.json")
+
         # ---- host cache tier --------------------------------------------
         if host_tier is not None:
             # a tier staging to another device, or an arena pinned for
@@ -325,8 +374,18 @@ class ServingEngine:
                                   integrity=integrity_checks,
                                   faults=self.faults,
                                   breaker=CircuitBreaker(),
-                                  device=self.device)
+                                  disk=self.disk, device=self.device)
                          if mb > 0 else None)
+        if self.tier is not None and self.tier.disk is not None:
+            # entries on disk in the reference's layout (one array per leaf
+            # of its tree), the dtypes restored from these on the way back
+            for ns, kind, leaves in (
+                    ("kv", "pool", TransformerLM.pool_leaves(cfg, self.paged)),
+                    ("rec", "state",
+                     TransformerLM.state_leaves(cfg, self.paged))):
+                self.tier.set_layout(ns, LeafLayout.of(
+                    leaves, TransformerLM.reference_walk(cfg, self.paged,
+                                                         kind)))
         # the prefix cache per state kind: paged KV blocks are shareable
         # (``kv_prefix``); a recurrent stack's state after a prefix is not
         # paged, so its prefix hits go through the tier's snapshots
@@ -432,7 +491,29 @@ class ServingEngine:
             self.done.append(req)
             return False
         self.queue.push(req)
+        # journaled after the push, which pinned the arrival rank; with
+        # ``journal_fsync_every=1`` the submit is on media before this
+        # returns, so an accepted request survives any later crash
+        if self.journal is not None:
+            self.journal.append(
+                "submit", uid=int(req.uid),
+                prompt=[int(t) for t in np.asarray(req.prompt).ravel()],
+                new_tokens=int(req.new_tokens), priority=int(req.priority),
+                deadline=req.deadline, noise_seed=req.noise_seed,
+                rank=int(req._seq))
         return True
+
+    def _journal(self, type: str, **fields):
+        """Append one lifecycle record to the journal, if there is one."""
+        if self.journal is not None:
+            self.journal.append(type, **fields)
+
+    def _journal_finish(self, req: Request):
+        """Journal ``req``'s delivered tokens; a volatile engine builds no
+        record."""
+        if self.journal is not None:
+            self.journal.append("finish", uid=int(req.uid),
+                                tokens=[int(t) for t in req.result])
 
     # -- device steps -------------------------------------------------------
     def _prefill(self, table_row, b: int, chunk, start: int):
@@ -951,6 +1032,7 @@ class ServingEngine:
         self.slots[b] = None
         self._clear_row(b, release=False)
         self.queue.requeue(req)
+        self._journal("park", uid=int(req.uid))
         req.preemptions += 1
         self.metrics.preemptions += 1
         self.metrics.blocks_parked += nb_live
@@ -1008,8 +1090,13 @@ class ServingEngine:
         self.n_host[b] = parked.n
 
     def _resume(self, req: Request, b: int, parked: ParkedSequence):
-        """Re-admit a parked request into slot ``b`` where it left off."""
+        """Re-admit a parked request into slot ``b`` where it left off; a
+        cold park (restored from a checkpoint) by prefill, over what the
+        device cache, the arena and the disk still hold."""
         req.admit_time = time.monotonic()
+        if parked.cold:
+            self.metrics.resume_recomputes += 1
+            return self._resume_cold(req, b, parked)
         self._resume_tiered(req, b, parked)
 
     def _resume_tiered(self, req: Request, b: int, parked: ParkedSequence):
@@ -1132,9 +1219,11 @@ class ServingEngine:
     def _discard_park(self, uid: int, parked: ParkedSequence):
         """Drop a parked payload that will not be resumed (a cancel, a
         failed resume): its host buffers, its park entry and its pins on
-        the shared blocks, once (a second call finds nothing to release)."""
+        the shared blocks, once (a second call finds nothing to release). A
+        cold park holds nothing in this process: unpinning its keys could
+        take a pin a live park of the same prompt owns."""
         parked.private = None
-        if self.tier is None:
+        if self.tier is None or parked.cold:
             return
         if parked.in_arena:
             self.tier.drop_park(uid)
@@ -1331,6 +1420,7 @@ class ServingEngine:
                     prev.finish_time = now
                     self.metrics.observe_finish(prev)
                     self.done.append(prev)
+                    self._journal_finish(prev)
             req = entry.req
             req.admit_time = now
             self.ledger.release(0, req.uid)
@@ -1419,6 +1509,8 @@ class ServingEngine:
                 # a retry re-admits from the prompt, on the same stream
                 self._discard_park(req.uid, parked)
                 raise
+            self._journal("admit", uid=int(req.uid))
+            kill_point("post_admit")
             return
         req.admit_time = time.monotonic()
         prompt = np.asarray(req.prompt, np.int64)
@@ -1522,6 +1614,8 @@ class ServingEngine:
                 self.pool.register(self.owned[b][j], keys[j])
         self._occupy(b, req, L_p)
         self.n_host[b] = L_p
+        self._journal("admit", uid=int(req.uid))
+        kill_point("post_admit")
 
     def _snapshot_at_or_below(self, keys, cover: int):
         """The recurrent snapshot at the largest block boundary ``j <=
@@ -1551,6 +1645,9 @@ class ServingEngine:
                     req.seq_id, self.faults.poison_streams
                     if self.faults is not None else frozenset())
             self.queue.requeue(req)
+            # the new stream must survive a crash: the noise is keyed by it
+            self._journal("retry", uid=int(req.uid),
+                          noise_seed=req.noise_seed, retries=req.retries)
             return
         req.error = RequestError(code, detail, retryable=retryable,
                                  attempts=req.retries + 1)
@@ -1558,6 +1655,7 @@ class ServingEngine:
         req.finish_time = time.monotonic()
         self.metrics.requests_failed += 1
         self.done.append(req)
+        self._journal("fail", uid=int(req.uid), code=code)
 
     def _fail_slot(self, b: int, code: str, detail: str = "", *,
                    retryable: bool = False, fresh_stream: bool = False):
@@ -1611,6 +1709,7 @@ class ServingEngine:
         req.finish_time = time.monotonic()
         self.metrics.requests_cancelled += 1
         self.done.append(req)
+        self._journal("cancel", uid=int(req.uid), code="cancelled")
 
     # -- main loop -----------------------------------------------------------
     def _pending(self) -> bool:
@@ -1721,6 +1820,7 @@ class ServingEngine:
                 req.finish_time = now
                 self.metrics.observe_finish(req)
                 self.done.append(req)
+                self._journal_finish(req)
                 self.slots[b] = None
                 self._clear_row(b)
                 continue
@@ -1736,6 +1836,12 @@ class ServingEngine:
                 self._fail_slot(
                     b, "timeout", f"{now - req.submit_time:.3f}s "
                     f"> {self.max_request_seconds}s wall time")
+        # the durability boundary: the journal on media and the scheduler
+        # snapshotted, so a crash from here on recovers this sync's state
+        if self.journal is not None:
+            self.journal.sync()
+            self._checkpoint(now)
+            kill_point("post_sync")
         return True
 
     def run(self, max_rounds: int = 10_000) -> list[Request]:
@@ -1751,6 +1857,159 @@ class ServingEngine:
                     f"serving engine did not converge within {max_rounds} "
                     "verify rounds")
         return self.done
+
+    def close(self) -> None:
+        """The durability layer's orderly shutdown: a last checkpoint, the
+        journal fsynced and closed. A no-op for a volatile engine, and
+        never required: an engine that just dies recovers the same."""
+        if self.journal is not None:
+            self._checkpoint()
+            self.journal.close()
+
+    # -- checkpoint and restore -----------------------------------------------
+    def _checkpoint(self, now: Optional[float] = None) -> None:
+        """Snapshot the scheduler at a host sync, atomically (a temporary
+        file, fsync, rename: a reader sees the whole snapshot or the one
+        before). It holds every live request's clocks as elapsed durations
+        (``clock_export``: monotonic stamps die with the process), arrival
+        rank, retries, stream and aging; and for each park its ``n``, token
+        row and window and the chain keys of its shared prompt blocks,
+        which are first made durable on the disk tier. Parks' private
+        payloads and running rows are not in it: a restore recomputes them
+        from the journaled identity, so the snapshot stays small."""
+        if self._ckpt_path is None:
+            return
+        if now is None:
+            now = time.monotonic()
+        live = (list(self.queue.requests()) + [e.req for e in self.staged]
+                + [r for r in self.slots if r is not None])
+        reqs = [{"uid": int(r.uid),
+                 "rank": None if r._seq is None else int(r._seq),
+                 "retries": int(r.retries), "noise_seed": r.noise_seed,
+                 "bypassed": int(r.bypassed),
+                 "queue_deadline_missed": bool(r.queue_deadline_missed),
+                 "clocks": r.clock_export(now)} for r in live]
+        parked = {}
+        for uid, p in self.parked.items():
+            if self.tier is not None and p.kv_keys:
+                self.tier.flush_to_disk(p.shard, p.kv_keys)
+            parked[str(int(uid))] = {
+                "n": int(p.n),
+                "tokens": [int(t) for t in np.asarray(p.tokens).ravel()],
+                "cand": [int(t) for t in np.asarray(p.cand).ravel()],
+                "nb_live": int(p.nb_live),
+                "kv_keys": [int(k) for k in p.kv_keys],
+                "shard": int(p.shard)}
+        snap = {"version": 1, "requests": reqs, "parked": parked}
+        tmp = self._ckpt_path + ".tmp"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(snap, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.rename(tmp, self._ckpt_path)
+        except OSError:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            return       # recovery falls back to the journal alone
+        self.metrics.checkpoints_written += 1
+
+    def _load_checkpoint(self) -> dict:
+        """The latest snapshot, or {} when it is missing or unreadable (the
+        restore then runs from the journal alone: every request prefills
+        from its prompt, its clocks start again)."""
+        if self._ckpt_path is None:
+            return {}
+        try:
+            with open(self._ckpt_path) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return {}
+
+    def _request_of(self, uid, rec: dict) -> Request:
+        """A ``Request`` from its journaled submit record."""
+        return Request(uid=int(uid),
+                       prompt=np.asarray(rec["prompt"], np.int64),
+                       new_tokens=int(rec["new_tokens"]),
+                       priority=int(rec.get("priority", 0)),
+                       deadline=rec.get("deadline"),
+                       noise_seed=rec.get("noise_seed"))
+
+    def restore(self) -> int:
+        """Recover the accepted requests a crash left unfinished.
+
+        Replays the journal (repairing a torn tail), folds in the latest
+        checkpoint and re-enqueues every pending request at its original
+        arrival rank with its clocks rebased; later submits rank behind
+        them. A request the checkpoint holds a park of comes back as a cold
+        ``ParkedSequence``: its resume restages its prompt blocks through
+        the arena and disk fall-through and prefills the rest of ``[0, n -
+        1)``; every other one re-admits from its journaled prompt. Either
+        way its tokens are an uninterrupted run's, since the context and
+        the noise stream were durable.
+
+        Journaled outcomes are delivered again through ``done``: a crash
+        can fall between a finish reaching the journal and the client
+        reading it, so every journaled finish (its tokens are in the
+        record) and failure or cancel (its code) comes back, at least once
+        and bitwise the same. Returns the number of requests re-enqueued
+        (re-deliveries not counted)."""
+        if self.journal is None:
+            raise RuntimeError("restore() needs a durable_dir")
+        records = RequestJournal.replay(self.journal.path, faults=self.faults)
+        pending, _, delivered = RequestJournal.pending(records)
+        ckpt = self._load_checkpoint()
+        by_uid = {int(r["uid"]): r for r in ckpt.get("requests", [])}
+        snaps = {int(u): p for u, p in ckpt.get("parked", {}).items()}
+        now = time.monotonic()
+        max_rank = -1
+        recovered = 0
+        # the original queue order: ranked submits first, by rank
+        for uid, rec in sorted(
+                pending.items(),
+                key=lambda kv: (kv[1].get("rank") is None,
+                                kv[1].get("rank") or 0)):
+            req = self._request_of(uid, rec)
+            req.retries = int(rec.get("retries", 0))
+            req._seq = None if rec.get("rank") is None else int(rec["rank"])
+            c = by_uid.get(req.uid)
+            if c is not None:
+                req.bypassed = int(c.get("bypassed", 0))
+                req.queue_deadline_missed = bool(
+                    c.get("queue_deadline_missed", False))
+                req.clock_rebase(c.get("clocks", {}), now)
+            else:
+                req.submit_time = now     # journal only: the clock restarts
+            if req._seq is None:
+                req._seq = max_rank + 1
+            max_rank = max(max_rank, req._seq)
+            snap = snaps.get(req.uid)
+            if snap is not None and rec.get("parked"):
+                self.parked[req.uid] = ParkedSequence(
+                    n=int(snap["n"]),
+                    tokens=np.asarray(snap["tokens"], np.int64),
+                    cand=np.asarray(snap["cand"], np.int64),
+                    nb_live=int(snap["nb_live"]),
+                    kv_keys=tuple(int(k) for k in snap["kv_keys"]),
+                    shard=int(snap["shard"]), cold=True)
+                self.metrics.recovered_parked += 1
+            self.queue.requeue(req)       # its rank is pinned already
+            recovered += 1
+        self.queue.advance_seq(max_rank)
+        self.metrics.recovered_requests += recovered
+        # journaled outcomes the crash may have kept from their client; no
+        # journal write: the records are terminal already
+        for uid, rec in delivered.items():
+            req = self._request_of(uid, rec)
+            if rec["terminal"] == "finish" and "tokens" in rec:
+                req.result = np.asarray(rec["tokens"], np.int64)
+            else:
+                req.error = RequestError(rec.get("code", rec["terminal"]),
+                                         "delivered again after a restore")
+            self.done.append(req)
+        return recovered
 
     # -- telemetry -----------------------------------------------------------
     def export_metrics(self) -> dict:
@@ -1775,6 +2034,18 @@ class ServingEngine:
                                   if self.faults is not None else 0)
         if self.faults is not None:
             out.update(self.faults.fired_export())
+        # the disk breaker and the journal's counters where configured, the
+        # disk's zero-filled otherwise
+        if (self.disk is not None
+                and (self.tier is None or self.tier.disk is None)):
+            out.update(self.disk.stats_export())
+        out.setdefault("disk_state", "closed")
+        out.setdefault("disk_tripped", 0)
+        out.setdefault("disk_hits", 0)
+        out.setdefault("disk_promotes", 0)
+        out.setdefault("disk_spills", 0)
+        if self.journal is not None:
+            out.update(self.journal.stats_export())
         return out
 
 

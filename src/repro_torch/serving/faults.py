@@ -20,19 +20,25 @@ seam                fires inside
                     the integrity check, which demotes the get to a miss
 ``stage_drop``      ``StagingRing.stage``: a ``StagingFault``, as a failed
                     upload; the engine clears the ring and prefills instead
-``disk_full``       the disk tier's put (not ported yet)
-``disk_torn_write`` the disk tier's put (not ported yet)
-``disk_slow``       the disk tier's get (not ported yet)
-``journal_truncate`` the request journal's replay (not ported yet)
+``disk_full``       ``DiskTier.put``: the spill write is refused as if
+                    the filesystem returned ENOSPC (a breaker failure)
+``disk_torn_write`` ``DiskTier.put``: the frame is written truncated (a
+                    crash mid-write; the crc verify at the read catches it)
+``disk_slow``       ``DiskTier.get``: a short fixed stall (a degraded
+                    device; latency only, never an error)
+``journal_truncate`` ``RequestJournal.replay``: the journal's last record
+                    is torn off before parsing (a crash mid-append; the
+                    replay truncates the file, it never errors)
 ==================  =====================================================
 
-Every seam is parsed, so one plan drives both packages; the seams of the
-modules the port lacks fire nowhere yet (ROADMAP.md §1, item 12: the disk
-tier and the journal).
-Preemption and staged adoption (items 8 and 11) have no seam of their
-own: a parked resume and a staged entry allocate through ``alloc``. Besides, ``poison_streams`` names noise streams whose verify-round
-logits the engine replaces with NaN on the device, which trips the
-quarantine health bit end to end.
+Every seam is parsed and fires where the reference's plan of the same spec
+fires, so one plan drives both packages. Preemption and staged adoption
+have no seam of their own: a parked resume and a staged entry allocate
+through ``alloc``. Besides, ``poison_streams`` names noise streams whose
+verify-round logits the engine replaces with NaN on the device, which
+trips the quarantine health bit end to end. Apart from the plan,
+``kill_point`` SIGKILLs the process at a named site (``KILL_POINTS``,
+armed by ``REPRO_KILL_POINT``), for the crash and restore tests.
 
 Every seam keeps an invocation counter; a fault fires at scripted
 invocation indices (``alloc=@2;5``: the 3rd and 6th calls) or at a seeded
@@ -43,12 +49,41 @@ processes, and fires where the reference's plan of the same spec fires.
 from __future__ import annotations
 
 import os
+import signal
+import sys
 import zlib
 from dataclasses import dataclass
 from typing import Optional
 
 SEAMS = ("alloc", "arena_put", "arena_corrupt", "stage_drop",
          "disk_full", "disk_torn_write", "disk_slow", "journal_truncate")
+
+# -- kill points (the crash harness) -------------------------------------------
+# Named host-side sites at which a recovery test SIGKILLs a serving process:
+# ``REPRO_KILL_POINT=<point>`` dies at the first hit of that site,
+# ``<point>:<i>`` at the (i+1)-th. A SIGKILL, not an exception: no finally
+# block, no atexit, no buffered write runs, which is the state a power cut
+# leaves and what checkpoint and restore must recover from. Hits are counted
+# per process; the variable is read at every hit, so a test can arm and
+# disarm a point without importing anything again.
+KILL_POINTS = ("post_admit", "mid_spill", "pre_fsync", "post_sync")
+_kill_hits: dict[str, int] = {}
+
+
+def kill_point(name: str) -> None:
+    """Die here (SIGKILL) iff ``REPRO_KILL_POINT`` names this site."""
+    spec = os.environ.get("REPRO_KILL_POINT", "")
+    if not spec:
+        return
+    point, _, idx = spec.partition(":")
+    if point != name:
+        return
+    i = _kill_hits.get(name, 0)
+    _kill_hits[name] = i + 1
+    if i == (int(idx) if idx else 0):
+        sys.stdout.flush()       # what was delivered stays delivered
+        sys.stderr.flush()
+        os.kill(os.getpid(), signal.SIGKILL)
 
 
 @dataclass

@@ -25,7 +25,12 @@ Invariants:
   so no upload still reading it sees the new bytes.
 * **Refcount pinning.** Entries with ``refs > 0`` are never evicted.
 * **Strict LRU.** Unpinned entries are evicted oldest touch first; every
-  ``get`` hit and dedup ``put`` refreshes recency.
+  ``get`` hit and dedup ``put`` refreshes recency. ``on_evict(key,
+  tensors)`` is called with every victim before its buffers go to the slab
+  (the tier points it at the disk spill), so the hook reads the victim's
+  bytes intact: it runs on the host, synchronously, before any later put
+  can take a buffer of the victim and wait in ``before_reuse`` for the
+  uploads still reading it.
 * **Integrity-checked.** Every put stamps a crc32 over the entry's bytes
   (the raw bytes of each tensor, so the same bytes give the reference's
   checksum); every get verifies it. A mismatch drops the entry, pinned or
@@ -107,11 +112,12 @@ class HostArena:
     ``faults`` is an optional ``FaultPlan`` wired to the ``arena_put`` and
     ``arena_corrupt`` seams; ``on_corruption`` is called with the key of
     every entry whose verify fails (the tier points it at its circuit
-    breaker)."""
+    breaker); ``on_evict`` with the key and tensors of every LRU victim,
+    before its buffers are recycled."""
 
     def __init__(self, capacity_bytes: int, *, integrity: bool = True,
                  pinned: bool = False, faults=None, on_corruption=None,
-                 before_reuse=None):
+                 before_reuse=None, on_evict=None):
         if capacity_bytes < 0:
             raise ValueError(f"capacity_bytes={capacity_bytes}")
         self.capacity_bytes = int(capacity_bytes)
@@ -120,6 +126,7 @@ class HostArena:
         self.faults = faults
         self.on_corruption = on_corruption
         self.before_reuse = before_reuse
+        self.on_evict = on_evict
         # insertion/touch order is the LRU order (oldest first)
         self._entries: "OrderedDict[object, _Entry]" = OrderedDict()
         self._slab: dict[tuple, list] = {}       # (shape, dtype) -> buffers
@@ -183,6 +190,8 @@ class HostArena:
                 continue
             del self._entries[key]
             self.bytes_resident -= e.nbytes
+            if self.on_evict is not None:
+                self.on_evict(key, e.tensors)
             self._slab_give(e.tensors)
             self.stats.evictions += 1
             self._trim_slab(want)

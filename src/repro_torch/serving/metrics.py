@@ -68,6 +68,13 @@ class EngineMetrics:
     rec_snapshot_restores: int = 0       # admissions started from a tier
     #                                      snapshot
     staging_errors: int = 0              # staging runs aborted mid-ring
+    recovered_requests: int = 0          # requests re-enqueued from the
+    #                                      journal by restore()
+    recovered_parked: int = 0            # of those, resumed from a parked
+    #                                      snapshot in the checkpoint (the
+    #                                      rest prefill from their prompt)
+    checkpoints_written: int = 0         # scheduler snapshots fsynced at
+    #                                      host syncs
     resume_recomputes: int = 0           # parked resumes rebuilt by prefill
     #                                      (a piece of the payload was gone)
     prefetch_hits: int = 0               # blocks merged from a queued
@@ -169,6 +176,9 @@ class EngineMetrics:
             "staging_errors": self.staging_errors,
             "resume_recomputes": self.resume_recomputes,
             "prefetch_hits": self.prefetch_hits,
+            "recovered_requests": self.recovered_requests,
+            "recovered_parked": self.recovered_parked,
+            "checkpoints_written": self.checkpoints_written,
         }
         if block_stats:
             out.update(block_stats)

@@ -59,6 +59,11 @@ behind a busy copy counted as overlapped; taken uploads bitwise their
 sources; a slab recycled while an upload from it is queued leaves that
 upload's bytes intact; a reduced qwen3-1.7b engine that spills and
 restages prefix blocks bitwise the tier-less engine.
+Crash safety on reduced qwen3-1.7b in bfloat16: the pinned arena entries
+of a CUDA engine through the disk tier and back (its layout, two-byte
+voids on disk) bitwise, dtype bfloat16 restored; a durable engine bitwise
+its volatile run (tokens and verify rounds); a restage through the disk
+fall-through bitwise the tier-less engine.
 """
 import numpy as np
 import pytest
@@ -1488,3 +1493,129 @@ def test_spill_and_restage_equal_the_tierless_engine_on_gpu(cuda, no_tf32):
     assert m["prefill_calls"] < mt["prefill_calls"]
     for u in range(3):
         np.testing.assert_array_equal(tiered[u], plain[u])
+
+
+# ---------------------------------------------------------------------------
+# crash safety: the disk tier under the pinned arena, the durable engine
+# ---------------------------------------------------------------------------
+
+def _qwen_bf16(cuda):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+    cfg = dataclasses.replace(get_config("qwen3-1.7b", reduced=True),
+                              dtype="bfloat16")
+    return cfg, TransformerLM.init(cfg, seed=0, device=cuda)
+
+
+def _disk_traffic(cfg):
+    from repro_torch.serving.admission import Request
+    rng = np.random.default_rng(8)
+    prefix = rng.integers(0, cfg.vocab, 32)
+    return [Request(uid=0, prompt=np.concatenate([prefix, [1]]),
+                    new_tokens=8),
+            Request(uid=1, prompt=rng.integers(0, cfg.vocab, 40),
+                    new_tokens=8),
+            Request(uid=2, prompt=np.concatenate([prefix, [2]]),
+                    new_tokens=8)]
+
+
+def _serve_disk(cfg, params, cuda, reqs, **kw):
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, params, batch=1, window_max=8, max_len=56,
+                        eps_key=3, block_size=16, num_blocks=5,
+                        adaptive=False, use_verify_kernel=True, device=cuda,
+                        **kw)
+    for r in reqs:
+        eng.submit(r)
+    reset_launches()
+    done = {r.uid: r for r in eng.run()}
+    assert LAUNCHES["paged_decode"] > 0 and LAUNCHES["spec_verify"] > 0
+    return done, eng
+
+
+def test_bf16_arena_entries_round_trip_the_disk_on_gpu(cuda, no_tf32,
+                                                       tmp_path):
+    """A CUDA engine's spilled prefix blocks (pinned bfloat16 arena
+    entries) go to disk in the reference's layout, bfloat16 as two-byte
+    voids, and come back through the tier bitwise, as bfloat16, promoted
+    into page-locked memory."""
+    from repro_torch.serving.hostcache import decode_entry, durable_name
+    cfg, params = _qwen_bf16(cuda)
+    _, eng = _serve_disk(cfg, params, cuda, _disk_traffic(cfg),
+                         durable_dir=str(tmp_path))
+    tier = eng.tier
+    kv = [(k, e.tensors) for k, e in tier.arena._entries.items()
+          if k[0] == "kv"]
+    assert kv and all(t.is_pinned() and t.dtype == torch.bfloat16
+                      for _, ts in kv for t in ts)
+    entries = [(k, [t.clone() for t in ts]) for k, ts in kv]
+    for key, ts in entries:
+        assert tier.flush_to_disk(0, [key[-1]]) == 1
+        arrays = decode_entry(
+            (tmp_path / "disk" / durable_name("kv", 0, key[-1]))
+            .read_bytes())
+        assert len(arrays) == 2 and all(a.dtype.str == "|V2"
+                                        for a in arrays)
+        assert tier.arena.drop(key)
+        got = tier.get_kv(0, key[-1])
+        assert [t.dtype for t in got] == [torch.bfloat16]
+        assert torch.equal(got[0].view(torch.int16), ts[0].view(torch.int16))
+        again = tier.get_kv(0, key[-1])          # the promoted entry
+        assert again[0].is_pinned()
+        assert torch.equal(again[0].view(torch.int16),
+                           ts[0].view(torch.int16))
+
+
+def test_durable_engine_equals_its_volatile_run_on_gpu(cuda, no_tf32,
+                                                       tmp_path):
+    """The journal, the checkpoints and the disk spill change nothing a
+    preempting run on the card delivers: tokens and verify rounds bitwise
+    the volatile engine's, in bfloat16."""
+    from repro_torch.serving.admission import Request
+    from repro_torch.serving.engine import ServingEngine
+    cfg, params = _qwen_bf16(cuda)
+
+    def run(**kw):
+        eng = ServingEngine(cfg, params, batch=2, window_max=8, max_len=56,
+                            eps_key=3, block_size=16, adaptive=False,
+                            use_verify_kernel=True, device=cuda, **kw)
+        rng = np.random.default_rng(5)
+        for i, L in enumerate((17, 23, 9)):
+            eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, L),
+                               new_tokens=24))
+        reset_launches()
+        eng.step()
+        occ = [b for b in range(2) if eng.slots[b] is not None]
+        eng.preempt_slot(occ[-1])
+        done = {r.uid: r for r in eng.run()}
+        eng.close()
+        assert LAUNCHES["paged_decode"] > 0 and LAUNCHES["spec_verify"] > 0
+        return done, eng.export_metrics()
+    ref, _ = run()
+    got, m = run(durable_dir=str(tmp_path))
+    assert m["journal_appends"] > 0 and m["checkpoints_written"] > 0
+    for uid, r in got.items():
+        np.testing.assert_array_equal(r.result, ref[uid].result)
+        assert r.calls_used == ref[uid].calls_used
+
+
+def test_restage_through_the_disk_equals_the_tierless_engine_on_gpu(
+        cuda, no_tf32, tmp_path):
+    """An arena of one block over the disk tier: A's two prefix blocks are
+    spilled, one goes on to disk, and C restages both (one read back from
+    disk and promoted); every request equals the tier-less engine's
+    bitwise, which prefills C's prefix instead."""
+    cfg, params = _qwen_bf16(cuda)
+    block = cfg.n_layers * 2 * 16 * cfg.n_kv_heads * cfg.head_dim * 2
+    plain, pe = _serve_disk(cfg, params, cuda, _disk_traffic(cfg),
+                            host_cache_mb=0)
+    got, eng = _serve_disk(cfg, params, cuda, _disk_traffic(cfg),
+                           host_cache_mb=1.5 * block / 2 ** 20,
+                           durable_dir=str(tmp_path))
+    m, mt = eng.export_metrics(), pe.export_metrics()
+    assert m["disk_hits"] >= 1 and m["disk_promotes"] >= 1
+    assert got[2].prefix_hit_blocks == 2
+    assert m["prefill_calls"] < mt["prefill_calls"]
+    for u in range(3):
+        np.testing.assert_array_equal(got[u].result, plain[u].result)

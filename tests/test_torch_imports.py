@@ -129,3 +129,12 @@ def test_scan_covers_the_host_tier_modules():
             "serving/hostcache/staging.py", "serving/hostcache/tier.py",
             "serving/engine.py", "serving/blocks.py",
             "serving/metrics.py"} <= names
+
+
+def test_scan_covers_the_durability_modules():
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if PORT in p.parents}
+    assert {"serving/journal.py", "serving/hostcache/disk.py",
+            "serving/hostcache/tier.py", "serving/hostcache/arena.py",
+            "serving/faults.py", "serving/engine.py",
+            "launch/serve.py"} <= names
