@@ -269,6 +269,23 @@ which fails the script when it fails:
    ``restore``, first), a second, warm pass of the replay and the
    checkpoint load, each child's seconds, prefill chunks with and
    without the disk.
+21. the hot-path checks and the launch layer on phase 3's qwen3-1.7b
+   engine and its 4 requests: (a) served with ``REPRO_CHECK_CONTRACTS=1``
+   once through the round loop and once with ``staging_slots=2`` through
+   the staged loop: every round and prefill region runs under
+   ``set_sync_debug_mode("error")`` (a synchronizing call raises) and
+   the first dispatch of each variant passes its contract under the op
+   census (``repro_torch.analysis``); per checked loop its transient
+   bytes, aten ops and kernel launches per verify pass, pool scatters and
+   host reads, the label's argument signatures (at most 8), the pool
+   leaves' addresses unchanged over the run; tokens and verify rounds
+   bitwise the same run with the checks off; (b) the same workload with
+   ``donate=False`` (``--no-donate``: the paged cache copied out of place
+   at every dispatch) in turns with the in-place run (in-place, copy,
+   copy, in-place): tokens bitwise, ms per token and peak memory of both;
+   (c) the four torch examples (``examples/*_torch.py``) as subprocesses
+   on the card, at once, each exiting 0 with its exactness line; exit
+   codes and seconds.
 
 Phases 11-12 run no kernel of the port's own: the reference's image path
 reaches no Pallas kernel; phase 13's MoE layer neither (the reference's is
@@ -4968,6 +4985,196 @@ def durable_phase(dev, tol):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the hot-path checks, --no-donate and the torch examples
+# ---------------------------------------------------------------------------
+
+# each example's flags on the card and the line that states its claim
+EXAMPLES = {
+    "quickstart_torch.py": ([], "samples bit-identical: True"),
+    "serve_llm_torch.py": ([], "every request equals its solo run"),
+    "train_multiarch_torch.py": ([], "checkpoint restores bitwise: True"),
+    "latent_autoencoder_torch.py": ([], "exact: True"),
+}
+
+
+def serve_engine(cfg, params, dev, reqs, **kw):
+    """``serve``'s engine and run, returning the engine too: (done,
+    metrics, wall seconds, launches, engine); the metrics also say
+    whether a pool leaf's address changed over the run (``pool_moved``)."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, params, batch=2, window_max=8, block_size=16,
+                        max_len=256, eps_key=1, use_verify_kernel=True,
+                        device=dev, **kw)
+    for r in reqs:
+        if not eng.submit(r):
+            raise AssertionError(f"request {r.uid} rejected: {r.error}")
+    ptrs = [leaf.data_ptr() for leaf in eng._paged_leaves()["pool"]]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(done) != len(reqs) or not all(r.ok for r in done):
+        raise AssertionError(f"served {len(done)} of {len(reqs)} requests")
+    m = dict(eng.export_metrics(), pool_moved=ptrs != [
+        leaf.data_ptr() for leaf in eng._paged_leaves()["pool"]])
+    return done, m, wall, dict(LAUNCHES), eng
+
+
+def same_tokens(got, want, label):
+    """Tokens and verify rounds of every request bitwise equal."""
+    a = {r.uid: r for r in got}
+    for r in want:
+        if not (a[r.uid].result == r.result).all() \
+                or a[r.uid].calls_used != r.calls_used:
+            raise AssertionError(f"{label}: request {r.uid} differs")
+
+
+def loop_census(reports, loop):
+    """The checked dispatches' numbers, per variant: W (a loop's first
+    argument) or the chunk's width, k (1 for a prefill chunk), transient
+    bytes, aten ops and launches per verify pass."""
+    rows = []
+    for rep in reports:
+        if not rep.label.startswith(loop + "@"):
+            continue
+        m = rep.metrics
+        k = m["variant"] or 1
+        width = (m["signature"][0][1] if loop != "prefill"
+                 else m["signature"][1][0][1])
+        rows.append({"W": width, "k": k,
+                     "transient_bytes": m["peak_bytes"],
+                     "aten_ops_per_pass": m["aten_ops"] / k,
+                     "launches_per_pass": m["kernel_launches"] / k,
+                     "kernel_calls": m["kernel_calls"],
+                     "pool_scatters": m["pool_scatters"],
+                     "host_callbacks": m["host_callbacks"],
+                     "signatures": m["signatures"]})
+    return rows
+
+
+def hot_path_phase(dev):
+    """Phase 21: (a) phase 3's engine and requests with the contracts on,
+    unstaged and staged; (b) ``donate=False`` in turns with the in-place
+    run; (c) the torch examples on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+    out = {}
+    cfg = get_config("qwen3-1.7b")
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    env0 = os.environ.get("REPRO_CHECK_CONTRACTS")
+
+    def run(checks, **kw):
+        os.environ["REPRO_CHECK_CONTRACTS"] = "1" if checks else "0"
+        return serve_engine(cfg, params, dev,
+                            make_requests(cfg, PROMPT_LENS, NEW_TOKENS), **kw)
+    try:
+        # (a) the round loops under the contracts and sync-debug "error"
+        for key, staging in (("round", 0), ("staged_round", 2)):
+            done_off, m_off, wall_off, _, _ = run(False,
+                                                  staging_slots=staging)
+            done, m, wall, launches, eng = run(True, staging_slots=staging)
+            same_tokens(done, done_off, f"21 (a) {key}")
+            rows = loop_census(eng.contract_reports, key)
+            pre = loop_census(eng.contract_reports, "prefill")
+            if not rows or not all(r.ok for r in eng.contract_reports):
+                raise AssertionError(f"21 (a) {key}: no checked loop")
+            if max(r["signatures"] for r in rows) > 8:
+                raise AssertionError(f"21 (a) {key}: signatures {rows}")
+            if m["pool_moved"]:
+                raise AssertionError(f"21 (a) {key}: a pool moved")
+            passes = m["verify_passes"] + m["prefill_calls"]
+            out[key] = {"loops": rows, "prefill": pre,
+                        "checked": len(eng.contract_reports),
+                        "ms_per_token_checked": wall / m[
+                            "tokens_generated"] * 1e3,
+                        "ms_per_token_unchecked": wall_off / m_off[
+                            "tokens_generated"] * 1e3,
+                        "verify_passes": m["verify_passes"],
+                        "paged_decode_per_pass": launches["paged_decode"]
+                        / passes}
+            log(f"21 (a) {key}: tokens bitwise the unchecked run; "
+                f"{len(eng.contract_reports)} checked dispatches ("
+                f"{len(rows)} loops, {len(pre)} prefill widths), all "
+                f"passing under sync-debug 'error'; pools kept")
+            for r in rows + pre:
+                log(f"  W = {r['W']}, k = {r['k']}: "
+                    f"{r['transient_bytes'] / 1e6:.3f} MB "
+                    f"transient, {r['aten_ops_per_pass']:.1f} aten ops and "
+                    f"{r['launches_per_pass']:.1f} launches per pass "
+                    f"({r['kernel_calls']}), pool scatters "
+                    f"{r['pool_scatters']}, host reads "
+                    f"{r['host_callbacks']}, signatures {r['signatures']}")
+            log(f"  ms per token {out[key]['ms_per_token_checked']:.3f} "
+                f"checked, {out[key]['ms_per_token_unchecked']:.3f} not")
+            del eng
+        # (b) --no-donate in turns with the in-place run
+        os.environ["REPRO_CHECK_CONTRACTS"] = "0"
+        turns = {"in_place": [], "no_donate": []}
+        ref = None
+        for key in ("in_place", "no_donate", "no_donate", "in_place"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            done, m, wall, _, eng = run(False, donate=key == "in_place")
+            peak = torch.cuda.max_memory_allocated() - base
+            del eng
+            if ref is None:
+                ref = done
+            same_tokens(done, ref, f"21 (b) {key}")
+            turns[key].append({"ms_per_token": wall / m["tokens_generated"]
+                               * 1e3, "peak_bytes": peak})
+        out["no_donate"] = turns
+        log("21 (b) --no-donate: tokens bitwise the in-place run; ms per "
+            "token in place " + ", ".join(
+                f"{t['ms_per_token']:.3f}" for t in turns["in_place"])
+            + ", copied " + ", ".join(
+                f"{t['ms_per_token']:.3f}" for t in turns["no_donate"])
+            + "; peak MB above the weights in place " + ", ".join(
+                f"{t['peak_bytes'] / 1e6:.1f}" for t in turns["in_place"])
+            + ", copied " + ", ".join(
+                f"{t['peak_bytes'] / 1e6:.1f}" for t in turns["no_donate"]))
+    finally:
+        if env0 is None:
+            os.environ.pop("REPRO_CHECK_CONTRACTS", None)
+        else:
+            os.environ["REPRO_CHECK_CONTRACTS"] = env0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) the torch examples, at once, each its own process on the card
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for name, (flags, _) in EXAMPLES.items():
+        procs[name] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / name), *flags],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=str(ROOT)))
+    out["examples"] = {}
+    for name, (t0, p) in procs.items():
+        try:
+            text, _ = p.communicate(timeout=300)
+        finally:
+            p.kill()
+        secs = time.perf_counter() - t0
+        claim = EXAMPLES[name][1]
+        out["examples"][name] = {"rc": p.returncode, "seconds": secs,
+                                 "claim": claim in text,
+                                 "tail": text[-600:]}
+        log(f"21 (c) {name}: exit {p.returncode}, {secs:.1f} s, "
+            f"claim {'printed' if claim in text else 'MISSING'}")
+        if p.returncode != 0 or claim not in text:
+            log(text[-3000:])
+            raise AssertionError(f"21 (c): {name} failed")
+    return out
+
+
 def recovery_child_main(mode, ddir, disk_tier) -> int:
     """``--recovery-child``: phase 20 (c)'s child on the card, (a)'s
     workload on a durable engine over ``ddir`` (two priority-5 requests,
@@ -5235,6 +5442,10 @@ def main(argv=None) -> int:
     # ---- phase 20: crash-safe serving -------------------------------------
     report["durable"] = durable_phase(dev, tol)
     lap("20")
+
+    # ---- phase 21: the hot-path checks and the launch layer ---------------
+    report["hot_path"] = hot_path_phase(dev)
+    lap("21")
     log("seconds by phase: " + json.dumps(
         {k: round(v, 1) for k, v in report["phase_seconds"].items()}))
 

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -121,11 +122,11 @@ def uniform(key, n: int, minval: float = 0.0, maxval: float = 1.0,
     fbits = (bits >> (width - mant)) | one
     floats = fbits.to(int_dtype).view(dtype) - 1.0
     if dtype == torch.float32:
-        # float32 scalars, as JAX converts them; no host-to-device copy, so
-        # the noise can be captured in a CUDA graph
-        lo = float(torch.tensor(minval, dtype=torch.float32))
-        span = float(torch.tensor(maxval, dtype=torch.float32)
-                     - torch.tensor(minval, dtype=torch.float32))
+        # float32 scalars, as JAX converts them, rounded on the host with no
+        # tensor op: no host-to-device copy or scalar read, so the noise can
+        # be captured in a CUDA graph
+        lo = float(np.float32(minval))
+        span = float(np.float32(maxval) - np.float32(minval))
         return torch.clamp(floats * span + lo, min=lo)
     lo = torch.tensor(minval, dtype=dtype, device=floats.device)
     hi = torch.tensor(maxval, dtype=dtype, device=floats.device)

@@ -23,6 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.hotpath import hot_path
 from repro_torch.core import random as jr
 
 
@@ -38,6 +39,7 @@ def _key_on(key, device):
     return tuple(k.to(device) for k in key)
 
 
+@hot_path
 def reparam_argmax(logits, eps):
     """Deterministic sample ``g(mu, eps) = argmax_c(mu_c + eps_c)``.
 

@@ -32,6 +32,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.analysis.hotpath import hot_path
 from repro_torch.core import random as jr
 from repro_torch.core.device import resolve_device
 from repro_torch.core.forecasting import TokenForecast
@@ -46,19 +47,24 @@ def _key_words(key, device):
     key words."""
     if isinstance(key, int):
         return jr.prng_key(key, device)
-    k1, k2 = (int(x) for x in key)
+    k1, k2 = (int(x) for x in key)  # repro: allow(host-sync) the key is host data, read once per device
     return (torch.tensor(k1, dtype=torch.int64, device=device),
             torch.tensor(k2, dtype=torch.int64, device=device))
 
 
-def make_eps_fn(key, vocab: int) -> Callable:
+def make_eps_fn(key, vocab: int, device=None) -> Callable:
     """Deterministic per-(noise stream, position) Gumbel noise.
 
     ``eps_fn(seq_ids (B,), positions (B, W))`` -> float32 (B, W, vocab),
     equal to the reference's ``make_eps_fn(key, vocab)`` up to the rounding
     of ``log`` (``core/random.py``). ``key`` is an int seed or a key pair.
+    The key words are uploaded to a device at its first call there, or for
+    ``device`` here, so that no call on it copies from the host.
     """
     words = {}
+    if device is not None:
+        w = _key_words(key, device)
+        words[w[0].device] = w        # keyed as the positions' device reads
 
     def eps_fn(seq_ids, positions):
         dev = positions.device
@@ -189,6 +195,7 @@ def _forecast_fill(params, cfg, eps_fn, seq_ids, h, a, n_new, cand,
     return torch.where(use_fc, fc_tok, cand)
 
 
+@hot_path
 def verify_round(params, cfg, eps_fn, state: GenState, target_len,
                  use_forecast_heads: bool = False,
                  use_verify_kernel: bool = False,

@@ -18,6 +18,11 @@ one). A run can so show that its path went through the kernels
 (``reset_launches`` before, read after). ``WKV_FORMS`` splits
 ``rwkv_wkv``'s count by the form launched: "none" (zero state), "all"
 (every position's state, the verify window) and "last" (prefill).
+
+A wrapper takes its kernel's plain version where every tensor lies on the
+CPU, or every tensor on the meta device (``plain_here``); a meta call is
+counted in ``META_CALLS``, never in ``LAUNCHES``: it stands for the launch
+the card would make, which the dry run (``launch/dryrun.py``) reports.
 """
 from __future__ import annotations
 
@@ -39,19 +44,31 @@ LAUNCHES = {"spec_verify": 0, "paged_decode": 0, "paged_write": 0,
             "paged_latent": 0, "flash_attention": 0, "rwkv_wkv": 0,
             "decode_attention": 0}
 WKV_FORMS = {"none": 0, "all": 0, "last": 0}
+META_CALLS = dict.fromkeys(LAUNCHES, 0)
 
 _LIB = None
 _FNS: dict = {}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, WKV_FORMS):
+    for counts in (LAUNCHES, WKV_FORMS, META_CALLS):
         for name in counts:
             counts[name] = 0
 
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+def plain_here(name: str, *tensors) -> bool:
+    """Whether wrapper ``name`` takes its plain version on ``tensors``:
+    all on the CPU, or all on the meta device (counted in ``META_CALLS``).
+    Anything else is the kernel's, which raises on a device mix."""
+    devices = {t.device.type for t in tensors}
+    if devices == {"meta"}:
+        META_CALLS[name] += 1
+        return True
+    return devices == {"cpu"}
 
 
 def _nvcc() -> str:

@@ -4,14 +4,15 @@ cache of the solo sampler (``GQAttention.window``).
 GQA is handled by grouping the G query heads of one kv head into rows
 ``w*G + g``, read and written by the kernel in the model's ``(B, W, H, d)``
 layout, so neither the queries, the output nor the cache is copied or
-repeated (the reference's op ``jnp.repeat``s the cache). CPU tensors take
-the plain version in ``ref.py``; CUDA tensors launch the kernel or raise:
-there is no fallback.
+repeated (the reference's op ``jnp.repeat``s the cache). CPU and meta
+tensors take the plain version in ``ref.py``; CUDA tensors launch the
+kernel or raise: there is no fallback.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import plain_here
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.split import HEAD_DIMS, split_plan
@@ -23,7 +24,7 @@ def decode_attention(q, k, v, lengths, window: int = 0):
     lengths: (B,). Returns (B, W, H, d) in q's dtype."""
     B, W, H, d = q.shape
     ts = (q, k, v, lengths)
-    if all(t.device.type == "cpu" for t in ts):
+    if plain_here("decode_attention", *ts):
         return decode_attention_ref(q, k, v, lengths, window=window)
     dev = q.device
     if any(t.device.type != "cuda" or t.device != dev for t in ts):

@@ -3,7 +3,7 @@ gradient.
 
 ``flash_attention(q, k, v, window)`` is a ``torch.autograd.Function``. Its
 forward is the CUDA kernel on CUDA tensors and the plain version in
-``ref.py`` on CPU tensors; it raises on anything else (a device mix, a
+``ref.py`` on CPU or meta tensors; it raises on anything else (a device mix, a
 dtype other than float32 or bfloat16, a head width other than 64, 128 or
 256 on the card). Its backward is the exact vector-Jacobian product of that function,
 written in torch ops from the saved ``(q, k, v, o, lse)``: the reference
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import plain_here
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import (causal_mask,
                                                      compute_dtype,
@@ -31,7 +32,7 @@ def flash_attention_fwd(q, k, v, window: int = 0):
             or v.shape != k.shape or H % k.shape[2]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if all(t.device.type == "cpu" for t in (q, k, v)):
+    if plain_here("flash_attention", q, k, v):
         return flash_attention_ref(q, k, v, window=window)
     if any(t.device.type != "cuda" or t.device != q.device
            for t in (k, v)) or q.device.type != "cuda":

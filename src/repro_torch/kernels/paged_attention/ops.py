@@ -9,13 +9,14 @@ expanded; MLA's single latent "kv head" serves all H heads as rows
 ``w*H + h``, read in place through the queries' strides. The pools are
 updated in place on every path (the reference donates them).
 
-CPU tensors take the plain versions in ``ref.py``. CUDA tensors launch the
-kernels or raise: there is no fallback.
+CPU and meta tensors take the plain versions in ``ref.py``. CUDA tensors
+launch the kernels or raise: there is no fallback.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import plain_here
 from repro_torch.kernels.paged_attention.kernel import (LATENT_NB,
                                                         paged_decode_cuda,
                                                         paged_latent_cuda,
@@ -23,10 +24,6 @@ from repro_torch.kernels.paged_attention.kernel import (LATENT_NB,
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_fused_ref, paged_latent_fused_ref, write_window_paged)
 from repro_torch.kernels.split import HEAD_DIMS, split_plan
-
-
-def _all_cpu(*ts) -> bool:
-    return all(t.device.type == "cpu" for t in ts)
 
 
 def _check_cuda(name, *ts):
@@ -54,7 +51,8 @@ def paged_attention(q, k_pool, v_pool, k_new, v_new, tables, lengths,
     tables: (B, nb); lengths: (B,). Returns (out (B, W, H, d), k_pool,
     v_pool), the window rows written through the tables in place."""
     B, W, H, d = q.shape
-    if _all_cpu(q, k_pool, v_pool, k_new, v_new, tables, lengths):
+    if plain_here("paged_decode", q, k_pool, v_pool, k_new, v_new, tables,
+                  lengths):
         return paged_attention_fused_ref(q, k_pool, v_pool, k_new, v_new,
                                          tables, lengths, window=window)
     _check_cuda("paged_attention", k_pool, v_pool, k_new, v_new, tables,
@@ -98,8 +96,8 @@ def paged_latent_attention(q_lat, q_rope, c_pool, kr_pool, c_new, kr_new,
     W_o) and both pools with the window committed in place."""
     B, W, H, r = q_lat.shape
     dr = q_rope.shape[-1]
-    if _all_cpu(q_lat, q_rope, c_pool, kr_pool, c_new, kr_new, tables,
-                lengths):
+    if plain_here("paged_latent", q_lat, q_rope, c_pool, kr_pool, c_new,
+                  kr_new, tables, lengths):
         return paged_latent_fused_ref(q_lat, q_rope, c_pool, kr_pool, c_new,
                                       kr_new, tables, lengths, scale=scale)
     if not (q_lat.dtype == q_rope.dtype == c_pool.dtype == kr_pool.dtype
@@ -161,8 +159,8 @@ def paged_window_write(pool, new, tables, start, active=None):
     ``start (B,)`` through ``tables (B, nb)``, in place; returns the pool.
     Rows with ``active == 0`` write nothing the reference keeps (it routes
     them to the sink block 0)."""
-    if _all_cpu(pool, new, tables, start) and (
-            active is None or active.device.type == "cpu"):
+    if plain_here("paged_write", pool, new, tables, start,
+                  *(() if active is None else (active,))):
         return write_window_paged(pool, new, tables, start, active)
     idx = (tables, start) if active is None else (tables, start, active)
     _check_cuda("paged_window_write", pool, new, *idx)

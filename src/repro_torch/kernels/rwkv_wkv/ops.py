@@ -4,14 +4,15 @@
 ``rwkv_wkv/ops.py``). States go in and out in float32 whatever the model's
 dtype: rounded to bfloat16 between calls, the state would lose the decay
 (``1 - w`` is near 2^-9, below half a bf16 ulp of the state) and the
-result would depend on where calls split the sequence. CPU tensors take
-the plain version in ``ref.py``; CUDA tensors launch the kernel or raise:
-there is no fallback.
+result would depend on where calls split the sequence. CPU and meta
+tensors take the plain version in ``ref.py``; CUDA tensors launch the
+kernel or raise: there is no fallback.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import plain_here
 from repro_torch.kernels.rwkv_wkv.kernel import rwkv_wkv_cuda
 from repro_torch.kernels.rwkv_wkv.ref import FORMS, rwkv_wkv_ref
 
@@ -29,7 +30,7 @@ def rwkv_wkv(r, k, v, w, u, state0=None, states: str = "none"):
     ts = [r, k, v, w, u] + ([] if state0 is None else [state0])
     if state0 is not None and state0.dtype != torch.float32:
         raise TypeError(f"rwkv_wkv: state0 is {state0.dtype}; want float32")
-    if all(t.device.type == "cpu" for t in ts):
+    if plain_here("rwkv_wkv", *ts):
         return rwkv_wkv_ref(r, k, v, w, u, state0, states)
     dev = r.device
     if any(t.device.type != "cuda" or t.device != dev for t in ts):

@@ -31,6 +31,11 @@ def rwkv_wkv_ref(r, k, v, w, u, state0=None, states: str = "none"):
     u32 = u.float()[None, :, :, None]                     # (1, H, hd, 1)
     S = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
          if state0 is None else state0.float())
+    if r.device.type == "meta":
+        # only shapes exist on the meta device (the dry run): no loop
+        y = torch.empty((B, T, H, hd), dtype=r.dtype, device=r.device)
+        return {"none": y, "all": (y, S.new_empty((B, T, H, hd, hd))),
+                "last": (y, S)}[states]
     ys, Ss = [], []
     for t in range(T):
         kv = k32[:, t, :, :, None] * v32[:, t, :, None, :]  # (B, H, hd, hd)

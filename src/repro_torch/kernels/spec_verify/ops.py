@@ -1,11 +1,12 @@
 """Public op: batched Gumbel-max verify.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises. Shapes beyond 2D are flattened to rows."""
+A CPU or meta tensor takes the plain version; a CUDA tensor launches the
+kernel or raises. Shapes beyond 2D are flattened to rows."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import plain_here
 from repro_torch.kernels.spec_verify.kernel import spec_verify_cuda
 from repro_torch.kernels.spec_verify.ref import spec_verify_ref
 
@@ -19,7 +20,7 @@ def spec_verify(logits: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     V = logits.shape[-1]
     lg = logits.reshape(-1, V)
     ep = eps.reshape(-1, V)
-    if lg.device.type == "cpu" and ep.device.type == "cpu":
+    if plain_here("spec_verify", lg, ep):
         return spec_verify_ref(lg, ep).reshape(shape)
     if lg.device.type != "cuda" or ep.device != lg.device:
         raise ValueError(f"spec_verify: tensors on {lg.device} and "

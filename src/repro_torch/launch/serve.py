@@ -17,6 +17,9 @@ a disk tier below the host arena, all under DIR; a run over a DIR a killed
 run left recovers every request it had accepted (``restore``) before it
 submits its own. ``--journal-fsync-every`` batches the journal's fsync;
 ``--no-disk-tier`` keeps the journal and checkpoint without the disk tier.
+``--no-donate`` copies the paged cache out of place at every dispatch, as
+the reference's undonated round writes a fresh pool (an A/B of what the
+in-place update saves; the tokens do not change).
 
 Also exports ``make_serve_step``, the reference's one-round verify step
 over a dense cache, with its two-pass low-memory form for recurrent and
@@ -87,6 +90,14 @@ def main(argv=None):
     ap.add_argument("--no-adaptive", action="store_true",
                     help="pin W instead of adapting it to acceptance")
     ap.add_argument("--no-prefix-cache", action="store_true")
+    ap.add_argument("--no-donate", action="store_true",
+                    help="copy the paged cache (block pools and recurrent "
+                         "rows) out of place at every round loop and "
+                         "prefill dispatch, as an undonated round writes a "
+                         "fresh pool: one read and one write of the cache "
+                         "per dispatch (leaf by leaf, so one leaf's copy is "
+                         "live beside the cache); the same tokens (for A/B "
+                         "measurement)")
     ap.add_argument("--rounds-per-sync", type=int, default=4,
                     help="verify rounds per host sync (1 = host-driven)")
     ap.add_argument("--staging-slots", type=int, default=0,
@@ -186,7 +197,7 @@ def main(argv=None):
                            durable_dir=args.durable_dir,
                            journal_fsync_every=args.journal_fsync_every,
                            disk_tier=not args.no_disk_tier,
-                           device=device)
+                           donate=not args.no_donate, device=device)
     first_uid = 0
     if args.durable_dir:
         recovered = engine.restore()

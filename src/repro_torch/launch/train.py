@@ -101,6 +101,8 @@ def make_train_step(cfg, optimizer, remat: bool = True,
 
 
 def main(argv=None):
+    """Run the CLI; returns the trained parameters and the logged
+    ``(step, loss)`` pairs (for drivers such as the examples)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -131,12 +133,14 @@ def main(argv=None):
     pipe = TokenPipeline(token_batches(max(512, args.batch * 8), args.batch,
                                        args.seq, cfg.vocab), device)
     key = jr.prng_key(0, device)
+    logged = []
     t0 = time.perf_counter()
     for it, batch in zip(range(start, args.steps), pipe):
         pre = frontends.random_prefix(jr.fold_in(key, it), cfg, args.batch)
         params, opt_state, m = step_fn(params, opt_state, batch, pre)
         if (it + 1) % args.log_every == 0:
             loss, xent = float(m["loss"]), float(m["xent"])
+            logged.append((it + 1, loss))
             dt = (time.perf_counter() - t0) / args.log_every
             print(f"step {it + 1} loss {loss:.4f} xent {xent:.4f} "
                   f"{dt * 1e3:.0f} ms/step", flush=True)
@@ -144,6 +148,7 @@ def main(argv=None):
         if args.ckpt_dir and (it + 1) % args.ckpt_every == 0:
             save_pytree(reference_tree(params, cfg), args.ckpt_dir, it + 1)
     print("done")
+    return params, logged
 
 
 if __name__ == "__main__":

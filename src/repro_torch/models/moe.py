@@ -120,7 +120,9 @@ class MoE:
     def load_balance_loss(probs, ids, cfg):
         """Switch-style aux loss: E * sum_e f_e * p_e / k."""
         E = cfg.n_experts
-        onehot = F.one_hot(ids.long(), E).float()               # (N, k, E)
+        # one_hot's range check reads the ids on the host: compare instead
+        onehot = (ids.long()[..., None] == torch.arange(
+            E, device=ids.device)).float()                      # (N, k, E)
         f = torch.mean(torch.sum(onehot, dim=1), dim=0)         # routed share
         pbar = torch.mean(probs, dim=0)                         # mean prob
         return E * torch.sum(f * pbar) / cfg.top_k

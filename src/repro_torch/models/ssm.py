@@ -79,6 +79,11 @@ def _at(x, accept):
     return x[rows, (accept.long() - 1).clamp(min=0)]
 
 
+def _spread(x, T: int):
+    """A step's (B, ...) meta tensor as a fresh (B, T, ...) one."""
+    return x[:, None].expand(x.shape[0], T, *x.shape[1:]).contiguous()
+
+
 def _wkv_step(S, r_t, k_t, v_t, w_t, u):
     """One step of the recurrence in the working dtype: returns (S_t, y_t)
     from S_{t-1} (B, H, hd, hd) and the step's (B, H, hd) rows."""
@@ -155,8 +160,14 @@ class RWKV6TimeMix:
         in the working dtype. Returns y (B, T, H, hd) and the state after
         every step (B, T, H, hd, hd), or with ``every_state=False`` only
         the state after the last step."""
+        B, T = r.shape[:2]
+        if r.device.type == "meta":
+            # only shapes exist on the meta device (the dry run): one step
+            # gives them (and the autograd graph), a loop over T only time
+            S, y = _wkv_step(state0, r[:, 0], k[:, 0], v[:, 0], w[:, 0], u)
+            return _spread(y, T), _spread(S, T) if every_state else S
         S, ys, Ss = state0, [], []
-        for t in range(r.shape[1]):
+        for t in range(T):
             S, y = _wkv_step(S, r[:, t], k[:, t], v[:, t], w[:, t], u)
             ys.append(y)
             if every_state:
@@ -393,8 +404,15 @@ class Mamba:
         one step at a time from h (B, DI, N), all in float32. Returns y
         (B, T, DI) and the state after every step (B, T, DI, N), or with
         ``every_state=False`` the state after the last step."""
+        B, T = dA.shape[:2]
+        if dA.device.type == "meta":
+            # only shapes exist on the meta device (the dry run): one step
+            # gives them (and the autograd graph), a loop over T only time
+            h = dA[:, 0] * h + dBu[:, 0]
+            y = (h * Cm[:, 0, None, :]).sum(-1)
+            return _spread(y, T), _spread(h, T) if every_state else h
         ys, hs = [], []
-        for t in range(dA.shape[1]):
+        for t in range(T):
             h = dA[:, t] * h + dBu[:, t]
             ys.append((h * Cm[:, t, None, :]).sum(-1))
             if every_state:

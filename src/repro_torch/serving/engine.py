@@ -114,9 +114,18 @@ The port of the reference's ``serving/engine.py``, single-device:
   journal and the disk tier ``pre_fsync`` and ``mid_spill``) let a test
   SIGKILL the process anywhere in that protocol.
 
+* **Hot-path contracts** — under ``REPRO_CHECK_CONTRACTS=1`` the first
+  dispatch of each round loop, staged loop and prefill variant runs under
+  the op census against its named contract (``repro_torch.analysis``;
+  ``contract_reports`` keeps the reports), and on the card every dispatch
+  runs under ``set_sync_debug_mode("error")``. The loops read only device
+  tensors: the host mirrors are uploaded before them
+  (``_round_program``).
+
 The pool and the per-slot row state (tokens, lengths, windows) are updated
 in place: the reference donates them to each step, so their old values are
-dead there too.
+dead there too. ``donate=False`` copies the paged cache out of place at
+every dispatch, as an undonated step writes a fresh pool.
 
 Exactness: every request's tokens equal a per-request
 ``PredictiveSampler.generate`` run with the same noise key and stream id
@@ -139,6 +148,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis import contracts_enabled, hot_path, maybe_check
 from repro_torch.core.device import resolve_device
 from repro_torch.engine.spec_decode import GenState, make_eps_fn, verify_round
 from repro_torch.models.transformer import (PagedView, TransformerLM,
@@ -257,7 +267,8 @@ class ServingEngine:
                  prefetch_budget: int = 4,
                  durable_dir: Optional[str] = None,
                  journal_fsync_every: int = 1, disk_tier: bool = True,
-                 disk_cache_mb: Optional[float] = None, device=None):
+                 disk_cache_mb: Optional[float] = None, donate: bool = True,
+                 device=None):
         if block_size < 1 or window_max < 1 or rounds_per_sync < 1 \
                 or prefill_chunk < 1 or lookahead < 1 or max_head_bypass < 0 \
                 or request_retries < 0 or staging_slots < 0 \
@@ -316,7 +327,12 @@ class ServingEngine:
         self.max_request_rounds = max_request_rounds
         self.faults = faults if faults is not None else FaultPlan.from_env()
         self.eps_fn = eps_fn if eps_fn is not None else make_eps_fn(
-            eps_key, cfg.vocab)
+            eps_key, cfg.vocab, device=self.device)
+        # False: every dispatch copies the paged cache out of place first,
+        # as an undonated round of the reference writes a fresh pool
+        self.donate = donate
+        # the Report of every dispatch checked under REPRO_CHECK_CONTRACTS
+        self.contract_reports = []
 
         # ---- paged cache ------------------------------------------------
         self.nb = -(-(max_len + window_max) // block_size)  # table width
@@ -517,11 +533,20 @@ class ServingEngine:
 
     # -- device steps -------------------------------------------------------
     def _prefill(self, table_row, b: int, chunk, start: int):
-        """Row-local prefill of one chunk through slot ``b``'s block table;
-        the pool is written in place and the slot's recurrent row takes the
-        state after the chunk's last token."""
-        rows = slice(b, b + 1)
+        """Row-local prefill of one chunk through slot ``b``'s block table,
+        through the contract seam: its start uploaded before the checked
+        region (``_prefill_chunk``), as the chunk and the table row were."""
         start_t = torch.tensor([start], dtype=torch.int32, device=self.device)
+        self._contract_check(
+            "prefill", functools.partial(self._prefill_chunk, b=b),
+            (table_row, chunk, start_t))
+
+    def _prefill_chunk(self, table_row, chunk, start_t, *, b: int):
+        """Row-local prefill of one chunk through slot ``b``'s block table
+        from position ``start_t`` (1,); the pool is written in place and the
+        slot's recurrent row takes the state after the chunk's last
+        token."""
+        rows = slice(b, b + 1)
         if not self.paged_attention:
             view = TransformerLM.gather_paged(self.cfg, self.paged,
                                               table_row, rows)
@@ -566,19 +591,21 @@ class ServingEngine:
                                     st.n < tgt)
         return st2, rstats
 
-    def _round_loop(self, W: int, k: int) -> torch.Tensor:
+    @hot_path
+    def _round_loop(self, W: int, tables, seq_ids, target, poison, *,
+                    k: int) -> torch.Tensor:
         """Up to ``k`` verify rounds at window W on the device, with no host
-        sync inside. A round runs while some row is live (not done, not
+        sync inside: the loop reads device tensors only, the block tables,
+        stream ids, targets and poison flags uploaded before it
+        (``_round_program``) as the reference's jitted round takes them as
+        arguments. ``poison`` is None where no slot holds a poisoned stream:
+        every row's logits then pass through untouched, so the select over
+        them is left out. A round runs while some row is live (not done, not
         bad); after that every round is a no-op (its target is zeroed, so no
         row is active), the work the reference's ``while_loop`` skips.
         Returns the packed (B, 5) stats ``[accepted, rounds_active,
         new_length, loop_rounds, bad]``."""
         B, dev = self.B, self.device
-        tables, seq_ids = self._tables_device(), self._seq_device()
-        target = self._target_device()
-        # every row's logits pass through untouched where no slot holds a
-        # poisoned stream, so the select over them is left out
-        poison = self._poison_device() if self.poison.any() else None
         tokens, n, cand = self.tokens, self.n, self.cand
         zero = torch.zeros((B,), dtype=torch.int64, device=dev)
         acc, act_rounds, bad = zero, zero, zero
@@ -604,7 +631,9 @@ class ServingEngine:
         self.cand.copy_(cand)
         return torch.stack([acc, act_rounds, n, r.expand(B), bad], dim=1)
 
-    def _staged_loop(self, W: int, k: int) -> torch.Tensor:
+    @hot_path
+    def _staged_loop(self, W: int, use_poison: bool, tables, seq, target,
+                     poison_c, plen, staged, *, k: int) -> torch.Tensor:
         """The round loop with in-loop adoption (``staging_slots > 0``): the
         reference's staged ``while_loop`` as ``k`` device rounds. A sticky
         ``go`` flag falls the first time the reference's condition fails —
@@ -622,6 +651,13 @@ class ServingEngine:
         rows, and its verify rounds prefill it by forced acceptance.
         Dropped writes go to an extra descriptor row that is cut off.
 
+        The loop reads device tensors only, uploaded before it
+        (``_round_program``): the tables, stream ids, targets, poison flags
+        and prompt lengths, and ``staged``, the staging area
+        (``_staged_args``: the descriptors, their count and whether the
+        host holds more backlog). ``use_poison`` says whether a slot or a
+        descriptor holds a poisoned stream, else the select is left out.
+
         Returns one int64 buffer for the single pull: the (B, 7) stats
         ``[accepted, rounds_active, new_length, loop_rounds, bad,
         gen_rounds, idle_rounds]``, then (S, 6) episodes (-1 rows: not
@@ -630,14 +666,8 @@ class ServingEngine:
         the host mirrors follow in ``_harvest_adoptions``."""
         B, dev, S = self.B, self.device, self.staging_slots
         max_len, Wm = self.max_len, self.W_max
-        count = len(self.staged)
-        q_more = len(self.queue) > 0
-        d = self._staged_args()
-        d_tables, d_tokens, d_n, d_target, d_seq, d_poison, d_plen = d
-        tables, seq, target = (self._tables_device(), self._seq_device(),
-                               self._target_device())
-        poison_c, plen = self._poison_device(), self._plen_device()
-        use_poison = self.poison.any() or any(e.poison for e in self.staged)
+        (d_tables, d_tokens, d_n, d_target, d_seq, d_poison, d_plen, count,
+         q_more) = staged
         tokens, n, cand = self.tokens, self.n, self.cand
         states = (TransformerLM.state_leaves(self.cfg, self.paged)
                   if self.recurrent else [])
@@ -653,8 +683,7 @@ class ServingEngine:
         for _ in range(k):
             free = (n >= target) | (bad > 0)
             cont = ((n < target) & (bad == 0)).any() | (m < count)
-            if q_more:
-                cont = cont & ~((m >= count) & free.any() & (r > 0))
+            cont = cont & ~(q_more & (m >= count) & free.any() & (r > 0))
             go = go & cont
             # ---- adoption scan ------------------------------------------
             free = free & go
@@ -722,11 +751,13 @@ class ServingEngine:
     def _staged_args(self) -> tuple:
         """This loop's staging area on the device, with one upload: the
         descriptors' tables (int32), tokens, start lengths, targets,
-        streams, poison and prompt lengths (int64)."""
+        streams, poison and prompt lengths (int64), then their count and
+        whether the host holds more backlog (() int64 and bool)."""
         _, tables, tokens, n0, target, seq, poison, plen = \
             pack_staged_descriptors([self.staged], self.staging_slots,
                                     self.nb, self.max_len)
-        parts = (tables, tokens, n0, target, seq, poison, plen)
+        parts = (tables, tokens, n0, target, seq, poison, plen,
+                 np.array(len(self.staged)), np.array(len(self.queue) > 0))
         flat = torch.from_numpy(np.concatenate(
             [a.astype(np.int64).reshape(-1) for a in parts])).to(self.device)
         out, off = [], 0
@@ -734,7 +765,76 @@ class ServingEngine:
             out.append(flat[off:off + a.size].view(a.shape))
             off += a.size
         out[0] = out[0].to(torch.int32)
+        out[-1] = out[-1].bool()
         return tuple(out)
+
+    def _round_program(self, W: int, k: int) -> tuple:
+        """``(kind, fn, args)`` of the round loop the next step dispatches
+        at window W and ``k`` rounds: the host mirrors uploaded here, so
+        the loop itself reads only device tensors. ``args`` holds what
+        sets the program's shapes (W, the poison select) beside the
+        tensors; ``k`` is bound in ``fn``: a loop of k rounds replays one
+        round's program k times."""
+        tables, seq, target = (self._tables_device(), self._seq_device(),
+                               self._target_device())
+        if self.staging_slots == 0:
+            poison = self._poison_device() if self.poison.any() else None
+            return ("round", functools.partial(self._round_loop, k=k),
+                    (W, tables, seq, target, poison))
+        use_poison = bool(self.poison.any()) or any(e.poison
+                                                    for e in self.staged)
+        return ("staged_round", functools.partial(self._staged_loop, k=k),
+                (W, use_poison, tables, seq, target, self._poison_device(),
+                 self._plen_device(), self._staged_args()))
+
+    def _paged_leaves(self) -> dict:
+        """Every tensor of the paged cache: ``pool``, the block pools, and
+        ``state``, the recurrent state rows."""
+        return {"pool": TransformerLM.pool_leaves(self.cfg, self.paged),
+                "state": TransformerLM.state_leaves(self.cfg, self.paged)}
+
+    def _contract_check(self, kind: str, fn, args, variant=None):
+        """The contract seam: ``fn(*args)``, checked against its named
+        contract at its first dispatch under ``REPRO_CHECK_CONTRACTS=1``
+        (``analysis.maybe_check``; on the card every dispatch then runs
+        under ``set_sync_debug_mode("error")``). The label is per engine,
+        so the recompile registry never mixes instances; an engine built
+        with ``donate=False`` copies its paged cache out of place first
+        and skips the aliasing rule."""
+        if not self.donate:
+            fn = functools.partial(self._undonated, fn)
+        if not contracts_enabled():
+            return fn(*args)
+        return maybe_check(kind, fn, args, label=f"{kind}@{hex(id(self))}",
+                           variant=variant, donate=self.donate,
+                           device=self.device, reports=self.contract_reports,
+                           **self._paged_leaves(),
+                           **self._contract_exemptions())
+
+    def _undonated(self, fn, *args):
+        """``fn(*args)`` as an undonated program of the reference runs:
+        every leaf of the paged cache is first copied out of place, the
+        copy taking the leaf's place (``set_``, so everything holding the
+        leaf sees it) and the old storage freed. Tokens are unchanged; the
+        cost is one read and one write of the cache per dispatch; leaf by
+        leaf, so beside the cache one leaf's copy is live, not a second
+        cache as in the reference's undonated program."""
+        leaves = self._paged_leaves()
+        for leaf in leaves["pool"] + leaves["state"]:
+            leaf.set_(leaf.clone())
+        return fn(*args)
+
+    def _contract_exemptions(self) -> dict:
+        """This engine's refinement of the contracts (consumed by
+        ``maybe_check`` / ``check_engine_round``): ``pool_scatter_shapes``,
+        the exact KV-pool leaf shapes, narrows NoPoolRankedScatters from
+        the rank proxy to real pool writes (MoE dispatch buffers and
+        recurrent state rows are high-rank scatters the round runs by
+        design). A tensor-parallel exemption comes with the mesh engine
+        (ROADMAP item 20)."""
+        return {"pool_scatter_shapes": frozenset(
+            tuple(leaf.shape)
+            for leaf in TransformerLM.pool_leaves(self.cfg, self.paged))}
 
     # -- slot / block plumbing ---------------------------------------------
     def _ensure_capacity(self, b: int, upto_pos: int):
@@ -1764,11 +1864,13 @@ class ServingEngine:
             return bool(self.queue) or bool(self.staged)
         # THE host sync: one small packed pull per loop
         adopt = None
+        kind, fn, args = self._round_program(W, k)
+        out = self._contract_check(kind, fn, args, variant=k).cpu().numpy()
         if self.staging_slots == 0:
-            stats = self._round_loop(W, k).cpu().numpy()
+            stats = out
         else:
             S = self.staging_slots
-            flat = self._staged_loop(W, k).cpu().numpy()
+            flat = out
             stats = flat[:self.B * 7].reshape(self.B, 7)
             adopt = flat[self.B * 7:self.B * 7 + S * 6].reshape(S, 6)
             out_tok = flat[self.B * 7 + S * 6:].reshape(S, self.max_len)

@@ -1619,3 +1619,88 @@ def test_restage_through_the_disk_equals_the_tierless_engine_on_gpu(
     assert m["prefill_calls"] < mt["prefill_calls"]
     for u in range(3):
         np.testing.assert_array_equal(got[u].result, plain[u].result)
+
+
+# ---------------------------------------------------------------------------
+# the hot-path checks on the card: the round loops under sync-debug "error"
+# ---------------------------------------------------------------------------
+
+def _serve_checked(cfg, params, cuda, **kw):
+    from repro_torch.serving.admission import Request
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, params, batch=2, window_max=8, max_len=64,
+                        eps_key=5, block_size=16, adaptive=False,
+                        use_verify_kernel=True, device=cuda, **kw)
+    rng = np.random.default_rng(11)
+    for i in range(4):
+        eng.submit(Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab, int(rng.integers(2, 20))),
+            new_tokens=int(rng.integers(8, 24))))
+    return {r.uid: (r.result, r.calls_used) for r in eng.run()}, eng
+
+
+@pytest.mark.parametrize("staging", [0, 2])
+def test_round_loops_hold_their_contracts_on_gpu(cuda, no_tf32, monkeypatch,
+                                                 staging):
+    """With ``REPRO_CHECK_CONTRACTS=1`` every round loop and prefill chunk
+    of reduced qwen3-1.7b on the card runs under
+    ``set_sync_debug_mode("error")`` (a synchronizing call raises), and the
+    first dispatch of each variant passes its contract: the pool's storage
+    kept and no pool-shaped tensor made, no host read, at most 8 argument
+    signatures a loop, the kernels launched inside the checked region.
+    Tokens and verify rounds are bitwise the unchecked run's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+    cfg = get_config("qwen3-1.7b", reduced=True)
+    params = TransformerLM.init(cfg, seed=0, device=cuda)
+    monkeypatch.setenv("REPRO_CHECK_CONTRACTS", "0")
+    off, _ = _serve_checked(cfg, params, cuda, staging_slots=staging)
+    monkeypatch.setenv("REPRO_CHECK_CONTRACTS", "1")
+    on, eng = _serve_checked(cfg, params, cuda, staging_slots=staging)
+    assert on.keys() == off.keys()
+    for uid, (tokens, calls) in off.items():
+        np.testing.assert_array_equal(on[uid][0], tokens)
+        assert on[uid][1] == calls
+    loop = "staged_round" if staging else "round"
+    reports = eng.contract_reports
+    assert {r.label.split("@")[0] for r in reports} == {loop, "prefill"}
+    for r in reports:
+        assert r.ok, r
+        assert r.metrics["host_callbacks"] == 0
+        assert r.metrics["pool_scatters"] == 0
+    loops = [r for r in reports if r.label.startswith(loop)]
+    assert max(r.metrics["signatures"] for r in loops) <= 8
+    for r in loops:
+        assert r.metrics["kernel_calls"]["paged_decode"] > 0
+        assert r.metrics["kernel_calls"]["spec_verify"] > 0
+
+
+def test_sync_debug_mode_catches_a_planted_sync_on_gpu(cuda):
+    """A scalar read inside the region is a device sync: the card's check
+    raises it under sync-debug mode and the contract names it."""
+    from repro_torch.analysis import Contract, NoHostCallbacks, check_program
+    rep = check_program(lambda x: x * x.sum().item(),
+                        (torch.ones(8, device=cuda),),
+                        Contract("T", [NoHostCallbacks()]))
+    assert not rep.ok
+    assert any("sync-debug" in v.summary or "_local_scalar_dense" in
+               v.evidence.get("op", "") for v in rep.violations)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.parametrize("staging", [0, 2])
+def test_no_donate_tokens_equal_the_in_place_run_on_gpu(cuda, no_tf32,
+                                                        staging):
+    """``donate=False`` copies the paged cache out of place at every
+    dispatch; tokens and verify rounds bitwise the in-place run's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+    cfg = get_config("qwen3-1.7b", reduced=True)
+    params = TransformerLM.init(cfg, seed=0, device=cuda)
+    inplace, _ = _serve_checked(cfg, params, cuda, staging_slots=staging)
+    copied, _ = _serve_checked(cfg, params, cuda, staging_slots=staging,
+                               donate=False)
+    assert copied.keys() == inplace.keys()
+    for uid, (tokens, calls) in inplace.items():
+        np.testing.assert_array_equal(copied[uid][0], tokens)
+        assert copied[uid][1] == calls

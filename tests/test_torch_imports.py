@@ -1,8 +1,9 @@
 """Import guard: the port and ``chip_smoke.py`` import neither ``jax`` nor
 the JAX package ``repro`` — by an AST scan of every module, and by
 importing them all in a fresh interpreter and checking ``sys.modules``.
-The card's tests (``test_torch_gpu.py``) run where JAX is not installed,
-so the scan covers them too."""
+The card's tests (``test_torch_gpu.py``) and the torch examples
+(``examples/*_torch.py``) run where JAX is not installed, so the scan
+covers them too."""
 import ast
 import subprocess
 import sys
@@ -14,8 +15,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tests" / "test_torch_gpu.py"]
+    return (sorted(PORT.rglob("*.py"))
+            + sorted((ROOT / "examples").glob("*_torch.py"))
+            + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"])
 
 
 def _top(name):
@@ -138,3 +140,17 @@ def test_scan_covers_the_durability_modules():
             "serving/hostcache/tier.py", "serving/hostcache/arena.py",
             "serving/faults.py", "serving/engine.py",
             "launch/serve.py"} <= names
+
+
+def test_scan_covers_the_analysis_launch_and_example_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    assert {"src/repro_torch/analysis/__init__.py",
+            "src/repro_torch/analysis/census.py",
+            "src/repro_torch/analysis/contracts.py",
+            "src/repro_torch/analysis/hotpath.py",
+            "src/repro_torch/analysis/lint.py",
+            "src/repro_torch/analysis/rules.py",
+            "src/repro_torch/launch/dryrun.py",
+            "examples/quickstart_torch.py", "examples/serve_llm_torch.py",
+            "examples/train_multiarch_torch.py",
+            "examples/latent_autoencoder_torch.py"} <= names

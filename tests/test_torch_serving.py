@@ -204,3 +204,30 @@ def test_entry_points_refuse_cpu_unless_asked(qwen):
         ServingEngine(cfg, params, batch=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PredictiveSampler(cfg, params)
+
+
+@pytest.mark.parametrize("staging", [0, 2])
+def test_no_donate_tokens_equal_the_in_place_run(qwen, staging, capsys):
+    """``donate=False`` (``--no-donate``) copies the paged cache out of
+    place at every dispatch, as an undonated round writes a fresh pool
+    (``test_torch_contracts.py`` shows the move): every request's tokens
+    and verify rounds equal the in-place run's bitwise. The CLI's flag
+    reaches the engine."""
+    cfg, _, _, params = qwen
+    runs = {}
+    for donate in (True, False):
+        eng = ServingEngine(cfg, params, batch=2, window_max=8, max_len=64,
+                            eps_key=EPS_SEED, block_size=4,
+                            staging_slots=staging, donate=donate,
+                            device=CPU)
+        for uid, p, n in _traffic(3, 5, cfg.vocab):
+            eng.submit(Request(uid=uid, prompt=p, new_tokens=n))
+        runs[donate] = {r.uid: (r.result, r.calls_used) for r in eng.run()}
+    assert runs[True].keys() == runs[False].keys()
+    for uid, (tokens, calls) in runs[True].items():
+        np.testing.assert_array_equal(runs[False][uid][0], tokens)
+        assert runs[False][uid][1] == calls
+    serve.main(["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu",
+                "--requests", "2", "--new-tokens", "6", "--max-len", "48",
+                "--block-size", "8", "--no-donate"])
+    assert "served 2 requests / 12 tokens" in capsys.readouterr().out
