@@ -46,13 +46,15 @@ which fails the script when it fails:
    Adafactor steps at B = 1, S = 512, the trained parameters saved with
    ``save_pytree``, loaded back bitwise, and 1 request served from them
    with the forecast heads;
-9. rwkv6-7b at full width (32 layers, bf16, 7.58 B random parameters from
-   seed 0): phase 3's 4 requests served with every layer's WKV recurrence
-   on the WKV kernel (32 launches per verify pass, all in its verify form,
-   and 32 per prefill chunk, all in its prefill form),
+9. rwkv6-7b at full width (bf16, random parameters from seed 0), served
+   on its first 8 of 32 layers (``RWKV_SERVE_LAYERS``, 2.30 B of its 7.58
+   B parameters): phase 3's 4 requests with every layer's WKV recurrence
+   on the WKV kernel (8 launches per verify pass, all in its verify form,
+   and 8 per prefill chunk, all in its prefill form),
    a profile, every request against the solo sampler on the plain scan
-   under the margin rule, and ``TransformerLM.apply`` at T = 1024 on the
-   kernel route against the plain route, gated beside two planted faults;
+   under the margin rule; ``TransformerLM.apply`` at T = 1024 on all 32
+   layers, on the kernel route against the plain route, gated beside two
+   planted faults;
    then (e) two requests at a fixed W = 8 with one forced
    ``preempt_slot`` after the first sync (the slot's float32 recurrent
    rows parked on the host and restored), tokens and verify rounds
@@ -117,18 +119,19 @@ which fails the script when it fails:
    routes' differences, ``moe_aux``, the share of token-slots dropped and
    the peak memory;
 14. the remaining dense configs at their published widths, each model
-   freed before the next: (a) gemma3-1b (26 layers, 22 of them ``local``
-   at a 512-key window; one kv head of width 256; vocab 262,144; 1.00 B
-   parameters), 4 requests with prompts of 520, 600, 700 and 300 tokens
-   (32 new each) in ``ServingEngine(batch=2, window_max=8, block_size=16,
-   max_len=1024)`` on paged_decode (26 launches per verify pass and
-   prefill chunk, asserted), profiled, one request on the gather fallback
-   (paged_write), every request against the solo sampler on
-   decode_attention and on the plain route under the margin rule; (b)
-   gemma-2b (18 layers, 8 query heads over one kv head of 256, no window;
-   2.51 B) the same; (c) mistral-large-123b cut to 4 of its 88 layers (96
-   query heads over 8 kv heads of 128, G = 12) the same; (d)
-   gemma3-1b trained 3 AdamW steps at B = 2, S = 2048 on the flash kernel
+   freed before the next, cut in depth as ``DENSE_LAYERS`` says: (a)
+   gemma3-1b cut to 8 of its 26 layers (one 5:1 block and the two
+   trailing local layers: 7 ``local`` at a 512-key window, 1 global; one
+   kv head of width 256; vocab 262,144), 4 requests with prompts of 520,
+   600, 700 and 300 tokens (32 new each) in ``ServingEngine(batch=2,
+   window_max=8, block_size=16, max_len=1024)`` on paged_decode (8
+   launches per verify pass and prefill chunk, asserted), profiled, one
+   request on the gather fallback (paged_write), every request against
+   the solo sampler on decode_attention and on the plain route under the
+   margin rule; (b) gemma-2b cut to 6 of its 18 layers (8 query heads
+   over one kv head of 256, no window) the same; (c) mistral-large-123b
+   cut to 4 of its 88 layers (96 query heads over 8 kv heads of 128,
+   G = 12) the same; (d) gemma3-1b (all 26 layers) trained 3 AdamW steps at B = 2, S = 2048 on the flash kernel
    (per step 22 windowed and 4 global launches, counted by window), its
    step-1 logits and per-position losses against the plain route within
    ``ROUTE_LIMITS``, which a planted fault that drops the window and one
@@ -169,8 +172,9 @@ which fails the script when it fails:
    G = 7; paged_write at their 4096- and 256-byte K/V rows; spec_verify
    over vocabularies of 2,048 and 151,655, the odd one on its scalar
    branch); then for each arch at its published widths (bf16, random
-   weights from seed 0; musicgen-large 48 layers, 2.42 B parameters,
-   internvl2-1b 24 layers, 0.49 B), each freed before the next: (a)
+   weights from seed 0; cut to 12 layers, ``FRONTEND_LAYERS``:
+   musicgen-large of its 48, internvl2-1b of its 24), each freed before
+   the next: (a)
    phase 14's 4 requests in ``ServingEngine(batch=2, window_max=8,
    block_size=16, max_len=1024)`` on paged_decode (one launch per layer
    per verify pass and prefill chunk) and spec_verify (one per verify
@@ -1753,6 +1757,11 @@ RWKV_ROUTE_LIMITS = {"logits_mean_abs_diff": 0.53,
 RWKV_OP_LIMITS = {"logits_mean_abs_diff": 0.1,
                   "logits_max_abs_diff": 1.0,
                   "xent_per_position_max_abs_diff": 0.5}
+# rwkv6-7b's depth cut for phase 9's serving, solo, preemption and snapshot
+# runs (of its 32 layers, at every published width): 8 since phase 22's
+# mesh runs were timed beside a batch-2 engine, 32 before; the route gates
+# above run all 32
+RWKV_SERVE_LAYERS = 8
 
 
 def wkv_planted_fault(fault):
@@ -1772,13 +1781,16 @@ def wkv_planted_fault(fault):
 
 
 def serve_rwkv(dev, cfg, tol, route_T=1024):
-    """Phase 9: rwkv6-7b served at full width (random weights from seed 0)
-    on the WKV kernel's path, 32 launches per verify pass and per prefill
-    chunk, profiled, every request held against the solo sampler on the
-    WKV kernel and on the plain scan; then ``TransformerLM.apply`` at
-    B = 1, T = ``route_T`` on the kernel route against the plain scan and
-    against the op's plain version, each gated beside two planted faults.
-    Returns the phase's report and the serving run's launches."""
+    """Phase 9: rwkv6-7b at full width (random weights from seed 0), served
+    on its first ``RWKV_SERVE_LAYERS`` layers on the WKV kernel's path (a
+    launch per layer per verify pass and prefill chunk), profiled, every
+    request held against the solo sampler on the WKV kernel and on the
+    plain scan, a forced preemption and the host tier's snapshots; then
+    ``TransformerLM.apply`` on all its layers at B = 1, T = ``route_T`` on
+    the kernel route against the plain scan and against the op's plain
+    version, each gated beside two planted faults (``RWKV_ROUTE_LIMITS``
+    were set at that depth). Returns the phase's report and the serving
+    run's launches."""
     import torch
     import repro_torch.models.ssm as ssm
     from repro_torch.kernels.rwkv_wkv.ref import rwkv_wkv_ref
@@ -1793,6 +1805,13 @@ def serve_rwkv(dev, cfg, tol, route_T=1024):
         f"{cfg.dtype}, {n_params / 1e9:.3f} B params, init "
         f"{time.perf_counter() - t0:.1f} s")
     out = {"params": n_params}
+    full_cfg, full_params = cfg, params
+    cfg = dataclasses.replace(cfg, n_layers=RWKV_SERVE_LAYERS)
+    params = dict(params, layers=params["layers"][:RWKV_SERVE_LAYERS])
+    out["serve_layers"] = cfg.n_layers
+    out["serve_params"] = count_params(params)
+    log(f"served on its first {cfg.n_layers} layers, "
+        f"{out['serve_params'] / 1e9:.3f} B params")
     # (a)-(e) without the host tier, whose snapshots would cut prefill at
     # block boundaries: their passes and times stay comparable with earlier
     # runs; (f) runs the tier
@@ -1851,18 +1870,19 @@ def serve_rwkv(dev, cfg, tol, route_T=1024):
     faults = {f: wkv_planted_fault(f) for f in ("bonus_dropped",
                                                 "kv_transposed")}
     with torch.no_grad():
-        out["route_diff"] = route_diffs(params, cfg, tokens, ssm,
+        out["route_diff"] = route_diffs(full_params, full_cfg, tokens, ssm,
                                         "rwkv_wkv", faults)
-        out["op_route_diff"] = route_diffs(params, cfg, tokens, ssm,
-                                           "rwkv_wkv", faults,
+        out["op_route_diff"] = route_diffs(full_params, full_cfg, tokens,
+                                           ssm, "rwkv_wkv", faults,
                                            plain_op=rwkv_wkv_ref)
-    log("kernel route against the model's plain scan (bf16 state):")
+    log(f"all {full_cfg.n_layers} layers at T = {route_T}: kernel route "
+        "against the model's plain scan (bf16 state):")
     check_route_diffs(out["route_diff"], route_T - 1, RWKV_ROUTE_LIMITS)
     log("kernel route against the WKV op's float32 plain version:")
     check_route_diffs(out["op_route_diff"], route_T - 1, RWKV_OP_LIMITS)
     out["preempt"] = preempt_rwkv(cfg, params, dev)
     out["snapshots"] = snapshots_rwkv(cfg, params, dev, out["preempt"])
-    del params
+    del params, full_params
     torch.cuda.empty_cache()
     return out, launches
 
@@ -2799,9 +2819,12 @@ def train_dbrx(dev):
 DENSE_PROMPT_LENS = (520, 600, 700, 300)
 DENSE_MAX_LEN = 1024
 DENSE_NB = -(-(DENSE_MAX_LEN + 8) // BS)      # the engine's table width: 65
-# mistral-large-123b's depth cut (of its 88 layers, at every published
-# width, G = 12): 4 layers since phase 19 was added, 8 before
-MISTRAL_LAYERS = 4
+# phase 14's depth cuts (at every published width): mistral-large-123b 4
+# of its 88 layers since phase 19 was added (8 before); gemma3-1b 8 of 26
+# (one 5:1 block and the two trailing local layers) and gemma-2b 6 of 18
+# since phase 22's mesh runs were timed beside a batch-2 engine (uncut
+# before). Phase 14 (d) trains gemma3-1b uncut
+DENSE_LAYERS = {"gemma3-1b": 8, "gemma-2b": 6, "mistral-large-123b": 4}
 
 
 def serve_dense(dev, tol, arch, n_layers=None):
@@ -3265,6 +3288,21 @@ def serve_jamba(dev, tol, gen):
 
 FRONTEND_ARCHS = ("musicgen-large", "internvl2-1b")
 SOLO_S = DENSE_MAX_LEN + 8     # the solo sampler's dense cache: max_len + W
+# the depth cuts (at every published width): musicgen-large 12 of its 48
+# layers (24 when phase 22 was added, uncut before), internvl2-1b 12 of
+# its 24 (uncut before phase 22's mesh runs were timed beside a batch-2
+# engine)
+FRONTEND_LAYERS = {"musicgen-large": 12, "internvl2-1b": 12}
+
+
+def frontend_config(arch):
+    """``arch``'s config at its published widths, cut in depth to
+    ``FRONTEND_LAYERS`` where it names one."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in FRONTEND_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=FRONTEND_LAYERS[arch])
+    return cfg
 
 
 def serve_frontend(dev, tol, arch):
@@ -3281,10 +3319,9 @@ def serve_frontend(dev, tol, arch):
     Returns the report and the launches of the kernel path's run, the
     kernel-route solo sampler's and the fallback's."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models.transformer import TransformerLM
-    cfg = get_config(arch)
+    cfg = frontend_config(arch)
     t0 = time.perf_counter()
     params = TransformerLM.init(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -3383,7 +3420,6 @@ def train_frontend(dev, arch):
     import torch
     from torch.profiler import ProfilerActivity, profile
     import repro_torch.models.attention as attention
-    from repro_torch.configs import get_config
     from repro_torch.core import random as jr
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.data.synthetic import token_batches
@@ -3392,7 +3428,7 @@ def train_frontend(dev, arch):
     from repro_torch.models import frontends
     from repro_torch.models.losses import lm_loss
     from repro_torch.models.transformer import TransformerLM
-    cfg = get_config(arch)
+    cfg = frontend_config(arch)
     B, S, steps = 2, 2048, 3
     T = S + cfg.n_prefix_tokens
     t0 = time.perf_counter()
@@ -3785,7 +3821,8 @@ def timed_engine(eng, log_to):
         resume(req, b, parked)
         torch.cuda.synchronize()
         log_to.setdefault("resume", []).append({
-            "uid": req.uid, "ms": (time.perf_counter() - t0) * 1e3})
+            "uid": req.uid, "ms": (time.perf_counter() - t0) * 1e3,
+            "slot": b, "parked_shard": parked.shard})
 
     eng.preempt_slot, eng._resume = timed_park, timed_resume
     return eng
@@ -3990,7 +4027,7 @@ def saturation_phase(dev, tol, phase3):
                     f"phase 18 (b): the staged run synced {m['host_syncs']}"
                     f" times, the unstaged {runs['unstaged']['metrics']}"
                     f"['host_syncs']")
-            free = eng.pool.num_blocks - 1
+            free = eng.pool.blocks_per_shard - 1
             clean = (not eng.staged and eng.ledger.staged_count(0) == 0
                      and eng.ledger.staged_blocks(0) == 0
                      and all(s is None for s in eng.slots)
@@ -4005,7 +4042,8 @@ def saturation_phase(dev, tol, phase3):
                     f"{len(eng.staged)}, n {eng.n.tolist()}, blocks in use "
                     f"{m['blocks_in_use']}, available "
                     f"{eng.pool.available()} of {free}")
-            runs[label]["prefix_cached_blocks"] = len(eng.pool.cached_free)
+            runs[label]["prefix_cached_blocks"] = len(
+                eng.pool.manager(0).cached_free)
     same = sum(np.array_equal(runs["staged"]["done"][u].result,
                               runs["unstaged"]["done"][u].result)
                for u in range(8))
@@ -4128,13 +4166,14 @@ def timed_tier(eng, log_to):
                 {"ms": (time.perf_counter() - t0) * 1e3, **info(out, *a)})
             return out
         return call
-    if eng.pool.spill_hook is not None:
-        eng.pool.spill_hook = timed("spill", eng.pool.spill_hook,
-                                    lambda out, bid, key: {"kept": out})
+    mgr = eng.pool.manager(0)
+    if mgr.spill_hook is not None:
+        mgr.spill_hook = timed("spill", mgr.spill_hook,
+                               lambda out, bid, key: {"kept": out})
     eng._restage_host_blocks = timed(
         "restage", eng._restage_host_blocks,
-        lambda out, keys, block_ids, prefetched=None: {"blocks": out,
-                                                       "asked": len(keys)})
+        lambda out, keys, block_ids, s, prefetched=None: {
+            "blocks": out, "asked": len(keys)})
     eng._prefill = timed(
         "prefill", eng._prefill,
         lambda out, table_row, b, chunk, start: {"start": start,
@@ -5175,6 +5214,246 @@ def hot_path_phase(dev):
     return out
 
 
+def timed_migrations(eng, log_to, block_bytes):
+    """Wrap ``eng``'s ``migrate_slot`` so each call's host milliseconds
+    (``torch.cuda.synchronize`` before and after), blocks copied across
+    shards, MB and GB/s go to ``log_to["migrate"]``."""
+    import torch
+    migrate = eng.migrate_slot
+
+    def timed(b_src, b_dst):
+        n0 = eng.metrics.blocks_migrated
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        migrate(b_src, b_dst)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        blocks = eng.metrics.blocks_migrated - n0
+        log_to.setdefault("migrate", []).append({
+            "from": b_src, "to": b_dst, "ms": ms, "blocks": blocks,
+            "mb": blocks * block_bytes / 1e6,
+            "gb_per_s": blocks * block_bytes / 1e6 / ms})
+    eng.migrate_slot = timed
+    return eng
+
+
+def mesh_phase(dev):
+    """Phase 22: the data-parallel mesh engine on phase 3's qwen3-1.7b
+    (full width, bf16, seed 0), two shards on this card, at a fixed W = 8
+    (``block_size=16``, ``max_len=256``, no host tier), every run through
+    ``drive``: (a) phase 18's 8 requests at data = 2, batch 4, bitwise a
+    data = 1 engine at batch 2 (two rows per call on both) and under the
+    margin rule one at batch 4 (cuBLAS may pick another algorithm for 32
+    rows), ms per token, host syncs and the idle share of all three, timed
+    here side by side; (b) after the first sync slot 0 is preempted and shard 1's first request
+    migrates into it, so the parked request resumes on shard 1: once under
+    the contracts (the copy and every round under sync-debug "error"), once
+    timed, tokens bitwise (a)'s; (c) a rebalancing admission, the
+    reference's ``saturation_mesh`` at this block size: an arrival no shard
+    can take is admitted in the same pass once a resident migrates, tokens
+    bitwise the run without rebalancing."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.engine.agreement import check_token_agreement
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving.admission import Request
+    from repro_torch.serving.topology import ServingTopology
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-1.7b")
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    serve(cfg, params, dev, make_requests(cfg, (17,), 4))      # warm-up
+    out = {"setup_seconds": time.perf_counter() - t0}
+    card = (torch.device("cuda", torch.cuda.current_device())
+            if dev.type == "cuda" else dev)          # both shards' device
+    fixed = dict(adaptive=False, host_cache_mb=0, rounds_per_sync=8)
+    block_bytes = cfg.n_layers * 2 * BS * KV * D * 2
+
+    def mesh2():
+        return dict(topology=ServingTopology(make_host_mesh(
+            2, devices=(card, card))), batch=4, device=None)
+
+    def eight():
+        return make_requests(cfg, PROMPT_LENS * 2, NEW_TOKENS)
+    out["block_bytes"] = block_bytes
+
+    # (a) data = 2 at batch 4 against data = 1 at batch 2 and at batch 4
+    shards_of = []
+
+    def watch(e):
+        admit = e._admit
+
+        def counted(req, b):
+            shards_of.append(b // e.B_local)
+            return admit(req, b)
+        e._admit = counted
+    variants = [("data2_b4", mesh2), ("data1_b4", lambda: dict(batch=4)),
+                ("data1_b2", lambda: dict(batch=2))]
+    runs = {}
+    for label, kw in variants:
+        hooks = [(0, watch)] if label == "data2_b4" else []
+        runs[label] = drive(cfg, params, dev, eight(), hooks=hooks, **fixed,
+                            **kw())
+    for label, kw in variants:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            drive(cfg, params, dev, eight(), **fixed, **kw())
+        runs[label] += (device_busy_s(prof),)
+    if sorted(set(shards_of)) != [0, 1]:
+        raise AssertionError(f"phase 22 (a): admissions by shard "
+                             f"{shards_of}")
+    done = {}
+    for label, _ in variants:
+        got, m, wall, launches, _, _, busy = runs[label]
+        need_path(launches, f"phase 22 (a) {label}")
+        if len(got) != 8 or not all(r.ok for r in got.values()):
+            raise AssertionError(f"phase 22 (a) {label}: {len(got)} done")
+        done[label] = {u: r.result for u, r in got.items()}
+        runs[label] = {"metrics": m, "launches": launches, "wall_s": wall,
+                       "ms_per_token": wall / m["tokens_generated"] * 1e3,
+                       "host_syncs": m["host_syncs"],
+                       "verify_passes": m["verify_passes"],
+                       "device_busy_s": busy, "idle_share": 1 - busy / wall}
+    for label, r in runs.items():
+        m = r["metrics"]
+        log(f"phase 22 (a) {label}: {m['tokens_generated']} tokens, "
+            f"{r['host_syncs']} host syncs, {r['verify_passes']} verify "
+            f"passes, {m['rounds']} rounds, {r['ms_per_token']:.3f} ms per "
+            f"token, device busy {r['device_busy_s']:.3f} s, idle share "
+            f"{r['idle_share']:.4f}; launches {r['launches']}")
+    for u in range(8):
+        if not np.array_equal(done["data2_b4"][u], done["data1_b2"][u]):
+            raise AssertionError(f"phase 22 (a): request {u} at data 2 "
+                                 "differs from data 1 at batch 2")
+    lens = PROMPT_LENS * 2
+    splits = {u: check_token_agreement(
+        done["data1_b4"][u], done["data2_b4"][u],
+        margin_fn(cfg, params, dev, done["data1_b4"][u], u), 0.25,
+        start=lens[u]) for u in range(8)}
+    out["a"] = {"runs": runs, "admissions_by_shard": shards_of,
+                "splits_vs_data1_b4": splits}
+    log(f"phase 22 (a): admissions by shard {shards_of}; data 2 bitwise "
+        f"data 1 at batch 2 (8 of 8); against data 1 at batch 4 (margin "
+        f"rule, tolerance 0.25): " + ", ".join(
+            f"request {u} " + ("equal" if s is None else
+                               f"split at {s['position']} (margin "
+                               f"{s['margin']:.4g})")
+            for u, s in splits.items()))
+
+    out["seconds_after_a"] = time.perf_counter() - t0
+    # (b) a preemption and a cross-shard migration after the first sync
+    def disturb(log_to):
+        def hook(e):
+            if not all(s is not None for s in e.slots):
+                raise AssertionError("phase 22 (b): a slot is free at "
+                                     "sync 1")
+            timed_migrations(e, log_to, block_bytes)
+            e.preempt_slot(0)
+            e.migrate_slot(2, 0)
+        return hook
+    env0 = os.environ.get("REPRO_CHECK_CONTRACTS")
+    moved = {}
+    try:
+        for label, checks in (("checked", "1"), ("timed", "0")):
+            os.environ["REPRO_CHECK_CONTRACTS"] = checks
+            moved[label] = {}
+            got, m, wall, launches, eng, ev = drive(
+                cfg, params, dev, eight(),
+                hooks=[(1, disturb(moved[label]))], **fixed, **mesh2())
+            need_path(launches, f"phase 22 (b) {label}")
+            res = ev.get("resume", [])
+            if not (m["migrations"] == 1 and m["preemptions"] == 1
+                    and len(res) == 1
+                    and res[0]["slot"] // 2 != res[0]["parked_shard"]):
+                raise AssertionError(f"phase 22 (b) {label}: migrations "
+                                     f"{m['migrations']}, resumes {res}")
+            for u in range(8):
+                if not (got[u].ok and np.array_equal(
+                        got[u].result, done["data2_b4"][u])):
+                    raise AssertionError(f"phase 22 (b) {label}: request {u}"
+                                         " differs from (a)'s")
+            if checks == "1":
+                reps = eng.contract_reports
+                kinds = {r.contract for r in reps}
+                if not (reps and all(r.ok for r in reps)
+                        and "MIGRATION_COPY_CONTRACT" in kinds):
+                    raise AssertionError(f"phase 22 (b): contracts {kinds}")
+                moved[label]["contracts"] = sorted(kinds)
+                moved[label]["checked"] = len(reps)
+            moved[label].update(metrics=m, launches=launches,
+                                park=ev.get("park"), resume=res)
+    finally:
+        if env0 is None:
+            os.environ.pop("REPRO_CHECK_CONTRACTS", None)
+        else:
+            os.environ["REPRO_CHECK_CONTRACTS"] = env0
+    out["b"] = moved
+    for label, row in moved.items():
+        mig = row["migrate"][0]
+        log(f"phase 22 (b) {label}: request parked from shard "
+            f"{row['resume'][0]['parked_shard']} resumed in slot "
+            f"{row['resume'][0]['slot']}; migration {mig['blocks']} blocks, "
+            f"{mig['mb']:.3f} MB in {mig['ms']:.3f} ms "
+            f"({mig['gb_per_s']:.3f} GB/s); tokens bitwise (a)'s"
+            + (f"; {row['checked']} checked dispatches "
+               f"({', '.join(row['contracts'])}), none raised under "
+               "sync-debug 'error'" if label == "checked" else ""))
+
+    out["seconds_after_b"] = time.perf_counter() - t0
+    # (c) rebalancing: per shard 16 usable blocks; a long request (12
+    # blocks) pins shard 0, two short ones (4 each) fill shard 1's slots,
+    # an arrival needing 6 fits neither shard until a short one migrates
+    rng = np.random.default_rng(22)
+
+    def saturation():
+        return [Request(uid=i, prompt=p, new_tokens=n) for i, (p, n) in
+                enumerate(zip(prompts, (100, 32, 32, 40)))]
+    prompts = [rng.integers(0, cfg.vocab, L) for L in (80, 17, 17, 40)]
+    rebal = {}
+    for label, on in (("on", True), ("off", False)):
+        admitted = []
+
+        def first(e, admitted=admitted):
+            admitted.append(len(e.queue) == 0)
+        log_to = {}
+        got, m, wall, launches, eng, _ = drive(
+            cfg, params, dev, saturation(),
+            hooks=[(0, lambda e, log_to=log_to: timed_migrations(
+                e, log_to, block_bytes)), (1, first)],
+            rebalance=on, prefix_cache=False, num_blocks=17, **fixed,
+            **mesh2())
+        need_path(launches, f"phase 22 (c) {label}")
+        rebal[label] = {"done": got, "admitted_same_pass": admitted[0],
+                        "metrics": m, "migrate": log_to.get("migrate", []),
+                        "ms_per_token": wall / m["tokens_generated"] * 1e3}
+    on, off = rebal["on"], rebal["off"]
+    if not (on["admitted_same_pass"] and not off["admitted_same_pass"]
+            and on["metrics"]["migrations"] >= 1):
+        raise AssertionError(f"phase 22 (c): admitted {on['admitted_same_pass']}"
+                             f" / {off['admitted_same_pass']}, migrations "
+                             f"{on['metrics']['migrations']}")
+    for u in range(4):
+        if not np.array_equal(on["done"][u].result, off["done"][u].result):
+            raise AssertionError(f"phase 22 (c): request {u} differs with "
+                                 "rebalancing")
+    for r in rebal.values():
+        del r["done"]
+    out["c"] = rebal
+    log(f"phase 22 (c): the arrival admitted in the first pass with "
+        f"rebalancing ({on['metrics']['migrations']} migration(s): "
+        + ", ".join(f"{g['blocks']} blocks in {g['ms']:.3f} ms"
+                    for g in on["migrate"])
+        + "), queued without; tokens bitwise; "
+        f"{on['ms_per_token']:.3f} / {off['ms_per_token']:.3f} ms per token")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 22 took {out['seconds']:.1f} s")
+    return out
+
+
 def recovery_child_main(mode, ddir, disk_tier) -> int:
     """``--recovery-child``: phase 20 (c)'s child on the card, (a)'s
     workload on a durable engine over ``ddir`` (two priority-5 requests,
@@ -5409,12 +5688,10 @@ def main(argv=None) -> int:
     dense = check_dense_kernels(dev, gen)
     report["dense_kernels"] = dense
     served = {}
-    for key, arch, n_layers in (("gemma3", "gemma3-1b", None),
-                                ("gemma2b", "gemma-2b", None),
-                                ("mistral", "mistral-large-123b",
-                                 MISTRAL_LAYERS)):
-        report["serve_" + key], *served[key] = serve_dense(dev, tol, arch,
-                                                          n_layers)
+    for key, arch in (("gemma3", "gemma3-1b"), ("gemma2b", "gemma-2b"),
+                      ("mistral", "mistral-large-123b")):
+        report["serve_" + key], *served[key] = serve_dense(
+            dev, tol, arch, DENSE_LAYERS[arch])
     report["train_gemma3"], g3_train = train_gemma3(dev)
     report["phase14_s"] = time.perf_counter() - t14
     lap("14")
@@ -5446,6 +5723,10 @@ def main(argv=None) -> int:
     # ---- phase 21: the hot-path checks and the launch layer ---------------
     report["hot_path"] = hot_path_phase(dev)
     lap("21")
+
+    # ---- phase 22: the data-parallel mesh engine --------------------------
+    report["mesh"] = mesh_phase(dev)
+    lap("22")
     log("seconds by phase: " + json.dumps(
         {k: round(v, 1) for k, v in report["phase_seconds"].items()}))
 

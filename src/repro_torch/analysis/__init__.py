@@ -19,12 +19,13 @@ The reference's jaxpr and HLO walkers (``EqnSite``,
 ``find_dtype_leaks``, ``find_collectives``, ``parse_collective_bytes``,
 ``parse_shape_bytes``) have no counterpart: an eager program has no
 trace, and :class:`Census` records its ops as they run instead (c10d ops
-for the collectives). ``MIGRATION_COPY_CONTRACT`` waits for block
-migration on the mesh engine (ROADMAP item 20).
+for the collectives, which the model axis of ROADMAP item 20b will
+bring).
 """
 from repro_torch.analysis.census import Census, OpRecord
-from repro_torch.analysis.contracts import (CONTRACTS, PREFILL_CONTRACT,
-                                            ROUND_CONTRACT,
+from repro_torch.analysis.contracts import (CONTRACTS,
+                                            MIGRATION_COPY_CONTRACT,
+                                            PREFILL_CONTRACT, ROUND_CONTRACT,
                                             STAGED_ROUND_CONTRACT, Contract,
                                             ContractViolationError, Report,
                                             check_engine_round,
@@ -42,6 +43,7 @@ from repro_torch.analysis.rules import (DonationAliasCovers, MaxLiveBytes,
 __all__ = [
     "CONTRACTS", "Contract", "ContractViolationError", "Report",
     "ROUND_CONTRACT", "STAGED_ROUND_CONTRACT", "PREFILL_CONTRACT",
+    "MIGRATION_COPY_CONTRACT",
     "check_engine_round", "check_program", "contracts_enabled",
     "maybe_check", "require", "select_contract",
     "Census", "OpRecord",

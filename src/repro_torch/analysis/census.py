@@ -12,7 +12,9 @@ program has neither, so the port runs the region once under a
 * the devices a copy ran between (``_to_copy`` / ``copy_``), which tells
   device-to-host copies and synchronous pageable uploads apart;
 * c10d ops, which stand in for the reference's ``find_collectives`` /
-  ``parse_collective_bytes`` (zero until the port shards, ROADMAP item 20);
+  ``parse_collective_bytes`` (zero: the data-parallel mesh engine runs
+  its shards from one process, and a model axis over torch.distributed is
+  ROADMAP item 20b);
 * the peak of live bytes the region allocated: on the card from the
   caching allocator (``max_memory_allocated`` less what was allocated
   before; the peak statistics are reset on entry), elsewhere from the

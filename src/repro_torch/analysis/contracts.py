@@ -11,9 +11,15 @@ contracts cover the engine's device programs:
 * ``PREFILL_CONTRACT`` — a row-local prefill chunk, ``_prefill``.
   Pool-shaped writes are its job and collectives are allowed, but host
   reads and f64 are not, and the pool must still be updated in place.
+* ``MIGRATION_COPY_CONTRACT`` — the device half of a sequence migration,
+  ``ServingEngine._migration_copy``: the copy is a pool write by design,
+  but it reads nothing on the host, makes no f64, writes the destination
+  pool in place with no pool-sized transient, and keeps one argument
+  signature (its ids padded to the table width).
 
-``MIGRATION_COPY_CONTRACT`` waits for the mesh engine's block migration
-(ROADMAP item 20).
+On a mesh every shard's round dispatch is checked under its own label.
+The tensor-parallel exemption of ``select_contract`` waits for the model
+axis (ROADMAP item 20b).
 
 ``check_program(fn, args, contract)`` runs one call through one contract
 and returns a :class:`Report` (the call's return value in ``value``).
@@ -107,20 +113,28 @@ PREFILL_CONTRACT = Contract("PREFILL_CONTRACT", [
     RecompileHazard(max_shapes=16),    # one variant per pow2 chunk size
 ])
 
+MIGRATION_COPY_CONTRACT = Contract("MIGRATION_COPY_CONTRACT", [
+    NoHostCallbacks(),
+    NoF64Leaks(),
+    DonationAliasCovers(),
+    RecompileHazard(max_shapes=8),
+])
+
 CONTRACTS = {c.name: c for c in (ROUND_CONTRACT, STAGED_ROUND_CONTRACT,
-                                 PREFILL_CONTRACT)}
+                                 PREFILL_CONTRACT, MIGRATION_COPY_CONTRACT)}
 
 _KIND_TO_CONTRACT = {
     "round": "ROUND_CONTRACT",
     "staged_round": "STAGED_ROUND_CONTRACT",
     "prefill": "PREFILL_CONTRACT",
+    "migration_copy": "MIGRATION_COPY_CONTRACT",
 }
 
 
 def select_contract(kind: str, *, donate: bool = True,
                     pool_scatter_shapes=None) -> Contract:
     """The contract enforced for an engine program of ``kind`` ("round" /
-    "staged_round" / "prefill"). ``donate=False`` (an engine that copies
+    "staged_round" / "prefill" / "migration_copy"). ``donate=False`` (an engine that copies
     its pool out of place each dispatch, ``--no-donate``) drops
     DonationAliasCovers. ``pool_scatter_shapes`` (the engine's exact pool
     leaf shapes) narrows NoPoolRankedScatters from the rank proxy to real
@@ -207,21 +221,43 @@ def maybe_check(kind: str, fn, args, *, label: str = None, variant=None,
 
 def check_engine_round(eng) -> Report:
     """Contract-check the round program an engine's next ``step()`` would
-    dispatch and return the Report, the one gate tests and benches share:
-    the loop runs once under the census at the engine's current window and
-    ``rounds_per_sync``. The engine must hold no live row (a fresh or a
-    drained engine), whose progress the dropped stats would lose; its
-    rows are then the no-op lane and the loop changes no token. Duck-typed
-    on the engine, so the analysis layer never imports serving."""
+    dispatch on every data shard and return one Report, the one gate tests
+    and benches share: each shard's loop runs once under the census at the
+    engine's current window and ``rounds_per_sync``; the violations of all
+    shards are kept, their counts summed (``peak_bytes``: the largest).
+    The engine must hold no live row (a fresh or a drained engine), whose
+    progress the dropped stats would lose; its rows are then the no-op
+    lane and the loop changes no token. Duck-typed on the engine, so the
+    analysis layer never imports serving."""
     if any(s is not None for s in eng.slots):
         raise ValueError("check_engine_round runs the round loop; the "
                          "engine has live rows whose stats it would drop")
-    kind, fn, args = eng._round_program(eng.controller.window,
-                                        eng.rounds_per_sync)
     exemptions = eng._contract_exemptions()
-    contract = select_contract(kind, donate=eng.donate, **exemptions)
-    report = check_program(fn, args, contract,
-                           label=f"{kind}@{hex(id(eng))}",
-                           **eng._paged_leaves())
-    report.metrics["n_args"] = len(args)
+    report = None
+    for s in range(len(eng.shards)):
+        kind, fn, args = eng._round_program(eng.controller.window,
+                                            eng.rounds_per_sync, s)
+        contract = select_contract(kind, donate=eng.donate, **exemptions)
+        rep = check_program(fn, args, contract,
+                            label=f"{kind}@{hex(id(eng))}:{s}",
+                            **eng._paged_leaves((s,)))
+        rep.metrics["n_args"] = len(args)
+        report = rep if report is None else _merged(report, rep)
     return report
+
+
+def _merged(a: Report, b: Report) -> Report:
+    """Two shards' Reports of one program as one: violations of both,
+    counts summed (per key where a dict), the peak the larger."""
+    out = Report(contract=a.contract, label=a.label,
+                 violations=a.violations + b.violations, value=a.value)
+    for k, v in a.metrics.items():
+        w = b.metrics[k]
+        if k in ("peak_bytes", "n_args"):
+            out.metrics[k] = max(v, w)
+        elif isinstance(v, dict):
+            out.metrics[k] = {x: v.get(x, 0) + w.get(x, 0)
+                              for x in {**v, **w}}
+        else:
+            out.metrics[k] = v + w
+    return out

@@ -27,8 +27,8 @@ their capacity's slots), ``param_bytes``, ``optimizer_bytes`` (train),
 the step allocated: activations, gradients, new caches), ``aten_ops``,
 ``kernel_calls`` by name and ``fits_one_card``: whether parameters,
 optimizer state, cache and that peak fit the card's 80 GB. These are
-reckonings from shapes, not measurements. ``mesh`` is null until the port
-shards (ROADMAP item 20).
+reckonings from shapes, not measurements. ``mesh`` is null until the
+model axis shards parameters (ROADMAP item 20b).
 """
 from __future__ import annotations
 

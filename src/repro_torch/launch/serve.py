@@ -19,7 +19,11 @@ submits its own. ``--journal-fsync-every`` batches the journal's fsync;
 ``--no-disk-tier`` keeps the journal and checkpoint without the disk tier.
 ``--no-donate`` copies the paged cache out of place at every dispatch, as
 the reference's undonated round writes a fresh pool (an A/B of what the
-in-place update saves; the tokens do not change).
+in-place update saves; the tokens do not change). ``--mesh DATA`` serves
+on a data-parallel mesh of DATA shards, one card each, or on the devices
+``--mesh-devices`` names (``cpu,cpu``; ``cuda:0,cuda:0`` puts two shards
+on one card); ``--no-rebalance`` keeps admission from migrating a
+resident between shards.
 
 Also exports ``make_serve_step``, the reference's one-round verify step
 over a dense cache, with its two-pass low-memory form for recurrent and
@@ -41,6 +45,7 @@ from repro_torch.models.transformer import TransformerLM
 from repro_torch.serving.admission import Request
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.faults import FaultPlan
+from repro_torch.serving.topology import ServingTopology
 
 
 def make_serve_step(cfg, window: int = 8, low_memory: bool = False,
@@ -75,6 +80,26 @@ def make_serve_step(cfg, window: int = 8, low_memory: bool = False,
     return serve_step
 
 
+def make_serving_topology(mesh_arg: str, devices_arg=None):
+    """``--mesh DATA[,MODEL]`` (and ``--mesh-devices D0,D1,...``) as a
+    ``ServingTopology``. Without a device list each shard takes a card of
+    its own; too few cards, or MODEL > 1 (ROADMAP item 20b), is an
+    error."""
+    from repro_torch.launch.mesh import make_host_mesh
+    try:
+        parts = [int(p) for p in mesh_arg.split(",")]
+    except ValueError:
+        parts = []
+    if not 1 <= len(parts) <= 2:
+        raise SystemExit(f"--mesh wants DATA or DATA,MODEL, got {mesh_arg!r}")
+    data, model = (parts + [1])[:2]
+    devices = devices_arg.split(",") if devices_arg else None
+    try:
+        return ServingTopology(make_host_mesh(data, model, devices=devices))
+    except (NotImplementedError, RuntimeError, ValueError) as e:
+        raise SystemExit(f"--mesh {mesh_arg}: {e}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -90,6 +115,16 @@ def main(argv=None):
     ap.add_argument("--no-adaptive", action="store_true",
                     help="pin W instead of adapting it to acceptance")
     ap.add_argument("--no-prefix-cache", action="store_true")
+    ap.add_argument("--mesh", default=None, metavar="DATA[,MODEL]",
+                    help="serve on a data-parallel mesh of DATA shards "
+                         "(slots, block sub-pools and row state split by "
+                         "shard); MODEL > 1 is not ported yet")
+    ap.add_argument("--mesh-devices", default=None, metavar="D0,D1,...",
+                    help="with --mesh: each shard's device (default: "
+                         "cuda:0 ... cuda:DATA-1, one card a shard)")
+    ap.add_argument("--no-rebalance", action="store_true",
+                    help="no shard rebalancing (migrating a resident "
+                         "between block sub-pools to admit an arrival)")
     ap.add_argument("--no-donate", action="store_true",
                     help="copy the paged cache (block pools and recurrent "
                          "rows) out of place at every round loop and "
@@ -137,7 +172,8 @@ def main(argv=None):
                          "(corruption then goes undetected; to measure "
                          "what the checks cost)")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda; 'cpu' to run there)")
+                    help="torch device (default: cuda; 'cpu' to run there); "
+                         "with --mesh, where the weights are made")
     ap.add_argument("--request-retries", type=int, default=0,
                     help="re-admissions granted after a retryable "
                          "per-request failure (a quarantined row, an "
@@ -172,7 +208,15 @@ def main(argv=None):
                          "op (the CUDA kernel on the GPU)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    topo = None
+    if args.mesh:
+        # the shards' devices come from the mesh; ``--device`` is where the
+        # weights are made (the engine copies them to each shard's device)
+        topo = make_serving_topology(args.mesh, args.mesh_devices)
+        device = (topo.device(0) if args.device is None
+                  else resolve_device(args.device))
+    else:
+        device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
     params = TransformerLM.init(cfg, seed=0, device=device)
     engine = ServingEngine(cfg, params, batch=args.batch,
@@ -187,6 +231,7 @@ def main(argv=None):
                            max_head_bypass=args.max_head_bypass,
                            preempt=not args.no_preempt,
                            preempt_floor=args.preempt_floor,
+                           topology=topo, rebalance=not args.no_rebalance,
                            use_verify_kernel=args.use_verify_kernel,
                            request_retries=args.request_retries,
                            max_request_seconds=args.max_request_seconds,
@@ -197,7 +242,8 @@ def main(argv=None):
                            durable_dir=args.durable_dir,
                            journal_fsync_every=args.journal_fsync_every,
                            disk_tier=not args.no_disk_tier,
-                           donate=not args.no_donate, device=device)
+                           donate=not args.no_donate,
+                           device=None if topo else device)
     first_uid = 0
     if args.durable_dir:
         recovered = engine.restore()
@@ -219,8 +265,10 @@ def main(argv=None):
     engine.close()
     m = engine.export_metrics()
     total_new = sum(r.new_tokens for r in done)
+    where = (f"{topo.data_size} shards on "
+             f"{', '.join(map(str, topo.mesh.devices))}" if topo else device)
     print(f"served {len(done)} requests / {total_new} tokens "
-          f"in {m['rounds']} verify rounds ({dt:.1f}s) on {device}")
+          f"in {m['rounds']} verify rounds ({dt:.1f}s) on {where}")
     print(f"ARM calls vs ancestral baseline: "
           f"{100.0 * m['arm_calls_vs_ancestral']:.1f}% "
           f"(paged engine, W<= {args.window}, "

@@ -159,8 +159,10 @@ class MoE:
         dropped (training's trade).
 
         The reference dispatches to an expert-parallel ``shard_map`` path
-        under an active mesh (``sharding/moe_shard.py``); the port runs on
-        one device and has no such branch (ROADMAP.md §1 item 20)."""
+        under an active mesh (``sharding/moe_shard.py``); the port's mesh
+        is data-parallel only, each shard running the whole layer, so it
+        has no such branch (expert parallelism is ROADMAP.md §1 item
+        20b)."""
         B, T, D = x.shape
         E, k = cfg.n_experts, cfg.top_k
         N = B * T

@@ -545,6 +545,25 @@ class TransformerLM:
         return out
 
     @staticmethod
+    def paged_partition_specs(cfg: ModelConfig, paged_cache,
+                              data_axis: str = "data"):
+        """The paged cache tree with each leaf replaced by its split over
+        the data shards, one entry per dimension (an axis name or None):
+        an attention pool splits along its block dimension, a recurrent
+        state along its slot dimension, both its first. Each shard's
+        sub-cache (``init_paged_cache`` at the shard's blocks and rows)
+        is the global cache's slice there; the reference's specs are the
+        same, with a stacked array's leading layer axis unsplit."""
+        def spec(x):
+            if isinstance(x, dict):
+                return {k: spec(v) for k, v in x.items()}
+            if isinstance(x, list):
+                return [spec(v) for v in x]
+            return (data_axis,) + (None,) * (x.ndim - 1)
+
+        return spec(paged_cache)
+
+    @staticmethod
     def gather_paged(cfg: ModelConfig, paged_cache, tables, rows):
         """A dense cache view for ``decode_window``: each pool gathered
         through ``tables`` (R, nb) to (R, nb * bs, ...), and the recurrent

@@ -52,6 +52,7 @@ class Request:
     prefill_calls: int = 0       # row-local prefill chunks paid at admission
     prefix_hit_blocks: int = 0   # prompt blocks served from the prefix cache
     preemptions: int = 0         # times parked by a higher-priority request
+    migrations: int = 0          # times moved to another slot or shard
     bypassed: int = 0            # admissions that jumped this request while
     #                              it sat at the queue head (aging signal)
     queue_deadline_missed: bool = False  # SLO expired while queued/parked

@@ -2,9 +2,10 @@
 
 A numpy-only copy of the reference's ``serving/blocks.py``: the device
 prefix cache, the host tier's spill hook and tiered lookup, ``spill`` (a
-preempted sequence's release) and the staging ledger (the sharded pool is
-a later slice). Same ids, same hashes, same decisions on the same
-traffic.
+preempted sequence's release), the staging ledger and the mesh engine's
+``ShardedBlockPool`` (one sub-pool per data shard, pool-pressure routing,
+the block accounting of a migration). Same ids, same hashes, same
+decisions on the same traffic.
 
 Invariants:
 
@@ -54,6 +55,8 @@ class BlockStats:
     #                              spill hook saved
     dropped: int = 0             # hashed contents evicted outright: no
     #                              host tier, or it refused the spill
+    migrated_in: int = 0         # landing blocks allocated for a migration
+    migrated_out: int = 0        # blocks released by a departing migration
 
     def export(self) -> dict:
         total = self.prefix_hits + self.prefix_misses
@@ -66,6 +69,8 @@ class BlockStats:
             "evictions": self.evictions,
             "blocks_spilled": self.spilled,
             "blocks_dropped": self.dropped,
+            "blocks_migrated_in": self.migrated_in,
+            "blocks_migrated_out": self.migrated_out,
         }
 
 
@@ -249,3 +254,88 @@ class StagingLedger:
         self._count[shard] -= 1
         assert self._by_shard[shard] >= 0 and self._count[shard] >= 0
         return need
+
+
+class ShardedBlockPool:
+    """One ``BlockManager`` per data shard, with pool-pressure routing on
+    top. Each shard owns ``blocks_per_shard`` blocks with shard-local ids,
+    its own sink block 0 and its own prefix cache: a block is never shared
+    across shards, which keeps every shard's round reading its own pool
+    only. ``num_shards=1`` is the single-device engine's pool, bit for bit
+    a bare ``BlockManager``."""
+
+    def __init__(self, num_shards: int, blocks_per_shard: int,
+                 block_size: int):
+        assert num_shards >= 1
+        self.num_shards = num_shards
+        self.blocks_per_shard = blocks_per_shard
+        self.block_size = block_size
+        self.shards = [BlockManager(blocks_per_shard, block_size)
+                       for _ in range(num_shards)]
+
+    def manager(self, shard: int) -> BlockManager:
+        return self.shards[shard]
+
+    # -- a migration's block accounting ---------------------------------------
+    def begin_migration(self, src_shard: int, dst_shard: int,
+                        n: int) -> list[int]:
+        """Allocate ``n`` landing blocks on ``dst_shard`` for a sequence
+        leaving ``src_shard``: their shard-local ids. The caller copies the
+        contents, then calls ``finish_migration``. Raises MemoryError where
+        the destination cannot take them."""
+        assert src_shard != dst_shard, (src_shard, dst_shard)
+        out = self.shards[dst_shard].alloc(n)
+        self.shards[dst_shard].stats.migrated_in += n
+        return out
+
+    def finish_migration(self, src_shard: int, blocks) -> None:
+        """Release a migrated sequence's source blocks (shared prefix
+        blocks drop one reference)."""
+        self.shards[src_shard].release_all(blocks)
+        self.shards[src_shard].stats.migrated_out += len(blocks)
+
+    # -- hooks ------------------------------------------------------------------
+    def set_spill_hook(self, make_hook) -> None:
+        """Each shard's eviction hook: ``make_hook(shard)`` (or None)."""
+        for s, m in enumerate(self.shards):
+            m.spill_hook = make_hook(s)
+
+    def set_fault_hook(self, hook) -> None:
+        """One allocation fault hook shared by every sub-pool: host calls
+        are sequential, so a shared ``FaultPlan`` counter stays
+        deterministic across shards."""
+        for m in self.shards:
+            m.fault_hook = hook
+
+    # -- capacity ---------------------------------------------------------------
+    def available(self, shard: Optional[int] = None) -> int:
+        if shard is not None:
+            return self.shards[shard].available()
+        return sum(m.available() for m in self.shards)
+
+    def blocks_in_use(self) -> int:
+        return sum(m.blocks_in_use() for m in self.shards)
+
+    @staticmethod
+    def route(need: int, headroom_by_shard: dict) -> Optional[int]:
+        """Pool-pressure routing: of the candidate shards (those with a
+        free slot), the one with the most headroom (free blocks net of
+        outstanding reservations) that covers ``need``; the lowest shard
+        breaks ties, and an exact fit admits. None where no shard can take
+        the request."""
+        best = None
+        for s in sorted(headroom_by_shard):
+            head = headroom_by_shard[s]
+            if head >= need and (best is None or head > best[1]):
+                best = (s, head)
+        return None if best is None else best[0]
+
+    def stats_export(self) -> dict:
+        """The shards' counters summed, the hit rate recomputed over all."""
+        out: dict = {}
+        for m in self.shards:
+            for k, v in m.stats.export().items():
+                out[k] = out.get(k, 0) + v
+        total = out["prefix_hits"] + out["prefix_misses"]
+        out["prefix_hit_rate"] = (out["prefix_hits"] / total) if total else 0.0
+        return out

@@ -1,6 +1,22 @@
-"""`ServingEngine`: paged predictive-sampling serving on one device.
+"""`ServingEngine`: paged predictive-sampling serving, on one device or on
+a data-parallel mesh.
 
-The port of the reference's ``serving/engine.py``, single-device:
+The port of the reference's ``serving/engine.py``:
+
+* **Mesh** — a ``ServingTopology`` splits the batch slots into contiguous
+  per-shard ranges, and each data shard owns a paged cache on its own
+  device: a block sub-pool with its own sink block 0 and prefix cache, the
+  recurrent rows and the ``tokens``/``n``/``cand`` rows of its slots
+  (``_Shard``). Block tables hold shard-local ids. Each step dispatches
+  every shard's round loop over its own rows, tables and pool, then reads
+  every shard's stats; no tensor crosses shards on the round path, and
+  each shard's loop stops on its own rows. Admission routes a request to
+  the shard with the most block headroom; ``migrate_slot`` moves a live
+  sequence to another slot (across shards its blocks are copied into the
+  destination's sub-pool), and admission **rebalances** by migrating a
+  resident when no shard can take an arrival alone (``rebalance``).
+  ``ServingTopology()`` is the single-device case: one shard, the same
+  code.
 
 * **Paged KV cache** — attention K/V (GQA) or the latent cache (MLA)
   lives in fixed-size blocks of a shared physical pool; verify rounds and
@@ -132,8 +148,13 @@ Exactness: every request's tokens equal a per-request
 (``Request.seq_id``), retried, preempted, adopted, restaged and
 snapshot-resumed ones included, and so are those a restored engine
 delivers after a crash (on the CPU bitwise; a restored park's re-prefill
-rounds otherwise on the card, where it holds under the margin rule). The
-mesh (migration) is a later slice (ROADMAP.md §1 Slice F).
+rounds otherwise on the card, where it holds under the margin rule). A mesh
+engine's tokens, migrated and rebalanced ones included, equal bitwise
+those of the single-device engine whose calls carry the same rows: data D
+at batch B against data 1 at batch B / D. At the same total batch a
+matmul's rows may round otherwise (on the CPU as on the card), and tokens
+agree under the margin rule. The model axis (tensor and expert
+parallelism) is ROADMAP item 20b.
 """
 from __future__ import annotations
 
@@ -141,7 +162,7 @@ import functools
 import json
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import Optional
 
@@ -149,7 +170,6 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import contracts_enabled, hot_path, maybe_check
-from repro_torch.core.device import resolve_device
 from repro_torch.engine.spec_decode import GenState, make_eps_fn, verify_round
 from repro_torch.models.transformer import (PagedView, TransformerLM,
                                             has_recurrent)
@@ -159,14 +179,19 @@ from repro_torch.serving.admission import (AdmissionQueue, Request,
                                            StagedEntry,
                                            pack_staged_descriptors,
                                            pow2_at_most, prefill_chunks)
-from repro_torch.serving.blocks import (BlockManager, StagingLedger,
+from repro_torch.serving.blocks import (ShardedBlockPool, StagingLedger,
                                        chain_hashes)
 from repro_torch.serving.faults import (CircuitBreaker, FaultPlan,
                                         RequestError, StagingFault,
                                         kill_point)
-from repro_torch.serving.hostcache import DiskTier, HostTier, LeafLayout
+from repro_torch.serving.hostcache import DiskTier, LeafLayout
 from repro_torch.serving.journal import RequestJournal
 from repro_torch.serving.metrics import EngineMetrics
+from repro_torch.serving.topology import ServingTopology
+
+# the host mirrors the round loops read, by their device-copy names
+_MIRRORS = {"tables": "tables", "target": "target", "seq": "seq_ids",
+            "poison": "poison", "plen": "plen"}
 
 
 @dataclass
@@ -198,6 +223,37 @@ class ParkedSequence:
     private: Optional[list] = None   # the private part, when not in the arena
     shard: int = 0               # the tier partition the pins live under
     cold: bool = False           # restored from a checkpoint: no payload
+
+
+@dataclass
+class _Shard:
+    """One data shard's device state: its slots ``rows`` (a range of the
+    batch), its device, the parameters and noise function it reads there,
+    its paged cache (block sub-pool and recurrent rows), the ``tokens``,
+    ``n`` and ``cand`` rows of its slots, its staging area (FIFO) and the
+    device copies of its slots' host mirrors (``dev``, by ``_MIRRORS``
+    name; a missing entry is uploaded before the next dispatch)."""
+    index: int
+    rows: range
+    device: torch.device
+    params: dict
+    eps_fn: object
+    paged: dict
+    tokens: torch.Tensor
+    n: torch.Tensor
+    cand: torch.Tensor
+    staged: list = field(default_factory=list)
+    dev: dict = field(default_factory=dict)
+
+
+def _params_on(tree, device):
+    """``tree`` with every tensor on ``device`` (the tensors themselves
+    where they are there already)."""
+    if isinstance(tree, dict):
+        return {k: _params_on(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_params_on(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
 def _to_host(t: torch.Tensor, pin: bool) -> torch.Tensor:
@@ -253,9 +309,11 @@ class ServingEngine:
                  use_verify_kernel: bool = False,
                  paged_attention: bool = True,
                  use_attention_kernel: Optional[bool] = None,
+                 topology: Optional[ServingTopology] = None,
                  rounds_per_sync: int = 4, lookahead: int = 8,
                  max_head_bypass: int = 16, preempt: bool = True,
-                 preempt_floor: float = 0.75, request_retries: int = 0,
+                 preempt_floor: float = 0.75, rebalance: bool = True,
+                 request_retries: int = 0,
                  max_request_seconds: Optional[float] = None,
                  max_request_rounds: Optional[int] = None,
                  faults: Optional[FaultPlan] = None,
@@ -280,7 +338,20 @@ class ServingEngine:
                              "staging_slots and prefetch_budget >= 0")
         if not 0.0 <= preempt_floor <= 1.0:
             raise ValueError(f"preempt_floor={preempt_floor}, want [0, 1]")
-        self.device = resolve_device(device)
+        # the topology: slot ranges, block sub-pools and devices per data
+        # shard; a mesh names its shards' devices itself
+        self.topo = topology if topology is not None else ServingTopology()
+        if self.topo.mesh is not None and device is not None:
+            raise ValueError("a mesh topology names its devices; pass "
+                             "device=None with it")
+        if self.topo.auto_axes:
+            raise NotImplementedError(
+                f"mesh axes {sorted(self.topo.auto_axes)} beside data are "
+                "ROADMAP item 20b")
+        D = self.topo.data_size
+        self.B_local = self.topo.slots_per_shard(batch)
+        devices = [self.topo.device(s, device) for s in range(D)]
+        self.device = devices[0]
         self.cfg = cfg
         self.params = params
         self.B = batch
@@ -297,7 +368,7 @@ class ServingEngine:
         # the fused paged kernel on the GPU; the gather-view fallback on the
         # CPU, which is exact against the dense solo sampler
         if use_attention_kernel is None:
-            use_attention_kernel = self.device.type == "cuda"
+            use_attention_kernel = all(d.type == "cuda" for d in devices)
         self.use_attention_kernel = use_attention_kernel
         self.rounds_per_sync = rounds_per_sync
         # staged adoption: up to ``staging_slots`` queued requests staged
@@ -322,32 +393,52 @@ class ServingEngine:
         # slot is never evicted
         self.preempt = preempt
         self.preempt_floor = preempt_floor
+        # cross-shard rebalancing by sequence migration at admission
+        self.rebalance = rebalance
         self.request_retries = request_retries
         self.max_request_seconds = max_request_seconds
         self.max_request_rounds = max_request_rounds
         self.faults = faults if faults is not None else FaultPlan.from_env()
-        self.eps_fn = eps_fn if eps_fn is not None else make_eps_fn(
-            eps_key, cfg.vocab, device=self.device)
         # False: every dispatch copies the paged cache out of place first,
         # as an undonated round of the reference writes a fresh pool
         self.donate = donate
         # the Report of every dispatch checked under REPRO_CHECK_CONTRACTS
         self.contract_reports = []
 
-        # ---- paged cache ------------------------------------------------
+        # ---- paged cache: one sub-pool and device state per shard -------
         self.nb = -(-(max_len + window_max) // block_size)  # table width
         if num_blocks is None:
-            # full occupancy + slack so unreferenced prefix blocks survive
-            num_blocks = 1 + batch * self.nb + 2 * self.nb
-        self.pool = BlockManager(num_blocks, block_size)
+            # per shard: full occupancy + slack so unreferenced prefix
+            # blocks survive
+            num_blocks = 1 + self.B_local * self.nb + 2 * self.nb
+        # ``num_blocks`` is per data shard
+        self.pool = ShardedBlockPool(D, num_blocks, block_size)
         if self.faults is not None:
             # the plan's bound method, not a closure over the engine (a
             # cycle through the block manager would outlive the engine)
-            self.pool.fault_hook = functools.partial(self.faults.fire,
-                                                     "alloc")
-        self.paged = TransformerLM.init_paged_cache(
-            cfg, batch, num_blocks, block_size, dtype=cfg.param_dtype,
-            device=self.device)
+            self.pool.set_fault_hook(functools.partial(self.faults.fire,
+                                                       "alloc"))
+        self.shards: list[_Shard] = []
+        on_device, eps_on = {}, {}
+        for s, dev in enumerate(devices):
+            if dev not in on_device:
+                on_device[dev] = _params_on(params, dev)
+                eps_on[dev] = eps_fn if eps_fn is not None else make_eps_fn(
+                    eps_key, cfg.vocab, device=dev)
+            B_l = self.B_local
+            self.shards.append(_Shard(
+                index=s, rows=self.topo.slot_range(s, batch), device=dev,
+                params=on_device[dev], eps_fn=eps_on[dev],
+                paged=TransformerLM.init_paged_cache(
+                    cfg, B_l, num_blocks, block_size, dtype=cfg.param_dtype,
+                    device=dev),
+                tokens=torch.zeros((B_l, max_len), dtype=torch.int64,
+                                   device=dev),
+                # the cleared-row sentinel n=1
+                n=torch.ones((B_l,), dtype=torch.int64, device=dev),
+                cand=torch.zeros((B_l, window_max), dtype=torch.int64,
+                                 device=dev)))
+        # block tables hold shard-local ids, each shard's sink local 0
         self.tables = np.zeros((batch, self.nb), np.int32)
         self.owned: list[list[int]] = [[] for _ in range(batch)]
 
@@ -374,48 +465,47 @@ class ServingEngine:
         if host_tier is not None:
             # a tier staging to another device, or an arena pinned for
             # another, would copy through the wrong path unnoticed
-            if (host_tier.staging.device.type != self.device.type
-                    or host_tier.arena.pinned != (self.device.type
-                                                  == "cuda")):
+            cuda = any(d.type == "cuda" for d in devices)
+            if (host_tier.num_shards != D
+                    or host_tier.arena.pinned != cuda
+                    or any(host_tier.staging_for(s).device.type != d.type
+                           for s, d in enumerate(devices))):
                 raise ValueError(
-                    f"host_tier stages to {host_tier.staging.device} "
-                    f"(arena pinned={host_tier.arena.pinned}); the engine "
-                    f"runs on {self.device}")
+                    f"host_tier stages to {host_tier.devices} (arena "
+                    f"pinned={host_tier.arena.pinned}); the engine's shards "
+                    f"run on {devices}")
             self.tier = host_tier
         else:
             mb = host_cache_mb
             if mb is None:
                 mb = float(os.environ.get("REPRO_HOST_CACHE_MB", 256))
-            self.tier = (HostTier(int(mb * 2 ** 20),
-                                  integrity=integrity_checks,
-                                  faults=self.faults,
-                                  breaker=CircuitBreaker(),
-                                  disk=self.disk, device=self.device)
-                         if mb > 0 else None)
+            self.tier = (self.topo.host_tier(
+                int(mb * 2 ** 20), integrity=integrity_checks,
+                faults=self.faults, breaker=CircuitBreaker(), disk=self.disk,
+                device=device) if mb > 0 else None)
+        paged0 = self.shards[0].paged
         if self.tier is not None and self.tier.disk is not None:
             # entries on disk in the reference's layout (one array per leaf
             # of its tree), the dtypes restored from these on the way back
             for ns, kind, leaves in (
-                    ("kv", "pool", TransformerLM.pool_leaves(cfg, self.paged)),
-                    ("rec", "state",
-                     TransformerLM.state_leaves(cfg, self.paged))):
+                    ("kv", "pool", TransformerLM.pool_leaves(cfg, paged0)),
+                    ("rec", "state", TransformerLM.state_leaves(cfg, paged0))):
                 self.tier.set_layout(ns, LeafLayout.of(
-                    leaves, TransformerLM.reference_walk(cfg, self.paged,
-                                                         kind)))
+                    leaves, TransformerLM.reference_walk(cfg, paged0, kind)))
         # the prefix cache per state kind: paged KV blocks are shareable
         # (``kv_prefix``); a recurrent stack's state after a prefix is not
         # paged, so its prefix hits go through the tier's snapshots
         # (``rec_prefix``), a hybrid's KV blocks beside them (``_kv_share``)
         self.recurrent = has_recurrent(cfg)
-        self.has_attn = bool(TransformerLM.pool_leaves(cfg, self.paged))
+        self.has_attn = bool(TransformerLM.pool_leaves(cfg, paged0))
         self.kv_prefix = prefix_cache and not self.recurrent
         self.rec_prefix = (prefix_cache and self.recurrent
                            and self.tier is not None)
         self._kv_share = self.kv_prefix or (self.rec_prefix and self.has_attn)
         # host copies are page-locked for the tier's uploads; a tier-less
         # park stays in pageable memory
-        self._pin_host = self.tier is not None and self.device.type == "cuda"
-        self.pool.spill_hook = self._make_spill_hook()
+        self._pin_host = self.tier is not None and self.tier.arena.pinned
+        self.pool.set_spill_hook(self._make_spill_hook)
 
         # ---- control / telemetry ---------------------------------------
         self.controller = AdaptiveWindowController(
@@ -434,21 +524,14 @@ class ServingEngine:
         # preempted requests by uid, awaiting their exact resume
         self.parked: dict[int, ParkedSequence] = {}
         self._last_rounds_exec = 0
-        # the staging area, FIFO, and the ledger of its block claims
-        self.staged: list[StagedEntry] = []
+        # the ledger of the staging areas' block claims (each shard's
+        # area, FIFO, is its ``staged``)
         self.ledger = StagingLedger(staging_slots)
-        # queued requests' prefetched prefix blocks on the device, by uid:
-        # {chain key: that block's rows}
-        self._prefetched: dict[int, dict] = {}
+        # queued requests' prefetched prefix blocks on a shard's device, by
+        # uid: (shard, {chain key: that block's rows})
+        self._prefetched: dict[int, tuple] = {}
 
-        # ---- per-slot device state (updated in place) --------------------
-        dev = self.device
-        self.tokens = torch.zeros((batch, max_len), dtype=torch.int64,
-                                  device=dev)
-        self.n = torch.ones((batch,), dtype=torch.int64, device=dev)
-        # ^ cleared-row sentinel n=1
-        self.cand = torch.zeros((batch, window_max), dtype=torch.int64,
-                                device=dev)
+        # ---- host mirrors of the per-slot state ----------------------------
         self.seq_ids = np.zeros(batch, np.int64)
         # 1 where the slot's noise stream is one of the fault plan's
         # poisoned streams: its logits are NaN-replaced every round
@@ -456,13 +539,65 @@ class ServingEngine:
         # each slot's prompt length: only a row adopted inside the staged
         # loop is ever at n < plen (its forced-acceptance prefill)
         self.plen = np.zeros(batch, np.int64)
-        # device copies of host-owned admission state, re-uploaded only
-        # after the host changes them
-        self._tables_dev = None
-        self._target_dev = None
-        self._seq_dev = None
-        self._poison_dev = None
-        self._plen_dev = None
+
+    # -- shards -----------------------------------------------------------
+    def _shard_of(self, b: int) -> _Shard:
+        """The shard that owns slot ``b``."""
+        return self.shards[self.topo.shard_of_slot(b, self.B)]
+
+    def _local(self, b: int) -> tuple:
+        """Slot ``b``'s shard and its row there."""
+        sh = self._shard_of(b)
+        return sh, b - sh.rows.start
+
+    def _mgr(self, b: int):
+        """The block manager of the shard that owns slot ``b``."""
+        return self.pool.manager(self._shard_of(b).index)
+
+    def _stale(self, b: int, *names):
+        """Drop slot ``b``'s shard's device copies of the host mirrors
+        ``names`` (``_MIRRORS`` keys; all of them by default): they are
+        uploaded again before the next dispatch."""
+        dev = self._shard_of(b).dev
+        for name in names or _MIRRORS:
+            dev.pop(name, None)
+
+    def _mirror_device(self, sh: _Shard, name: str):
+        """Shard ``sh``'s device copy of host mirror ``name``."""
+        if name not in sh.dev:
+            host = getattr(self, _MIRRORS[name])[sh.rows.start:sh.rows.stop]
+            sh.dev[name] = torch.from_numpy(host.copy()).to(sh.device)
+        return sh.dev[name]
+
+    def _single(self, name: str):
+        """The one shard's ``name`` (its live tensor); a mesh engine has no
+        single one: read ``shards[s].<name>``."""
+        if len(self.shards) != 1:
+            raise AttributeError(
+                f"a {len(self.shards)}-shard engine keeps {name!r} per "
+                f"shard: read shards[s].{name}")
+        return getattr(self.shards[0], name)
+
+    @property
+    def tokens(self):
+        return self._single("tokens")
+
+    @property
+    def n(self):
+        return self._single("n")
+
+    @property
+    def cand(self):
+        return self._single("cand")
+
+    @property
+    def paged(self):
+        return self._single("paged")
+
+    @property
+    def staged(self) -> list:
+        """Every staged entry, shard-major, FIFO within a shard."""
+        return [e for sh in self.shards for e in sh.staged]
 
     @property
     def state(self):
@@ -488,11 +623,11 @@ class ServingEngine:
             return RequestError(
                 "token_out_of_range",
                 f"tokens span [{lo}, {hi}], vocab={self.cfg.vocab}")
-        cap = self.pool.num_blocks - 1            # minus the reserved sink
+        cap = self.pool.blocks_per_shard - 1     # minus the reserved sink
         if self._worst_case_blocks(req) > cap:
             return RequestError(
                 "over_capacity", f"worst case {self._worst_case_blocks(req)}"
-                f" blocks > pool capacity {cap}")
+                f" blocks > pool capacity {cap}/shard")
         return None
 
     def submit(self, req: Request) -> bool:
@@ -536,77 +671,81 @@ class ServingEngine:
         """Row-local prefill of one chunk through slot ``b``'s block table,
         through the contract seam: its start uploaded before the checked
         region (``_prefill_chunk``), as the chunk and the table row were."""
-        start_t = torch.tensor([start], dtype=torch.int32, device=self.device)
+        sh = self._shard_of(b)
+        start_t = torch.tensor([start], dtype=torch.int32, device=sh.device)
         self._contract_check(
             "prefill", functools.partial(self._prefill_chunk, b=b),
-            (table_row, chunk, start_t))
+            (table_row, chunk, start_t), shards=(sh.index,))
 
     def _prefill_chunk(self, table_row, chunk, start_t, *, b: int):
         """Row-local prefill of one chunk through slot ``b``'s block table
-        from position ``start_t`` (1,); the pool is written in place and the
-        slot's recurrent row takes the state after the chunk's last
-        token."""
-        rows = slice(b, b + 1)
+        (shard-local ids) from position ``start_t`` (1,), on slot ``b``'s
+        shard; its pool is written in place and the slot's recurrent row
+        takes the state after the chunk's last token."""
+        sh, r = self._local(b)
+        rows = slice(r, r + 1)
         if not self.paged_attention:
-            view = TransformerLM.gather_paged(self.cfg, self.paged,
-                                              table_row, rows)
+            view = TransformerLM.gather_paged(self.cfg, sh.paged, table_row,
+                                              rows)
             _, _, nc = TransformerLM.decode_window(
-                self.params, self.cfg, chunk, view, start_t,
+                sh.params, self.cfg, chunk, view, start_t,
                 use_kernel=self.use_attention_kernel, last_state_only=True)
             TransformerLM.scatter_paged(
-                self.cfg, self.paged, nc, table_row, rows, start_t,
+                self.cfg, sh.paged, nc, table_row, rows, start_t,
                 chunk.shape[1], torch.ones((1,), dtype=torch.int32,
-                                           device=self.device))
+                                           device=sh.device))
             return
         view = PagedView(table_row, rows, self.use_attention_kernel)
         _, _, nc = TransformerLM.decode_window_paged(
-            self.params, self.cfg, chunk, self.paged, view, start_t,
+            sh.params, self.cfg, chunk, sh.paged, view, start_t,
             last_state_only=True)
-        TransformerLM.adopt_states_paged(self.cfg, self.paged, nc, view.rows)
+        TransformerLM.adopt_states_paged(self.cfg, sh.paged, nc, view.rows)
 
-    def _verify(self, tables, st: GenState, tgt, W: int, poison,
+    def _verify(self, sh: _Shard, tables, st: GenState, tgt, W: int, poison,
                 prompt_len=None):
-        """One verify round of every row over the pool, in place: through
-        the block tables, or in the legacy dense round by a view gathered
-        through them, decoded, and its window written back (rows inactive
-        under ``tgt`` write nothing)."""
-        B = self.B
+        """One verify round of shard ``sh``'s rows over its pool, in place:
+        through the block tables, or in the legacy dense round by a view
+        gathered through them, decoded, and its window written back (rows
+        inactive under ``tgt`` write nothing)."""
+        B = self.B_local
         if self.paged_attention:
             view = PagedView(tables, slice(0, B), self.use_attention_kernel)
             return verify_round(
-                self.params, self.cfg, self.eps_fn, st, tgt,
+                sh.params, self.cfg, sh.eps_fn, st, tgt,
                 use_forecast_heads=self.use_forecast_heads,
                 use_verify_kernel=self.use_verify_kernel, paged=view,
                 poison=poison, prompt_len=prompt_len)
-        dense = TransformerLM.gather_paged(self.cfg, self.paged, tables,
+        dense = TransformerLM.gather_paged(self.cfg, sh.paged, tables,
                                            slice(0, B))
         st2, rstats = verify_round(
-            self.params, self.cfg, self.eps_fn, st._replace(cache=dense), tgt,
+            sh.params, self.cfg, sh.eps_fn, st._replace(cache=dense), tgt,
             use_forecast_heads=self.use_forecast_heads,
             use_verify_kernel=self.use_verify_kernel,
             use_attention_kernel=self.use_attention_kernel, poison=poison,
             prompt_len=prompt_len)
-        TransformerLM.scatter_paged(self.cfg, self.paged, st2.cache, tables,
+        TransformerLM.scatter_paged(self.cfg, sh.paged, st2.cache, tables,
                                     slice(0, B), (st.n - 1).clamp(min=0), W,
                                     st.n < tgt)
         return st2, rstats
 
     @hot_path
     def _round_loop(self, W: int, tables, seq_ids, target, poison, *,
-                    k: int) -> torch.Tensor:
-        """Up to ``k`` verify rounds at window W on the device, with no host
-        sync inside: the loop reads device tensors only, the block tables,
-        stream ids, targets and poison flags uploaded before it
-        (``_round_program``) as the reference's jitted round takes them as
-        arguments. ``poison`` is None where no slot holds a poisoned stream:
-        every row's logits then pass through untouched, so the select over
-        them is left out. A round runs while some row is live (not done, not
-        bad); after that every round is a no-op (its target is zeroed, so no
-        row is active), the work the reference's ``while_loop`` skips.
-        Returns the packed (B, 5) stats ``[accepted, rounds_active,
-        new_length, loop_rounds, bad]``."""
-        B, dev = self.B, self.device
-        tokens, n, cand = self.tokens, self.n, self.cand
+                    k: int, s: int) -> torch.Tensor:
+        """Up to ``k`` verify rounds at window W of shard ``s``'s rows on
+        its device, with no host sync inside: the loop reads device tensors
+        only, the block tables, stream ids, targets and poison flags
+        uploaded before it (``_round_program``) as the reference's jitted
+        round takes them as arguments. ``poison`` is None where no slot
+        holds a poisoned stream: every row's logits then pass through
+        untouched, so the select over them is left out. A round runs while
+        some row of the shard is live (not done, not bad); after that every
+        round is a no-op (its target is zeroed, so no row is active), the
+        work the reference's ``while_loop`` skips. Returns the shard's
+        packed (B_local, 5) stats ``[accepted, rounds_active, new_length,
+        loop_rounds, bad]``."""
+        sh = self.shards[s]
+        B, dev = self.B_local, sh.device
+        tokens, n, cand = sh.tokens, sh.n, sh.cand
         zero = torch.zeros((B,), dtype=torch.int64, device=dev)
         acc, act_rounds, bad = zero, zero, zero
         r = torch.zeros((), dtype=torch.int64, device=dev)
@@ -614,9 +753,9 @@ class ServingEngine:
             live = ((n < target) & (bad == 0)).any()
             tgt = torch.where(live, target, zero)
             active = (n < tgt).long()
-            st = GenState(tokens, n, cand[:, :W], self.paged, r, zero, zero,
+            st = GenState(tokens, n, cand[:, :W], sh.paged, r, zero, zero,
                           seq_ids)
-            st2, rstats = self._verify(tables, st, tgt, W, poison)
+            st2, rstats = self._verify(sh, tables, st, tgt, W, poison)
             # sticky health bits: 1 = non-finite logits, 2 = no progress
             stuck = active * (st2.n == n).long()
             bad = bad | (active * rstats[:, 3]) | (stuck << 1)
@@ -626,16 +765,18 @@ class ServingEngine:
             self.metrics.verify_passes += 1
             tokens, n = st2.tokens, st2.n
             cand = torch.cat([st2.cand, torch.zeros_like(cand[:, W:])], dim=1)
-        self.tokens.copy_(tokens)
-        self.n.copy_(n)
-        self.cand.copy_(cand)
+        sh.tokens.copy_(tokens)
+        sh.n.copy_(n)
+        sh.cand.copy_(cand)
         return torch.stack([acc, act_rounds, n, r.expand(B), bad], dim=1)
 
     @hot_path
     def _staged_loop(self, W: int, use_poison: bool, tables, seq, target,
-                     poison_c, plen, staged, *, k: int) -> torch.Tensor:
-        """The round loop with in-loop adoption (``staging_slots > 0``): the
-        reference's staged ``while_loop`` as ``k`` device rounds. A sticky
+                     poison_c, plen, staged, *, k: int,
+                     s: int) -> torch.Tensor:
+        """Shard ``s``'s round loop with in-loop adoption (``staging_slots
+        > 0``) from its own staging area: the reference's staged
+        ``while_loop`` as ``k`` device rounds. A sticky
         ``go`` flag falls the first time the reference's condition fails —
         no row live and no descriptor left, or (while the host holds more
         backlog) a freed row with the staging area drained after the first
@@ -658,18 +799,20 @@ class ServingEngine:
         host holds more backlog). ``use_poison`` says whether a slot or a
         descriptor holds a poisoned stream, else the select is left out.
 
-        Returns one int64 buffer for the single pull: the (B, 7) stats
-        ``[accepted, rounds_active, new_length, loop_rounds, bad,
+        Returns one int64 buffer for the single pull: the (B_local, 7)
+        stats ``[accepted, rounds_active, new_length, loop_rounds, bad,
         gen_rounds, idle_rounds]``, then (S, 6) episodes (-1 rows: not
-        adopted), then (S, max_len) token rows. The updated tables, stream
-        ids, targets, poison and prompt lengths become the device copies;
-        the host mirrors follow in ``_harvest_adoptions``."""
-        B, dev, S = self.B, self.device, self.staging_slots
+        adopted; rows local to the shard), then (S, max_len) token rows.
+        The updated tables, stream ids, targets, poison and prompt lengths
+        become the shard's device copies; the host mirrors follow in
+        ``_harvest_adoptions``."""
+        sh = self.shards[s]
+        B, dev, S = self.B_local, sh.device, self.staging_slots
         max_len, Wm = self.max_len, self.W_max
         (d_tables, d_tokens, d_n, d_target, d_seq, d_poison, d_plen, count,
          q_more) = staged
-        tokens, n, cand = self.tokens, self.n, self.cand
-        states = (TransformerLM.state_leaves(self.cfg, self.paged)
+        tokens, n, cand = sh.tokens, sh.n, sh.cand
+        states = (TransformerLM.state_leaves(self.cfg, sh.paged)
                   if self.recurrent else [])
         zero = torch.zeros((B,), dtype=torch.int64, device=dev)
         acc = act = bad = gen = idle = zero
@@ -721,9 +864,9 @@ class ServingEngine:
             # one token past its snapshot: rows a fallen ``go`` froze while
             # live keep theirs
             snaps = [leaf.clone() for leaf in states]
-            st = GenState(tokens, n, cand[:, :W], self.paged, r, zero, zero,
+            st = GenState(tokens, n, cand[:, :W], sh.paged, r, zero, zero,
                           seq)
-            st2, rstats = self._verify(tables, st, tgt, W,
+            st2, rstats = self._verify(sh, tables, st, tgt, W,
                                        poison_c if use_poison else None,
                                        prompt_len=plen)
             for leaf, snap in zip(states, snaps):
@@ -739,27 +882,28 @@ class ServingEngine:
             self.metrics.verify_passes += 1
             tokens, n = st2.tokens, st2.n
             cand = torch.cat([st2.cand, torch.zeros_like(cand[:, W:])], dim=1)
-        self.tokens.copy_(tokens)
-        self.n.copy_(n)
-        self.cand.copy_(cand)
-        self._tables_dev, self._seq_dev, self._target_dev = tables, seq, target
-        self._poison_dev, self._plen_dev = poison_c, plen
+        sh.tokens.copy_(tokens)
+        sh.n.copy_(n)
+        sh.cand.copy_(cand)
+        sh.dev.update(tables=tables, seq=seq, target=target, poison=poison_c,
+                      plen=plen)
         stats = torch.stack([acc, act, n, r.expand(B), bad, gen, idle], dim=1)
         return torch.cat([stats.reshape(-1), astats[:S].reshape(-1),
                           otok[:S].reshape(-1)])
 
-    def _staged_args(self) -> tuple:
-        """This loop's staging area on the device, with one upload: the
+    def _staged_args(self, sh: _Shard) -> tuple:
+        """Shard ``sh``'s staging area on its device, with one upload: the
         descriptors' tables (int32), tokens, start lengths, targets,
         streams, poison and prompt lengths (int64), then their count and
-        whether the host holds more backlog (() int64 and bool)."""
+        whether the host holds more backlog (() int64 and bool; the same
+        flag for every shard, as admission routes globally)."""
         _, tables, tokens, n0, target, seq, poison, plen = \
-            pack_staged_descriptors([self.staged], self.staging_slots,
+            pack_staged_descriptors([sh.staged], self.staging_slots,
                                     self.nb, self.max_len)
         parts = (tables, tokens, n0, target, seq, poison, plen,
-                 np.array(len(self.staged)), np.array(len(self.queue) > 0))
+                 np.array(len(sh.staged)), np.array(len(self.queue) > 0))
         flat = torch.from_numpy(np.concatenate(
-            [a.astype(np.int64).reshape(-1) for a in parts])).to(self.device)
+            [a.astype(np.int64).reshape(-1) for a in parts])).to(sh.device)
         out, off = [], 0
         for a in parts:
             out.append(flat[off:off + a.size].view(a.shape))
@@ -768,58 +912,69 @@ class ServingEngine:
         out[-1] = out[-1].bool()
         return tuple(out)
 
-    def _round_program(self, W: int, k: int) -> tuple:
-        """``(kind, fn, args)`` of the round loop the next step dispatches
-        at window W and ``k`` rounds: the host mirrors uploaded here, so
-        the loop itself reads only device tensors. ``args`` holds what
-        sets the program's shapes (W, the poison select) beside the
-        tensors; ``k`` is bound in ``fn``: a loop of k rounds replays one
-        round's program k times."""
-        tables, seq, target = (self._tables_device(), self._seq_device(),
-                               self._target_device())
+    def _round_program(self, W: int, k: int, s: int = 0) -> tuple:
+        """``(kind, fn, args)`` of shard ``s``'s round loop the next step
+        dispatches at window W and ``k`` rounds: the shard's host mirrors
+        uploaded here, so the loop itself reads only device tensors.
+        ``args`` holds what sets the program's shapes (W, the poison
+        select) beside the tensors; ``k`` and ``s`` are bound in ``fn``: a
+        loop of k rounds replays one round's program k times."""
+        sh = self.shards[s]
+        mirror = functools.partial(self._mirror_device, sh)
+        tables, seq, target = mirror("tables"), mirror("seq"), mirror("target")
+        poisoned = bool(self.poison[sh.rows.start:sh.rows.stop].any())
         if self.staging_slots == 0:
-            poison = self._poison_device() if self.poison.any() else None
-            return ("round", functools.partial(self._round_loop, k=k),
-                    (W, tables, seq, target, poison))
-        use_poison = bool(self.poison.any()) or any(e.poison
-                                                    for e in self.staged)
-        return ("staged_round", functools.partial(self._staged_loop, k=k),
-                (W, use_poison, tables, seq, target, self._poison_device(),
-                 self._plen_device(), self._staged_args()))
+            return ("round", functools.partial(self._round_loop, k=k, s=s),
+                    (W, tables, seq, target,
+                     mirror("poison") if poisoned else None))
+        use_poison = poisoned or any(e.poison for e in sh.staged)
+        return ("staged_round",
+                functools.partial(self._staged_loop, k=k, s=s),
+                (W, use_poison, tables, seq, target, mirror("poison"),
+                 mirror("plen"), self._staged_args(sh)))
 
-    def _paged_leaves(self) -> dict:
-        """Every tensor of the paged cache: ``pool``, the block pools, and
-        ``state``, the recurrent state rows."""
-        return {"pool": TransformerLM.pool_leaves(self.cfg, self.paged),
-                "state": TransformerLM.state_leaves(self.cfg, self.paged)}
+    def _paged_leaves(self, shards=(0,)) -> dict:
+        """Every tensor of the paged caches of ``shards``: ``pool``, the
+        block pools, and ``state``, the recurrent state rows."""
+        caches = [self.shards[s].paged for s in shards]
+        return {"pool": [x for c in caches
+                         for x in TransformerLM.pool_leaves(self.cfg, c)],
+                "state": [x for c in caches
+                          for x in TransformerLM.state_leaves(self.cfg, c)]}
 
-    def _contract_check(self, kind: str, fn, args, variant=None):
-        """The contract seam: ``fn(*args)``, checked against its named
-        contract at its first dispatch under ``REPRO_CHECK_CONTRACTS=1``
+    def _contract_check(self, kind: str, fn, args, *, shards=(0,),
+                        variant=None):
+        """The contract seam: ``fn(*args)``, a program over the paged
+        caches of ``shards``, checked against its named contract at its
+        first dispatch under ``REPRO_CHECK_CONTRACTS=1``
         (``analysis.maybe_check``; on the card every dispatch then runs
-        under ``set_sync_debug_mode("error")``). The label is per engine,
-        so the recompile registry never mixes instances; an engine built
-        with ``donate=False`` copies its paged cache out of place first
-        and skips the aliasing rule."""
+        under ``set_sync_debug_mode("error")``). The label is per engine
+        and shard, so the recompile registry never mixes instances and
+        every shard's dispatch is checked; an engine built with
+        ``donate=False`` copies the caches out of place first and skips
+        the aliasing rule."""
+        leaves = self._paged_leaves(shards)
         if not self.donate:
-            fn = functools.partial(self._undonated, fn)
+            fn = functools.partial(self._undonated, fn, shards=shards)
         if not contracts_enabled():
             return fn(*args)
-        return maybe_check(kind, fn, args, label=f"{kind}@{hex(id(self))}",
-                           variant=variant, donate=self.donate,
-                           device=self.device, reports=self.contract_reports,
-                           **self._paged_leaves(),
+        label = f"{kind}@{hex(id(self))}:" + ",".join(map(str, shards))
+        return maybe_check(kind, fn, args, label=label, variant=variant,
+                           donate=self.donate,
+                           device=self.shards[shards[-1]].device,
+                           reports=self.contract_reports, **leaves,
                            **self._contract_exemptions())
 
-    def _undonated(self, fn, *args):
+    def _undonated(self, fn, *args, shards=(0,)):
         """``fn(*args)`` as an undonated program of the reference runs:
-        every leaf of the paged cache is first copied out of place, the
-        copy taking the leaf's place (``set_``, so everything holding the
-        leaf sees it) and the old storage freed. Tokens are unchanged; the
-        cost is one read and one write of the cache per dispatch; leaf by
-        leaf, so beside the cache one leaf's copy is live, not a second
-        cache as in the reference's undonated program."""
-        leaves = self._paged_leaves()
+        every leaf of the paged caches of ``shards`` is first copied out
+        of place, the copy taking the leaf's place (``set_``,
+        so everything holding the leaf sees it) and the old storage freed.
+        Tokens are unchanged; the cost is one read and one write of the
+        cache per dispatch; leaf by leaf, so beside the cache one leaf's
+        copy is live, not a second cache as in the reference's undonated
+        program."""
+        leaves = self._paged_leaves(shards)
         for leaf in leaves["pool"] + leaves["state"]:
             leaf.set_(leaf.clone())
         return fn(*args)
@@ -827,25 +982,26 @@ class ServingEngine:
     def _contract_exemptions(self) -> dict:
         """This engine's refinement of the contracts (consumed by
         ``maybe_check`` / ``check_engine_round``): ``pool_scatter_shapes``,
-        the exact KV-pool leaf shapes, narrows NoPoolRankedScatters from
-        the rank proxy to real pool writes (MoE dispatch buffers and
-        recurrent state rows are high-rank scatters the round runs by
-        design). A tensor-parallel exemption comes with the mesh engine
-        (ROADMAP item 20)."""
+        the exact KV-pool leaf shapes (a shard's, the same on every shard),
+        narrows NoPoolRankedScatters from the rank proxy to real pool
+        writes (MoE dispatch buffers and recurrent state rows are high-rank
+        scatters the round runs by design). The tensor-parallel exemption
+        waits for the model axis (ROADMAP item 20b)."""
         return {"pool_scatter_shapes": frozenset(
-            tuple(leaf.shape)
-            for leaf in TransformerLM.pool_leaves(self.cfg, self.paged))}
+            tuple(leaf.shape) for leaf in TransformerLM.pool_leaves(
+                self.cfg, self.shards[0].paged))}
 
     # -- slot / block plumbing ---------------------------------------------
     def _ensure_capacity(self, b: int, upto_pos: int):
         """Grow slot ``b``'s block table to cover positions [0, upto_pos)."""
         need = -(-upto_pos // self.block_size)
         assert need <= self.nb, (need, self.nb)
+        mgr = self._mgr(b)
         while len(self.owned[b]) < need:
-            blk = self.pool.alloc(1)[0]
+            blk = mgr.alloc(1)[0]
             self.tables[b, len(self.owned[b])] = blk
             self.owned[b].append(blk)
-            self._tables_dev = None
+            self._stale(b, "tables")
 
     def _grow_run(self, b: int, pos0: int, n: int) -> list:
         """Slot ``b``'s table grown to ``pos0 + n`` blocks; the ids at
@@ -857,9 +1013,9 @@ class ServingEngine:
         """Reset slot ``b`` to the inactive no-op lane: n=1, cache_len=0,
         an all-zero table (sink block 0), zeroed recurrent rows.
         ``release=False`` leaves the block accounting alone (a preempted
-        slot's blocks were spilled already)."""
+        slot's blocks were spilled already, a migrated one's moved)."""
         if release:
-            self.pool.release_all(self.owned[b])
+            self._mgr(b).release_all(self.owned[b])
         self.owned[b] = []
         self.tables[b] = 0
         self.target[b] = 0
@@ -868,49 +1024,19 @@ class ServingEngine:
         self.seq_ids[b] = 0
         self.poison[b] = 0
         self.plen[b] = 0
-        self._tables_dev = self._target_dev = self._seq_dev = None
-        self._poison_dev = self._plen_dev = None
-        self.tokens[b] = 0
-        self.n[b] = 1
-        self.cand[b] = 0
-        TransformerLM.reset_rows(self.cfg, self.paged, b)
-
-    def _tables_device(self):
-        if self._tables_dev is None:
-            self._tables_dev = torch.from_numpy(self.tables.copy()).to(
-                self.device)
-        return self._tables_dev
-
-    def _target_device(self):
-        if self._target_dev is None:
-            self._target_dev = torch.from_numpy(self.target.copy()).to(
-                self.device)
-        return self._target_dev
-
-    def _seq_device(self):
-        if self._seq_dev is None:
-            self._seq_dev = torch.from_numpy(self.seq_ids.copy()).to(
-                self.device)
-        return self._seq_dev
-
-    def _poison_device(self):
-        if self._poison_dev is None:
-            self._poison_dev = torch.from_numpy(self.poison.copy()).to(
-                self.device)
-        return self._poison_dev
-
-    def _plen_device(self):
-        if self._plen_dev is None:
-            self._plen_dev = torch.from_numpy(self.plen.copy()).to(
-                self.device)
-        return self._plen_dev
+        self._stale(b)
+        sh, r = self._local(b)
+        sh.tokens[r] = 0
+        sh.n[r] = 1
+        sh.cand[r] = 0
+        TransformerLM.reset_rows(self.cfg, sh.paged, r)
 
     def _set_poison(self, b: int, req: Request):
         """Slot ``b``'s poison entry for its new occupant."""
         v = int(self._poisoned(req))
         if int(self.poison[b]) != v:
             self.poison[b] = v
-            self._poison_dev = None
+            self._stale(b, "poison")
 
     def _poisoned(self, req: Request) -> bool:
         return (self.faults is not None
@@ -921,90 +1047,96 @@ class ServingEngine:
         self.slots[b] = req
         self._set_poison(b, req)
         self.target[b] = L_p + req.new_tokens
-        self._target_dev = None
+        self._stale(b, "target")
         if self.plen[b] != L_p:
             self.plen[b] = L_p
-            self._plen_dev = None
+            self._stale(b, "plen")
         self.reserved[b] = self._worst_case_blocks(req)
 
     # -- host tier plumbing ----------------------------------------------------
-    def _collect_block_payload(self, gids) -> list:
-        """The pool rows of blocks ``gids`` on the host, per block its flat
-        tensors (one per dtype), with one D2H copy per dtype."""
+    def _collect_block_payload(self, gids, s: int = 0) -> list:
+        """The pool rows of shard ``s``'s blocks ``gids`` on the host, per
+        block its flat tensors (one per dtype), with one D2H copy per
+        dtype."""
         if len(gids) == 0:
             return []
-        return pull_rows(TransformerLM.pool_leaves(self.cfg, self.paged),
-                         gids, self._pin_host)
+        return pull_rows(
+            TransformerLM.pool_leaves(self.cfg, self.shards[s].paged), gids,
+            self._pin_host)
 
-    def _merge_block_rows(self, gids, rows):
+    def _merge_block_rows(self, gids, rows, s: int = 0):
         """Write blocks' rows (``_collect_block_payload``'s encoding, one
-        entry per block of ``gids``) into the pool; the reference's
-        ``.at[gid].set`` merge is an index assignment here too."""
-        push_rows(TransformerLM.pool_leaves(self.cfg, self.paged), gids,
-                  rows, self.device)
+        entry per block of ``gids``) into shard ``s``'s pool; the
+        reference's ``.at[gid].set`` merge is an index assignment here
+        too."""
+        sh = self.shards[s]
+        push_rows(TransformerLM.pool_leaves(self.cfg, sh.paged), gids, rows,
+                  sh.device)
 
     def _collect_rec_row(self, b: int) -> list:
         """Slot ``b``'s recurrent state rows on the host (one flat tensor
         per dtype)."""
-        return pull_rows(TransformerLM.state_leaves(self.cfg, self.paged),
-                         [b], self._pin_host)[0]
+        sh, r = self._local(b)
+        return pull_rows(TransformerLM.state_leaves(self.cfg, sh.paged),
+                         [r], self._pin_host)[0]
 
     def _restore_rec_row(self, b: int, rows):
-        push_rows(TransformerLM.state_leaves(self.cfg, self.paged), [b],
-                  [rows], self.device)
+        sh, r = self._local(b)
+        push_rows(TransformerLM.state_leaves(self.cfg, sh.paged), [r],
+                  [rows], sh.device)
 
-    def _make_spill_hook(self):
-        """The pool's eviction hook: a hashed cached-free block about to be
-        reclaimed is copied into the tier under its chain key (no copy
-        when the key is resident already: keys are content-addressed).
-        None (dropped outright) without a tier or attention pools. The
-        hook holds the tier and the pool tensors, not the engine: the
-        engine holds the block manager that holds the hook, and a cycle
-        would keep the device pools alive until a garbage collection."""
+    def _make_spill_hook(self, s: int):
+        """Shard ``s``'s eviction hook: a hashed cached-free block about to
+        be reclaimed is copied into the tier under the shard's key space
+        and its chain key (no copy when the key is resident already: keys
+        are content-addressed). None (dropped outright) without a tier or
+        attention pools. The hook holds the tier and the pool tensors, not
+        the engine: the engine holds the block manager that holds the
+        hook, and a cycle would keep the device pools alive until a
+        garbage collection."""
         if self.tier is None or not self.has_attn:
             return None
         tier = self.tier
-        leaves = TransformerLM.pool_leaves(self.cfg, self.paged)
+        leaves = TransformerLM.pool_leaves(self.cfg, self.shards[s].paged)
         pin = self._pin_host
 
         def hook(bid: int, key) -> bool:
-            if tier.has_kv(0, key):
+            if tier.has_kv(s, key):
                 return True
-            return tier.put_kv(0, key, pull_rows(leaves, [bid], pin)[0])
+            return tier.put_kv(s, key, pull_rows(leaves, [bid], pin)[0])
         return hook
 
-    def _stage_host_blocks(self, host_keys, blocks_for,
+    def _stage_host_blocks(self, host_keys, blocks_for, s: int,
                            prefetched: Optional[dict] = None) -> int:
-        """Restage tier-resident KV blocks into the blocks that
-        ``blocks_for(n)`` allocates (or names) for the first ``n`` keys.
-        The run is pinned before those allocations, whose evictions spill
-        into the same arena, so they cannot evict it; a pin that fails cuts
-        the run, and prefill covers the rest. Keys in ``prefetched`` have a
-        device copy already and need no pin. Returns the number of blocks
-        restaged."""
+        """Restage shard ``s``'s tier-resident KV blocks into the blocks
+        that ``blocks_for(n)`` allocates (or names) for the first ``n``
+        keys. The run is pinned before those allocations, whose evictions
+        spill into the same arena, so they cannot evict it; a pin that
+        fails cuts the run, and prefill covers the rest. Keys in
+        ``prefetched`` have a device copy already and need no pin. Returns
+        the number of blocks restaged."""
         pinned = []
         for key in host_keys:
             if prefetched is not None and key in prefetched:
                 pinned.append(key)
                 continue
-            if not self.tier.pin_kv(0, key):
+            if not self.tier.pin_kv(s, key):
                 break
             pinned.append(key)
         try:
             return self._restage_host_blocks(
-                pinned, blocks_for(len(pinned)), prefetched=prefetched)
+                pinned, blocks_for(len(pinned)), s, prefetched=prefetched)
         finally:
             for key in pinned:
                 if prefetched is None or key not in prefetched:
-                    self.tier.unpin_kv(0, key)
+                    self.tier.unpin_kv(s, key)
 
-    def _through_ring(self, uploads):
+    def _through_ring(self, uploads, ring):
         """Push ``uploads``, ``(tag, tensors, on_device)`` items, through
-        the staging ring with ``depth`` uploads in flight, and yield
+        staging ``ring`` with ``depth`` uploads in flight, and yield
         ``(tag, device tensors)`` in their order; an ``on_device`` item
         (a device copy already) passes through once the ring has
         drained."""
-        ring = self.tier.staging
         for tag, tensors, on_device in uploads:
             if on_device:
                 while (item := ring.take()) is not None:
@@ -1017,20 +1149,20 @@ class ServingEngine:
         while (item := ring.take()) is not None:
             yield item
 
-    def _staging_failed(self):
-        """A run through the ring died: drop its uploads and count it."""
-        self.tier.staging.clear()
+    def _staging_failed(self, ring):
+        """A run through ``ring`` died: drop its uploads and count it."""
+        ring.clear()
         self.metrics.staging_errors += 1
         self.tier.record_failure()
 
-    def _restage_host_blocks(self, host_keys, block_ids,
+    def _restage_host_blocks(self, host_keys, block_ids, s: int,
                              prefetched: Optional[dict] = None) -> int:
-        """Merge the tier entries under ``host_keys`` into the allocated
-        ``block_ids`` (1:1, in key order) through the staging ring, each
-        merged block registered; ``depth`` uploads are in flight while
-        earlier ones merge. Prefetched device rows merge directly
-        (``prefetch_hits``), after the ring drains, so the merged blocks
-        are always a prefix in key order. A run that dies (a
+        """Merge shard ``s``'s tier entries under ``host_keys`` into its
+        allocated ``block_ids`` (1:1, in key order) through the shard's
+        staging ring, each merged block registered; ``depth`` uploads are
+        in flight while earlier ones merge. Prefetched device rows merge
+        directly (``prefetch_hits``), after the ring drains, so the merged
+        blocks are always a prefix in key order. A run that dies (a
         ``StagingFault``) clears the ring and counts only what merged:
         prefill rewrites the rest. Returns the number of blocks merged."""
         def uploads():
@@ -1038,27 +1170,30 @@ class ServingEngine:
                 if prefetched is not None and key in prefetched:
                     yield (gid, key, True), prefetched[key], True
                     continue
-                rows = self.tier.get_kv(0, key)      # counts the host hit
+                rows = self.tier.get_kv(s, key)      # counts the host hit
                 if rows is None:     # corrupt, or the tier tripped: cut
                     return
                 yield (gid, key, False), rows, False
 
+        ring, mgr = self.tier.staging_for(s), self.pool.manager(s)
         staged = 0
         try:
-            for (gid, key, pre), devs in self._through_ring(uploads()):
-                self._merge_block_rows([gid], [devs])
-                self.pool.register(gid, key)
+            for (gid, key, pre), devs in self._through_ring(uploads(), ring):
+                self._merge_block_rows([gid], [devs], s)
+                mgr.register(gid, key)
                 staged += 1
                 self.metrics.prefetch_hits += pre
         except StagingFault:
-            self._staging_failed()
+            self._staging_failed(ring)
         self.metrics.host_staged_blocks += staged
         return staged
 
-    def _take_prefetched(self, uid: int) -> Optional[dict]:
+    def _take_prefetched(self, uid: int, s: int) -> Optional[dict]:
         """Claim ``uid``'s prefetched device rows for its admission or
-        staging; None when nothing was prefetched."""
-        return self._prefetched.pop(uid, None)
+        staging on shard ``s``; None when nothing was prefetched or the
+        copies are another shard's."""
+        shard, rows = self._prefetched.pop(uid, (None, None))
+        return rows if shard == s else None
 
     def _drop_prefetched(self, uid: int):
         self._prefetched.pop(uid, None)
@@ -1080,14 +1215,14 @@ class ServingEngine:
                 self._drop_prefetched(uid)
         budget = self.prefetch_budget
 
-        def uploads(prompt):
+        def uploads(prompt, s):
             # the leading resident run, within the step's budget
             nonlocal budget
             nb_full = (len(prompt) - 1) // self.block_size
             for key in chain_hashes(prompt, self.block_size, nb_full):
-                if budget <= 0 or not self.tier.has_kv(0, key):
+                if budget <= 0 or not self.tier.has_kv(s, key):
                     return
-                rows = self.tier.get_kv(0, key)
+                rows = self.tier.get_kv(s, key)
                 if rows is None:
                     return
                 yield key, rows, False
@@ -1098,15 +1233,19 @@ class ServingEngine:
                 break
             if req.uid in self._prefetched or req.uid in self.parked:
                 continue
+            # the shard an admission would pick now: the most headroom (a
+            # request admitted elsewhere just wastes the copies)
+            s = max(range(self.topo.data_size), key=self._headroom)
+            ring = self.tier.staging_for(s)
             rows_by_key = {}
             try:
                 for key, devs in self._through_ring(
-                        uploads(np.asarray(req.prompt, np.int64))):
+                        uploads(np.asarray(req.prompt, np.int64), s), ring):
                     rows_by_key[key] = devs
             except StagingFault:
-                self._staging_failed()
+                self._staging_failed(ring)
             if rows_by_key:
-                self._prefetched[req.uid] = rows_by_key
+                self._prefetched[req.uid] = (s, rows_by_key)
 
     # -- priority preemption ---------------------------------------------
     def _live_blocks(self, b: int) -> int:
@@ -1127,7 +1266,7 @@ class ServingEngine:
         assert req is not None, f"slot {b} is not occupied"
         nb_live = self._live_blocks(b)
         self.parked[req.uid] = self._park_tiered(req, b, nb_live)
-        self.pool.spill(self.owned[b])
+        self._mgr(b).spill(self.owned[b])
         self.owned[b] = []
         self.slots[b] = None
         self._clear_row(b, release=False)
@@ -1147,46 +1286,52 @@ class ServingEngine:
         tail blocks) is one park entry. Without one, or where the arena
         refuses the entry, the private part stays as raw host tensors (a
         park never fails)."""
+        sh, r = self._local(b)
+        s = sh.index
         prompt = np.asarray(req.prompt)
         nb_pub = (min((len(prompt) - 1) // self.block_size, nb_live)
                   if self._kv_share and self.tier is not None else 0)
         keys = chain_hashes(prompt, self.block_size, nb_pub)
         # pull only the blocks whose keys are not resident already
         need = [jb for jb in range(nb_pub)
-                if not self.tier.has_kv(0, keys[jb])]
+                if not self.tier.has_kv(s, keys[jb])]
         payloads = dict(zip(need, self._collect_block_payload(
-            [int(self.tables[b, jb]) for jb in need])))
+            [int(self.tables[b, jb]) for jb in need], s)))
         kv_keys = []
         for jb in range(nb_pub):
-            ok = (self.tier.put_kv(0, keys[jb], payloads[jb], pin=True)
-                  if jb in payloads else self.tier.pin_kv(0, keys[jb]))
+            ok = (self.tier.put_kv(s, keys[jb], payloads[jb], pin=True)
+                  if jb in payloads else self.tier.pin_kv(s, keys[jb]))
             if not ok:           # arena full or entry gone: rest is private
                 break
             kv_keys.append(keys[jb])
         tail = self._collect_block_payload(
-            [int(self.tables[b, jb]) for jb in range(len(kv_keys), nb_live)]
-        ) if self.has_attn else [[] for _ in range(len(kv_keys), nb_live)]
+            [int(self.tables[b, jb]) for jb in range(len(kv_keys), nb_live)],
+            s) if self.has_attn else [[] for _ in range(len(kv_keys),
+                                                       nb_live)]
         rec = self._collect_rec_row(b) if self.recurrent else []
         private = list(rec)
         for rows in tail:
             private.extend(rows)
         in_arena = (self.tier is not None
                     and self.tier.put_park(req.uid, private))
-        row = pull_rows([self.tokens, self.cand], [b], self._pin_host)[0][0]
+        row = pull_rows([sh.tokens, sh.cand], [r], self._pin_host)[0][0]
         return ParkedSequence(
             n=int(self.n_host[b]), tokens=row[:self.max_len].numpy(),
             cand=row[self.max_len:].numpy(), nb_live=nb_live,
             kv_keys=tuple(kv_keys), n_rec=len(rec),
             rows_per_block=len(tail[0]) if tail else 0, in_arena=in_arena,
-            private=None if in_arena else private, shard=0)
+            private=None if in_arena else private, shard=s)
 
     def _restore_row(self, b: int, req: Request, parked: ParkedSequence):
-        """Slot ``b``'s park-time ``tokens``/``n``/``cand`` and stream."""
-        self.tokens[b] = torch.from_numpy(parked.tokens).to(self.device)
-        self.n[b] = parked.n
-        self.cand[b] = torch.from_numpy(parked.cand).to(self.device)
+        """Slot ``b``'s park-time ``tokens``/``n``/``cand`` and stream,
+        pushed to its shard's device (a park may resume on another
+        shard)."""
+        sh, r = self._local(b)
+        sh.tokens[r] = torch.from_numpy(parked.tokens).to(sh.device)
+        sh.n[r] = parked.n
+        sh.cand[r] = torch.from_numpy(parked.cand).to(sh.device)
         self.seq_ids[b] = req.seq_id
-        self._seq_dev = None
+        self._stale(b, "seq")
         self.n_host[b] = parked.n
 
     def _resume(self, req: Request, b: int, parked: ParkedSequence):
@@ -1210,7 +1355,10 @@ class ServingEngine:
         ``_resume_cold`` with nothing to unwind."""
         prompt = np.asarray(req.prompt, np.int64)
         L_p = len(prompt)
+        # the pinned entries live under the parking shard's key space; the
+        # resume may land on another shard, whose pool the rows merge into
         shard = parked.shard
+        s, mgr = self._shard_of(b).index, self._mgr(b)
         nb_live = parked.nb_live
         n_shared = len(parked.kv_keys)
         private = (self.tier.take_park(req.uid) if parked.in_arena
@@ -1235,12 +1383,12 @@ class ServingEngine:
         hits, keys = [], []
         nb_full = min((L_p - 1) // self.block_size, nb_live)
         if self._kv_share and nb_full:
-            hits, keys = self.pool.lookup_prefix(prompt, nb_full)
+            hits, keys = mgr.lookup_prefix(prompt, nb_full)
         self.owned[b] = list(hits)
         self.tables[b] = 0
         self.tables[b, :len(hits)] = hits
-        self._tables_dev = None
-        fresh = self.pool.alloc(nb_live - len(hits))
+        self._stale(b, "tables")
+        fresh = mgr.alloc(nb_live - len(hits))
         owned = list(hits) + fresh
         self.owned[b] = list(owned)
         self.tables[b, :nb_live] = owned
@@ -1252,7 +1400,7 @@ class ServingEngine:
             else:
                 t0 = (jb - n_shared) * rpb
                 rows.append(tail[t0:t0 + rpb])
-        self._merge_block_rows(owned[len(hits):], rows)
+        self._merge_block_rows(owned[len(hits):], rows, s)
         host_restored = max(0, n_shared - len(hits))
         req.prefix_hit_blocks += len(hits) + host_restored
         if self.recurrent:
@@ -1261,7 +1409,7 @@ class ServingEngine:
         # publish the rebuilt full prompt blocks again, drop the park pins
         if self._kv_share:
             for jb in range(len(hits), nb_full):
-                self.pool.register(owned[jb], keys[jb])
+                mgr.register(owned[jb], keys[jb])
         for key in parked.kv_keys:
             self.tier.unpin_kv(shard, key)
         self._occupy(b, req, L_p)
@@ -1284,34 +1432,35 @@ class ServingEngine:
         n = parked.n
         nb_live = parked.nb_live
         toks = np.asarray(parked.tokens, np.int64)
+        (sh, r), mgr = self._local(b), self._mgr(b)
         hits, keys, host_keys = [], [], []
         nb_full = min((L_p - 1) // self.block_size, nb_live)
         if self._kv_share and nb_full and not self.recurrent:
-            hits, keys, host_keys = self.pool.lookup_prefix_tiered(
-                prompt, nb_full, tier=self.tier)
+            hits, keys, host_keys = mgr.lookup_prefix_tiered(
+                prompt, nb_full, tier=self.tier, shard=sh.index)
         self.owned[b] = list(hits)
         self.tables[b] = 0
         self.tables[b, :len(hits)] = hits
-        self._tables_dev = None
+        self._stale(b, "tables")
         staged = (self._stage_host_blocks(
-            host_keys, functools.partial(self._grow_run, b, len(hits)))
-            if host_keys else 0)
+            host_keys, functools.partial(self._grow_run, b, len(hits)),
+            sh.index) if host_keys else 0)
         req.prefix_hit_blocks += len(hits) + staged
         self._ensure_capacity(b, nb_live * self.block_size)
-        TransformerLM.reset_rows(self.cfg, self.paged, b)
+        TransformerLM.reset_rows(self.cfg, sh.paged, r)
         start = (len(hits) + staged) * self.block_size
         table_row = torch.from_numpy(self.tables[b:b + 1].copy()).to(
-            self.device)
+            sh.device)
         for C in prefill_chunks(n - 1 - start, self.prefill_chunk):
             chunk = torch.from_numpy(toks[None, start:start + C]).to(
-                self.device)
+                sh.device)
             self._prefill(table_row, b, chunk, start)
             start += C
             req.prefill_calls += 1
             self.metrics.prefill_calls += 1
         if self._kv_share and not self.recurrent:
             for j in range(len(hits) + staged, nb_full):
-                self.pool.register(self.owned[b][j], keys[j])
+                mgr.register(self.owned[b][j], keys[j])
         self._restore_row(b, req, parked)
         self._occupy(b, req, L_p)
         self.metrics.resumes += 1
@@ -1330,6 +1479,103 @@ class ServingEngine:
         for key in parked.kv_keys:
             self.tier.unpin_kv(parked.shard, key)
         parked.in_arena, parked.kv_keys = False, ()
+
+    # -- sequence migration -------------------------------------------------
+    def migrate_slot(self, b_src: int, b_dst: int):
+        """Move the live sequence in slot ``b_src`` to the free slot
+        ``b_dst``. Across shards its owned blocks are copied into fresh
+        landing blocks of the destination's sub-pool (``begin_migration``,
+        the device copy, ``finish_migration``), and its copied full prompt
+        blocks are published in the destination's prefix cache; within
+        one shard the blocks stay where they are. Its recurrent rows move
+        (the source's zeroed), and so do its ``tokens``/``n``/``cand``
+        rows, stream, prompt length, target, reservation and poison flag;
+        the source slot is cleared without a release (the blocks moved,
+        they were not freed). The tokens do not change: the contents are
+        copied bitwise and the noise is keyed by stream and position. The
+        caller sees to capacity (``_try_rebalance`` checks the
+        reservation); a MemoryError from the landing allocation leaves
+        everything as it was."""
+        req = self.slots[b_src]
+        assert req is not None, f"slot {b_src} is not occupied"
+        assert self.slots[b_dst] is None, f"slot {b_dst} is occupied"
+        (src, r_src), (dst, r_dst) = self._local(b_src), self._local(b_dst)
+        s, t = src.index, dst.index
+        n_owned = len(self.owned[b_src])
+        ids = (None, None)
+        if s == t:
+            new_owned = list(self.owned[b_src])
+        else:
+            new_owned = self.pool.begin_migration(s, t, n_owned)
+            ids = self._migration_ids(self.tables[b_src, :n_owned],
+                                      new_owned, src, dst)
+            self.metrics.blocks_migrated += n_owned
+        rows = (torch.tensor([r_src], device=src.device),
+                torch.tensor([r_dst], device=dst.device))
+        self._contract_check(
+            "migration_copy",
+            functools.partial(self._migration_copy, s=s, t=t), ids + rows,
+            shards=(s,) if s == t else (s, t))
+        if s != t:
+            self.pool.finish_migration(s, self.owned[b_src])
+            if self._kv_share:
+                # the copied full prompt blocks the sequence has written
+                # (all of them past its prompt) join the destination's
+                # cache; the first writer of a key wins
+                prompt = np.asarray(req.prompt)
+                nb_full = min((len(prompt) - 1) // self.block_size, n_owned,
+                              (int(self.n_host[b_src]) - 1)
+                              // self.block_size)
+                keys = chain_hashes(prompt, self.block_size, nb_full)
+                for j in range(nb_full):
+                    self.pool.manager(t).register(new_owned[j], keys[j])
+        for name in ("tokens", "n", "cand"):
+            getattr(dst, name)[r_dst] = getattr(src, name)[r_src].to(
+                dst.device)
+        self.tables[b_dst] = 0
+        self.tables[b_dst, :n_owned] = new_owned
+        self.owned[b_dst] = list(new_owned)
+        self.slots[b_dst] = req
+        for mirror in (self.target, self.reserved, self.n_host, self.seq_ids,
+                       self.plen, self.poison):
+            mirror[b_dst] = mirror[b_src]
+        self._stale(b_dst)
+        self.slots[b_src] = None
+        self.owned[b_src] = []
+        self._clear_row(b_src, release=False)
+        req.migrations += 1
+        self.metrics.migrations += 1
+
+    def _migration_ids(self, src_blocks, dst_blocks, src: _Shard,
+                       dst: _Shard) -> tuple:
+        """A cross-shard copy's block ids on each shard's device, padded to
+        the table width by repeating the last pair (a padded lane rewrites
+        a real block with the same contents: the pools' sink blocks are
+        never touched, and one argument shape serves every migration)."""
+        pad = self.nb - len(src_blocks)
+        return tuple(
+            torch.from_numpy(np.pad(np.asarray(ids, np.int64), (0, pad),
+                                    mode="edge")).to(sh.device)
+            for ids, sh in ((src_blocks, src), (dst_blocks, dst)))
+
+    def _migration_copy(self, src_ids, dst_ids, src_row, dst_row, *, s: int,
+                        t: int):
+        """The device half of a migration, in place: shard ``s``'s pool
+        rows ``src_ids`` copied into shard ``t``'s ``dst_ids`` (None: one
+        shard, the blocks stay), then each recurrent row moved from
+        ``src_row`` on ``s`` to ``dst_row`` on ``t`` and the source row
+        zeroed. The host sync that ended the last step orders it after
+        the source shard's last round."""
+        src, dst = self.shards[s].paged, self.shards[t].paged
+        dev = self.shards[t].device
+        if src_ids is not None:
+            for a, b in zip(TransformerLM.pool_leaves(self.cfg, src),
+                            TransformerLM.pool_leaves(self.cfg, dst)):
+                b[dst_ids] = a[src_ids].to(dev)
+        for a, b in zip(TransformerLM.state_leaves(self.cfg, src),
+                        TransformerLM.state_leaves(self.cfg, dst)):
+            b[dst_row] = a[src_row].to(dev)
+            a[src_row] = 0
 
     def _evictable(self, head: Request) -> list[int]:
         """Running slots the queue head may preempt: of strictly lower
@@ -1351,22 +1597,30 @@ class ServingEngine:
         return out
 
     def _try_preempt(self, head: Request) -> Optional[int]:
-        """Priority preemption: evict the shortest prefix of the evictable
-        slots whose freed reservations and the current headroom cover the
-        head's worst case, park each victim for its exact resume, and route
-        the head."""
+        """Priority preemption on a single shard: of each shard's evictable
+        slots, the shortest prefix whose freed reservations and the shard's
+        headroom cover the head's worst case; the fewest victims win (on a
+        tie, the shard of the most evictable slot). Each victim is parked
+        for its exact resume, and the head routed."""
         if not self.preempt:
             return None
         need = self._worst_case_blocks(head)
-        gain, took = self._headroom(), []
+        by_shard: dict[int, list[int]] = {}
         for b in self._evictable(head):
-            gain += int(self.reserved[b])
-            took.append(b)
-            if gain >= need:
-                break
-        if not took or gain < need:
+            by_shard.setdefault(self._shard_of(b).index, []).append(b)
+        best = None
+        for s, victims in by_shard.items():
+            gain, took = self._headroom(s), []
+            for b in victims:
+                gain += int(self.reserved[b])
+                took.append(b)
+                if gain >= need:
+                    break
+            if gain >= need and (best is None or len(took) < len(best)):
+                best = took
+        if best is None:
             return None
-        for b in took:
+        for b in best:
             self.preempt_slot(b)
         return self._route(head)
 
@@ -1385,11 +1639,12 @@ class ServingEngine:
     def _unstage_all(self):
         """Every staged request back to the queue at its original rank, and
         its blocks back to the pool (hashed hits drop to cached-free)."""
-        for e in self.staged:
-            self.pool.release_all(e.blocks)
-            self.ledger.release(0, e.req.uid)
-            self.queue.requeue(e.req)
-        self.staged = []
+        for sh in self.shards:
+            for e in sh.staged:
+                self.pool.manager(sh.index).release_all(e.blocks)
+                self.ledger.release(sh.index, e.req.uid)
+                self.queue.requeue(e.req)
+            sh.staged = []
 
     def _reconcile_staging(self):
         """The staging invariants at every sync: staged entries exist only
@@ -1397,7 +1652,8 @@ class ServingEngine:
         host admission, with its lookahead and preemption), and the area
         never outranks the queue head (a higher-priority arrival unstages
         it)."""
-        if not self.staged:
+        staged = self.staged
+        if not staged:
             return
         if any(s is None for s in self.slots):
             self._unstage_all()
@@ -1405,99 +1661,113 @@ class ServingEngine:
         head = self.queue.peek()
         if head is not None:
             hk = (head.priority, head.deadline_time, head._seq)
-            if any(hk < e.key for e in self.staged):
+            if any(hk < e.key for e in staged):
                 self._unstage_all()
 
-    def _build_staged(self, req: Request, need: int) -> StagedEntry:
-        """Stage ``req``: its worst-case blocks allocated now (an adopted
-        row never allocates in the loop), device prefix hits and blocks
-        restaged from the host tier covering its leading prompt positions.
-        Recurrent stacks stage from scratch: their state row is zeroed at
-        adoption, and a KV prefix without its snapshot would not match it.
-        Fresh blocks are not published: their contents become valid only
-        as the forced prefill writes them."""
+    def _build_staged(self, req: Request, s: int, need: int) -> StagedEntry:
+        """Stage ``req`` on shard ``s``: its worst-case blocks allocated
+        now (an adopted row never allocates in the loop), device prefix
+        hits and blocks restaged from the host tier covering its leading
+        prompt positions. Recurrent stacks stage from scratch: their state
+        row is zeroed at adoption, and a KV prefix without its snapshot
+        would not match it. Fresh blocks are not published: their contents
+        become valid only as the forced prefill writes them."""
+        mgr = self.pool.manager(s)
         prompt = np.asarray(req.prompt, np.int64)
         L_p = len(prompt)
         hits, host_keys = [], []
         nb_full = (L_p - 1) // self.block_size
         if self._kv_share and nb_full and not self.recurrent:
-            hits, _, host_keys = self.pool.lookup_prefix_tiered(
-                prompt, nb_full, tier=self.tier)
+            hits, _, host_keys = mgr.lookup_prefix_tiered(
+                prompt, nb_full, tier=self.tier, shard=s)
         try:
-            fresh = self.pool.alloc(need - len(hits))
+            fresh = mgr.alloc(need - len(hits))
         except Exception:
-            self.pool.release_all(hits)
+            mgr.release_all(hits)
             raise
         blocks = list(hits) + fresh
         try:
             staged_host = (self._stage_host_blocks(
-                host_keys, lambda n: blocks[len(hits):len(hits) + n],
-                prefetched=self._take_prefetched(req.uid))
+                host_keys, lambda n: blocks[len(hits):len(hits) + n], s,
+                prefetched=self._take_prefetched(req.uid, s))
                 if host_keys else 0)
         except Exception:
-            self.pool.release_all(blocks)
+            mgr.release_all(blocks)
             raise
         cov = len(hits) + staged_host
         req.prefix_hit_blocks = cov
         table_row = np.zeros(self.nb, np.int32)
         table_row[:len(blocks)] = blocks
         return StagedEntry(
-            req=req, shard=0, prompt=prompt.astype(np.int32),
+            req=req, shard=s, prompt=prompt.astype(np.int32),
             n0=cov * self.block_size + 1, plen=L_p,
             target=L_p + req.new_tokens, blocks=blocks,
             table_row=table_row, poison=int(self._poisoned(req)),
             key=(req.priority, req.deadline_time, req._seq))
 
     def _stage_pending(self):
-        """Fill the staging area from the queue in queue order, only while
-        every slot is busy. Stops at the first request that cannot stage
-        (skipping it would let a later one adopt first); a parked request
-        needs the host's resume. Claims go through the ledger, out of the
-        headroom net of resident reservations."""
+        """Fill the staging areas from the queue in queue order, only while
+        every slot is busy, each request on the shard with room in its area
+        and the most headroom (the lowest shard on a tie). Stops at the
+        first request that cannot stage (skipping it would let a later one
+        adopt first); a parked request needs the host's resume. Claims go
+        through the ledger, out of the headroom net of resident
+        reservations."""
         if self.staging_slots == 0 or not self.queue:
             return
         if any(s is None for s in self.slots):
             return
-        capacity = self.staging_slots - len(self.staged)
+        capacity = sum(self.staging_slots - len(sh.staged)
+                       for sh in self.shards)
         if capacity <= 0:
             return
         for req in self.queue.lookahead(capacity):
             if req.uid in self.parked:
                 break
             need = self._worst_case_blocks(req)
-            h = self._headroom()
-            if h < need or not self.ledger.try_claim(0, req.uid, need, h):
+            best = None
+            for sh in self.shards:
+                if len(sh.staged) >= self.staging_slots:
+                    continue
+                h = self._headroom(sh.index)
+                if h >= need and (best is None or h > best[1]):
+                    best = (sh.index, h)
+            if best is None or not self.ledger.try_claim(best[0], req.uid,
+                                                         need, best[1]):
                 break
+            s = best[0]
             try:
-                entry = self._build_staged(req, need)
+                entry = self._build_staged(req, s, need)
             except Exception:
                 # staging only saves syncs: the request stays queued
-                self.ledger.release(0, req.uid)
+                self.ledger.release(s, req.uid)
                 break
             self.queue.remove(req)
             self._drop_prefetched(req.uid)
-            self.staged.append(entry)
+            self.shards[s].staged.append(entry)
             self.metrics.staged_sequences += 1
 
-    def _harvest_adoptions(self, adopt: np.ndarray, out_tok: np.ndarray,
+    def _harvest_adoptions(self, s: int, adopt: np.ndarray,
+                           out_tok: np.ndarray,
                            now: float) -> tuple[int, int, int]:
-        """Replay the loop's adoptions on the host. Descriptors were adopted
-        in FIFO order, so walking them in order meets, at descriptor ``i``,
-        the slot's host occupant as exactly the episode the loop displaced:
-        a finished one delivers the tokens kept at displacement, a bad one
-        goes through ``_fail_request``; its blocks are released without
-        ``_clear_row``, since the device row already switched. The adopted
-        entry's host mirrors are set without dropping the device copies.
-        Returns ``(accepted, active_row_rounds, generating_row_rounds)`` of
-        the displaced episodes."""
+        """Replay shard ``s``'s in-loop adoptions on the host. Descriptors
+        were adopted in FIFO order, so walking them in order meets, at
+        descriptor ``i``, the slot's host occupant as exactly the episode
+        the loop displaced: a finished one delivers the tokens kept at
+        displacement, a bad one goes through ``_fail_request``; its blocks
+        are released without ``_clear_row``, since the device row already
+        switched. The adopted entry's host mirrors are set without dropping
+        the device copies. Returns ``(accepted, active_row_rounds,
+        generating_row_rounds)`` of the displaced episodes."""
+        sh, mgr = self.shards[s], self.pool.manager(s)
         acc_extra = act_extra = gen_extra = 0
         n_adopted = 0
-        for i, entry in enumerate(self.staged):
+        for i, entry in enumerate(sh.staged):
             row = adopt[i]
             if row[0] < 0:
                 break               # adopted descriptors are a prefix
             n_adopted += 1
-            g = int(row[0])
+            g = self.topo.global_slot(s, int(row[0]), self.B)
             ep_n, ep_acc, ep_act = int(row[1]), int(row[2]), int(row[3])
             ep_bad, ep_gen = int(row[4]), int(row[5])
             prev = self.slots[g]
@@ -1506,7 +1776,7 @@ class ServingEngine:
                 acc_extra += ep_acc
                 act_extra += ep_act
                 gen_extra += ep_gen
-                self.pool.release_all(self.owned[g])
+                mgr.release_all(self.owned[g])
                 self.owned[g] = []
                 self.slots[g] = None
                 if ep_bad:
@@ -1523,7 +1793,7 @@ class ServingEngine:
                     self._journal_finish(prev)
             req = entry.req
             req.admit_time = now
-            self.ledger.release(0, req.uid)
+            self.ledger.release(s, req.uid)
             self.slots[g] = req
             self.owned[g] = list(entry.blocks)
             self.tables[g] = entry.table_row
@@ -1533,7 +1803,7 @@ class ServingEngine:
             self.poison[g] = entry.poison
             self.reserved[g] = len(entry.blocks)
             self.metrics.in_loop_adoptions += 1
-        self.staged = self.staged[n_adopted:]
+        sh.staged = sh.staged[n_adopted:]
         return acc_extra, act_extra, gen_extra
 
     # -- admission ----------------------------------------------------------
@@ -1542,26 +1812,69 @@ class ServingEngine:
         return -(-(len(req.prompt) + req.new_tokens + self.W_max)
                  // self.block_size)
 
-    def _headroom(self) -> int:
-        """Free blocks net of those promised to in-flight slots but not yet
-        allocated (their tables grow lazily as n advances)."""
+    def _headroom(self, s: int) -> int:
+        """Shard ``s``'s free blocks net of those promised to its in-flight
+        slots but not yet allocated (their tables grow lazily as n
+        advances)."""
         owed = sum(max(0, int(self.reserved[b]) - len(self.owned[b]))
-                   for b in range(self.B) if self.slots[b] is not None)
-        return self.pool.available() - owed
+                   for b in self.topo.slot_range(s, self.B)
+                   if self.slots[b] is not None)
+        return self.pool.available(s) - owed
+
+    def _free_slot_in(self, s: int) -> Optional[int]:
+        return next((b for b in self.topo.slot_range(s, self.B)
+                     if self.slots[b] is None), None)
 
     def _route(self, req: Request) -> Optional[int]:
-        """The lowest free slot, iff the pool covers the request's worst
-        case."""
-        free = [b for b in range(self.B) if self.slots[b] is None]
-        if not free or self._headroom() < self._worst_case_blocks(req):
+        """Pool-pressure routing: the lowest free slot of the shard with
+        the most headroom that covers the request's worst case (on one
+        shard: the lowest free slot, iff the pool covers it)."""
+        headroom = {s: self._headroom(s) for s in range(self.topo.data_size)
+                    if self._free_slot_in(s) is not None}
+        s = self.pool.route(self._worst_case_blocks(req), headroom)
+        return None if s is None else self._free_slot_in(s)
+
+    def _try_rebalance(self, req: Request) -> Optional[int]:
+        """Shard rebalancing, when no shard has both a free slot and the
+        headroom for ``req``: migrate a resident to another shard where its
+        whole reservation fits, if its leaving frees enough on its home
+        shard (its slot, and its blocks and reservation) to admit ``req``
+        there. The move copying the fewest blocks wins (then the lowest
+        slots). Returns the admission slot, or None."""
+        if not self.rebalance or self.topo.data_size == 1:
             return None
-        return free[0]
+        need = self._worst_case_blocks(req)
+        best = None
+        for v in range(self.B):
+            if self.slots[v] is None:
+                continue
+            home = self._shard_of(v).index
+            if self._headroom(home) + int(self.reserved[v]) < need:
+                continue
+            for t in range(self.topo.data_size):
+                b_dst = self._free_slot_in(t)
+                if (t == home or b_dst is None
+                        or self._headroom(t) < int(self.reserved[v])):
+                    continue
+                cand = (len(self.owned[v]), v, b_dst)
+                if best is None or cand < best:
+                    best = cand
+        if best is None:
+            return None
+        _, v, b_dst = best
+        try:
+            self.migrate_slot(v, b_dst)
+        except MemoryError:
+            # a landing allocation fault: nothing moved yet
+            return None
+        return self._route(req)
 
     def _admit_pending(self):
         """Lookahead admission: scan up to ``lookahead`` queued requests in
-        queue order and admit the first routable one; the head alone may
-        also claim room by preempting lower-priority slots (for a later
-        request that would invert the queue's order). Every admission that
+        queue order and admit the first routable one. Any of them may claim
+        room by rebalancing the shards; the head alone also by preempting
+        lower-priority slots (for a later request that would invert the
+        queue's order). Every admission that
         jumps the head ages it, and at ``max_head_bypass`` the scan narrows
         to the head alone so it cannot starve."""
         while self.queue:
@@ -1573,6 +1886,8 @@ class ServingEngine:
             faulted = False
             for req in cands:
                 b = self._route(req)
+                if b is None:
+                    b = self._try_rebalance(req)
                 if b is None and req is head:
                     b = self._try_preempt(head)
                 if b is not None:
@@ -1615,15 +1930,17 @@ class ServingEngine:
         req.admit_time = time.monotonic()
         prompt = np.asarray(req.prompt, np.int64)
         L_p = len(prompt)
+        (sh, r), mgr = self._local(b), self._mgr(b)
+        s = sh.index
         # prefix cache: reuse full blocks strictly below position L_p - 1
         # (the verify window rewrites position n-1 = L_p-1 onward, so those
-        # blocks stay read-only and shareable); device misses fall through
-        # to the host tier
+        # blocks stay read-only and shareable); the cache is the shard's
+        # own, and its device misses fall through to the host tier
         hits, keys, host_keys = [], [], []
         nb_full = (L_p - 1) // self.block_size
         if self._kv_share and nb_full:
-            hits, keys, host_keys = self.pool.lookup_prefix_tiered(
-                prompt, nb_full, tier=self.tier)
+            hits, keys, host_keys = mgr.lookup_prefix_tiered(
+                prompt, nb_full, tier=self.tier, shard=s)
         elif self.rec_prefix and nb_full:
             keys = chain_hashes(prompt, self.block_size, nb_full)
 
@@ -1634,21 +1951,21 @@ class ServingEngine:
             # of them without attention layers) and the state snapshot at
             # keys[j - 1]; take the largest such j
             cover = (len(hits) + len(host_keys)) if self.has_attn else nb_full
-            rec_rows, rec_bound = self._snapshot_at_or_below(keys, cover)
+            rec_rows, rec_bound = self._snapshot_at_or_below(keys, cover, s)
             # prefill rewrites blocks >= j through the table, so device hits
             # past the boundary (shared blocks) are released
             if len(hits) > rec_bound:
-                self.pool.release_all(hits[rec_bound:])
+                mgr.release_all(hits[rec_bound:])
                 hits = hits[:rec_bound]
             host_keys = keys[len(hits):rec_bound] if self.has_attn else []
 
         self.owned[b] = list(hits)
         self.tables[b] = 0
         self.tables[b, :len(hits)] = hits
-        self._tables_dev = None
-        pre = self._take_prefetched(req.uid)
+        self._stale(b, "tables")
+        pre = self._take_prefetched(req.uid, s)
         staged = (self._stage_host_blocks(
-            host_keys, functools.partial(self._grow_run, b, len(hits)),
+            host_keys, functools.partial(self._grow_run, b, len(hits)), s,
             prefetched=pre) if host_keys else 0)
         if (self.rec_prefix and self.has_attn
                 and rec_bound > len(hits) + staged):
@@ -1656,27 +1973,27 @@ class ServingEngine:
             # Prefill rewrites the blocks past it, so they go back (shared
             # hits and registered restaged blocks stay hittable, unchanged)
             rec_rows, rec_bound = self._snapshot_at_or_below(
-                keys, len(hits) + staged)
-            self.pool.release_all(self.owned[b][rec_bound:])
+                keys, len(hits) + staged, s)
+            mgr.release_all(self.owned[b][rec_bound:])
             self.owned[b] = self.owned[b][:rec_bound]
             self.tables[b, rec_bound:] = 0
-            self._tables_dev = None
+            self._stale(b, "tables")
             staged = max(0, rec_bound - len(hits))
             hits = hits[:rec_bound]
         self._ensure_capacity(b, L_p)
         start_blocks = rec_bound if self.rec_prefix else len(hits) + staged
         req.prefix_hit_blocks = start_blocks
 
-        dev = self.device
+        dev = sh.device
         row_tokens = torch.zeros((self.max_len,), dtype=torch.int64)
         row_tokens[:L_p] = torch.from_numpy(prompt)
-        self.tokens[b] = row_tokens.to(dev)
-        self.n[b] = L_p
-        self.cand[b] = 0
-        self.cand[b, 0] = int(prompt[-1])
+        sh.tokens[r] = row_tokens.to(dev)
+        sh.n[r] = L_p
+        sh.cand[r] = 0
+        sh.cand[r, 0] = int(prompt[-1])
         self.seq_ids[b] = req.seq_id
-        self._seq_dev = None
-        TransformerLM.reset_rows(self.cfg, self.paged, b)
+        self._stale(b, "seq")
+        TransformerLM.reset_rows(self.cfg, sh.paged, r)
         if rec_rows is not None and start_blocks > 0:
             # the state after positions [0, start_blocks * bs), captured at
             # this boundary by an earlier admission
@@ -1704,26 +2021,27 @@ class ServingEngine:
                     and end % self.block_size == 0
                     and end <= nb_full * self.block_size):
                 key = keys[end // self.block_size - 1]
-                if not self.tier.has_rec(0, key) and self.tier.put_rec(
-                        0, key, self._collect_rec_row(b)):
+                if not self.tier.has_rec(s, key) and self.tier.put_rec(
+                        s, key, self._collect_rec_row(b)):
                     self.metrics.rec_snapshot_captures += 1
         # publish this prompt's freshly computed full blocks (restaged ones
         # were registered as they merged)
         if self._kv_share:
             for j in range(len(hits) + staged, nb_full):
-                self.pool.register(self.owned[b][j], keys[j])
+                mgr.register(self.owned[b][j], keys[j])
         self._occupy(b, req, L_p)
         self.n_host[b] = L_p
         self._journal("admit", uid=int(req.uid))
         kill_point("post_admit")
 
-    def _snapshot_at_or_below(self, keys, cover: int):
+    def _snapshot_at_or_below(self, keys, cover: int, s: int):
         """The recurrent snapshot at the largest block boundary ``j <=
-        cover`` the tier holds, copied out of the arena (the allocations
-        that follow may spill into it and recycle its buffers), and ``j``;
-        ``(None, 0)`` when there is none."""
+        cover`` shard ``s``'s key space of the tier holds, copied out of
+        the arena (the allocations that follow may spill into it and
+        recycle its buffers), and ``j``; ``(None, 0)`` when there is
+        none."""
         for j in range(cover, 0, -1):
-            rows = self.tier.get_rec(0, keys[j - 1])
+            rows = self.tier.get_rec(s, keys[j - 1])
             if rows is not None:
                 return self.tier.arena.copy_out(rows), j
         return None, 0
@@ -1785,14 +2103,15 @@ class ServingEngine:
                     self._discard_park(uid, parked)
                 self._finalize_cancel(req)
                 return True
-        for i, e in enumerate(self.staged):
-            if e.req.uid == uid:
-                self.pool.release_all(e.blocks)
-                self.ledger.release(0, uid)
-                del self.staged[i]
-                self._drop_prefetched(uid)
-                self._finalize_cancel(e.req)
-                return True
+        for sh in self.shards:
+            for i, e in enumerate(sh.staged):
+                if e.req.uid == uid:
+                    self.pool.manager(sh.index).release_all(e.blocks)
+                    self.ledger.release(sh.index, uid)
+                    del sh.staged[i]
+                    self._drop_prefetched(uid)
+                    self._finalize_cancel(e.req)
+                    return True
         for b in range(self.B):
             req = self.slots[b]
             if req is not None and req.uid == uid:
@@ -1821,14 +2140,16 @@ class ServingEngine:
         """Count queued deadline expiries, reconcile the staging area, admit
         what fits (preempting for a higher-priority head), stage what
         waits, prefetch the tier-resident prefixes of what is still queued,
-        run one loop of up to ``rounds_per_sync`` verify rounds,
-        harvest adoptions and finished requests. Without staging the loop
-        runs one round while requests are queued, so freed slots refill
-        promptly; with staging, backlog is when a long loop pays (freed
-        rows adopt without a sync), so k comes from the adaptive
-        controller, or is ``rounds_per_sync`` while the backlog is staged.
-        The host pulls exactly one small array per step. Returns True while
-        there is work."""
+        run one loop of up to ``rounds_per_sync`` verify rounds on every
+        shard that holds a request (one window W for all), harvest
+        adoptions and finished requests. Without staging the loop runs one
+        round while requests are queued, so freed slots refill promptly;
+        with staging, backlog is when a long loop pays (freed rows adopt
+        without a sync), so k comes from the adaptive controller, or is
+        ``rounds_per_sync`` while the backlog is staged. Every shard's loop
+        is dispatched before the host reads any shard's stats, so shards on
+        several devices overlap; the host pulls one small array per shard.
+        Returns True while there is work."""
         self._poll_queue_deadlines()
         self._reconcile_staging()
         self._admit_pending()
@@ -1862,30 +2183,47 @@ class ServingEngine:
                     self._fail_slot(b, "capacity", str(e), retryable=True)
         if not any(s is not None for s in self.slots):
             return bool(self.queue) or bool(self.staged)
-        # THE host sync: one small packed pull per loop
-        adopt = None
-        kind, fn, args = self._round_program(W, k)
-        out = self._contract_check(kind, fn, args, variant=k).cpu().numpy()
-        if self.staging_slots == 0:
-            stats = out
-        else:
-            S = self.staging_slots
-            flat = out
-            stats = flat[:self.B * 7].reshape(self.B, 7)
-            adopt = flat[self.B * 7:self.B * 7 + S * 6].reshape(S, 6)
-            out_tok = flat[self.B * 7 + S * 6:].reshape(S, self.max_len)
-            self.metrics.staging_occupancy_hist.append(staged_now / S)
+        # every busy shard's loop dispatched, then THE host sync: one small
+        # packed pull per shard. A shard holding no request is not run: its
+        # stats would be its cleared rows' (n = 1, all else 0)
+        busy = [sh for sh in self.shards
+                if any(self.slots[b] is not None for b in sh.rows)]
+        outs = []
+        for sh in busy:
+            kind, fn, args = self._round_program(W, k, sh.index)
+            outs.append(self._contract_check(kind, fn, args,
+                                             shards=(sh.index,), variant=k))
+        Bl, S = self.B_local, self.staging_slots
+        stats = np.zeros((self.B, 7 if S else 5), np.int64)
+        stats[:, 2] = self.n_host
+        adopt = {}
+        for sh, out in zip(busy, outs):
+            flat = out.cpu().numpy()
+            rows = slice(sh.rows.start, sh.rows.stop)
+            if S == 0:
+                stats[rows] = flat
+                continue
+            stats[rows] = flat[:Bl * 7].reshape(Bl, 7)
+            adopt[sh.index] = (
+                flat[Bl * 7:Bl * 7 + S * 6].reshape(S, 6),
+                flat[Bl * 7 + S * 6:].reshape(S, self.max_len))
+        if S:
+            self.metrics.staging_occupancy_hist.append(
+                staged_now / (self.topo.data_size * S))
         accepted, rounds_active, n_host = stats[:, 0], stats[:, 1], stats[:, 2]
         bad = stats[:, 4]
-        rounds_exec = int(stats[:, 3].max())
+        rounds_exec = int(stats[:, 3].max())   # the longest shard's loop
         self.n_host[:] = n_host
         self._last_rounds_exec = rounds_exec
 
         now = time.monotonic()
         acc_extra = act_extra = gen_extra = 0
-        if adopt is not None and bool((adopt[:, 0] >= 0).any()):
-            acc_extra, act_extra, gen_extra = self._harvest_adoptions(
-                adopt, out_tok, now)
+        for s, (ad, out_tok) in adopt.items():
+            if bool((ad[:, 0] >= 0).any()):
+                extra = self._harvest_adoptions(s, ad, out_tok, now)
+                acc_extra += extra[0]
+                act_extra += extra[1]
+                gen_extra += extra[2]
         slot_rows = [b for b in range(self.B) if self.slots[b] is not None]
         # a row's accumulators restart at adoption, so its stats are its
         # current occupant's; displaced episodes were credited above
@@ -1918,7 +2256,8 @@ class ServingEngine:
                                 fresh_stream=True)
                 continue
             if n_host[b] >= self.target[b]:
-                req.result = self.tokens[b, :n_host[b]].cpu().numpy().copy()
+                sh, r = self._local(b)
+                req.result = sh.tokens[r, :n_host[b]].cpu().numpy().copy()
                 req.finish_time = now
                 self.metrics.observe_finish(req)
                 self.done.append(req)
@@ -2116,10 +2455,13 @@ class ServingEngine:
     # -- telemetry -----------------------------------------------------------
     def export_metrics(self) -> dict:
         out = self.metrics.export(
-            self.pool.stats.export(),
+            self.pool.stats_export(),
             self.tier.stats_export() if self.tier is not None else None)
         out["blocks_in_use"] = self.pool.blocks_in_use()
         out["blocks_available"] = self.pool.available()
+        if self.topo.data_size > 1:
+            out["blocks_available_by_shard"] = [
+                self.pool.available(s) for s in range(self.topo.data_size)]
         out["parked_requests"] = len(self.parked)
         out["queue_depth"] = len(self.queue)
         out["staged_requests"] = len(self.staged)

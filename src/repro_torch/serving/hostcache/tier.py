@@ -18,8 +18,13 @@ through namespaced keys:
   live once in the ``kv`` namespace, pinned by every parked sequence that
   needs them.
 
-Payloads are flat lists of CPU tensors (pinned when ``device`` is CUDA);
-the engine owns their layout. ``shard`` is always 0 on one device.
+Payloads are flat lists of CPU tensors (pinned when a shard's device is
+CUDA); the engine owns their layout. ``shard`` is the data shard whose
+device prefix cache the entry backs (``num_shards`` of them, 0 on one
+device): block contents never cross shards, so neither do their host
+copies, though all shards share the arena's one byte budget. Uploads go
+through one staging ring for each distinct shard device
+(``staging_for``).
 
 A ``CircuitBreaker`` gates every arena operation: repeated integrity or
 staging failures trip it, and an open tier answers every probe as a miss
@@ -165,26 +170,57 @@ class _DiskLink:
             self.put(key[0], key[1], key[-1], tensors)
 
 
+def _wait_all(rings):
+    """``before_reuse`` over several rings: a recycled buffer waits for
+    every upload that reads it, whichever ring made it."""
+    def wait_reads(buf):
+        for ring in rings:
+            ring.wait_reads(buf)
+    return wait_reads
+
+
 class HostTier:
-    def __init__(self, capacity_bytes: int, *, device,
+    def __init__(self, capacity_bytes: int, num_shards: int = 1, *, device,
                  integrity: bool = True, faults=None,
                  breaker: Optional[CircuitBreaker] = None,
                  disk: Optional[DiskTier] = None):
-        device = torch.device(device)
+        """``device``: one device for every shard, or a list of each
+        shard's."""
+        devices = (list(device) if isinstance(device, (list, tuple))
+                   else [device] * num_shards)
+        if len(devices) != num_shards:
+            raise ValueError(f"{len(devices)} devices for {num_shards} "
+                             "shards")
+        self.num_shards = num_shards
+        self.devices = [torch.device(d) for d in devices]
         self.breaker = breaker
         self.disk = disk
         self._link = _DiskLink(disk) if disk is not None else None
-        self.staging = StagingRing(depth=2, faults=faults, device=device)
-        # the breaker's method, not the tier's: a callback on the tier would
-        # make a cycle that keeps the page-locked arena alive past the tier
+        self._rings = {d: StagingRing(depth=2, faults=faults, device=d)
+                       for d in dict.fromkeys(self.devices)}
+        rings = list(self._rings.values())
+        # the rings' and the breaker's methods, not the tier's: a callback
+        # on the tier would make a cycle that keeps the page-locked arena
+        # alive past the tier
         self.arena = HostArena(
             capacity_bytes, integrity=integrity,
-            pinned=device.type == "cuda", faults=faults,
+            pinned=any(d.type == "cuda" for d in self.devices),
+            faults=faults,
             on_corruption=(None if breaker is None else
                            lambda key: breaker.record_failure()),
-            before_reuse=self.staging.wait_reads,
+            before_reuse=(rings[0].wait_reads if len(rings) == 1
+                          else _wait_all(rings)),
             on_evict=self._link.on_evict if disk is not None else None)
         self.disk_promotes = 0       # disk hits copied back into the arena
+
+    def staging_for(self, shard: int) -> StagingRing:
+        """The staging ring of ``shard``'s device."""
+        return self._rings[self.devices[shard]]
+
+    @property
+    def staging(self) -> StagingRing:
+        """Shard 0's staging ring (the single-device engine's)."""
+        return self.staging_for(0)
 
     @property
     def disk_spills(self) -> int:
@@ -341,7 +377,11 @@ class HostTier:
     # -- telemetry --------------------------------------------------------------
     def stats_export(self) -> dict:
         out = self.arena.stats_export()
-        out.update(self.staging.stats_export())
+        for ring in self._rings.values():
+            for k, v in ring.stats_export().items():
+                out[k] = out.get(k, 0) + v
+        out["h2d_overlap_frac"] = (out["h2d_overlapped"] / out["h2d_staged"]
+                                   if out["h2d_staged"] else 0.0)
         out.update(self.breaker.stats_export() if self.breaker is not None
                    else {"tier_state": "closed", "tier_tripped": 0,
                          "tier_denied_ops": 0})

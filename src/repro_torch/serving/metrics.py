@@ -45,7 +45,10 @@ class EngineMetrics:
     #                                      per request)
     preemptions: int = 0                 # slots parked for a higher priority
     resumes: int = 0                     # parked requests re-admitted
+    migrations: int = 0                  # live sequences moved to another
+    #                                      slot (``migrate_slot``)
     blocks_parked: int = 0               # block payloads pulled to the host
+    blocks_migrated: int = 0             # blocks copied across shards
     in_loop_adoptions: int = 0           # staged requests a freed row took
     #                                      inside the round loop (no sync)
     staged_sequences: int = 0            # requests ever staged
@@ -158,7 +161,9 @@ class EngineMetrics:
             "deadline_missed_in_queue": self.deadline_missed_in_queue,
             "preemptions": self.preemptions,
             "resumes": self.resumes,
+            "migrations": self.migrations,
             "blocks_parked": self.blocks_parked,
+            "blocks_migrated": self.blocks_migrated,
             "in_loop_adoptions": self.in_loop_adoptions,
             "staged_sequences": self.staged_sequences,
             "staging_occupancy": (

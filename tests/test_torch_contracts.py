@@ -202,7 +202,7 @@ def test_scatter_pool_shape_targeting_spares_non_pool_writes():
 
 def test_contract_registry_names():
     assert set(CONTRACTS) == {"ROUND_CONTRACT", "STAGED_ROUND_CONTRACT",
-                              "PREFILL_CONTRACT"}
+                              "PREFILL_CONTRACT", "MIGRATION_COPY_CONTRACT"}
     for c in CONTRACTS.values():
         assert "NoHostCallbacks" in c.rule_names()
         assert "NoF64Leaks" in c.rule_names()
@@ -212,6 +212,11 @@ def test_contract_registry_names():
     nod = select_contract("staged_round", donate=False)
     assert "DonationAliasCovers" not in nod.rule_names()
     assert "NoCollectives" in nod.rule_names()
+    mig = select_contract("migration_copy")
+    assert mig.rule_names() == ["NoHostCallbacks", "NoF64Leaks",
+                                "DonationAliasCovers", "RecompileHazard"]
+    assert "DonationAliasCovers" not in select_contract(
+        "migration_copy", donate=False).rule_names()
     rec = select_contract("round", pool_scatter_shapes={(2, 1, 256)})
     rule = [r for r in rec.rules if r.name == "NoPoolRankedScatters"][0]
     assert (2, 1, 256) in rule.pool_shapes and rule.min_rank == 3
@@ -343,7 +348,7 @@ def test_engine_serves_with_contracts_on_bitwise(arch, staging, monkeypatch):
     for uid in off:
         np.testing.assert_array_equal(on[uid], off[uid])
     mine = {k[1] for k in contracts_mod._CHECKED - before
-            if k[0].endswith(hex(id(eng)))}
+            if k[0].endswith(f"@{hex(id(eng))}:0")}
     assert mine == {"staged_round" if staging else "round", "prefill"}
 
 

@@ -251,7 +251,7 @@ def test_capacity_fault_while_a_table_grows_fails_only_that_slot(qwen,
         admit()
         stage[0] = "grow"
     eng._admit_pending = staged_admit
-    eng.pool.fault_hook = lambda: calls.append(stage[0]) or False
+    eng.pool.set_fault_hook(lambda: calls.append(stage[0]) or False)
     for r in _traffic(cfg):
         eng.submit(r)
     eng.run()

@@ -64,6 +64,11 @@ of a CUDA engine through the disk tier and back (its layout, two-byte
 voids on disk) bitwise, dtype bfloat16 restored; a durable engine bitwise
 its volatile run (tokens and verify rounds); a restage through the disk
 fall-through bitwise the tier-less engine.
+The data-parallel mesh engine with two shards on one card: a cross-shard
+migration's landing blocks bitwise the source blocks, under its contract
+and sync-debug "error", tokens bitwise the undisturbed run; a data=2
+engine at batch 4 bitwise a data=1 engine at batch 2 (the same rows per
+call).
 """
 import numpy as np
 import pytest
@@ -1704,3 +1709,93 @@ def test_no_donate_tokens_equal_the_in_place_run_on_gpu(cuda, no_tf32,
     for uid, (tokens, calls) in inplace.items():
         np.testing.assert_array_equal(copied[uid][0], tokens)
         assert copied[uid][1] == calls
+
+
+# the data-parallel mesh engine: two shards on one card
+# ---------------------------------------------------------------------------
+
+def _two_shards(cuda):
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving.topology import ServingTopology
+    return ServingTopology(make_host_mesh(2, devices=(cuda, cuda)))
+
+
+def test_migration_copy_between_two_pools_on_gpu(cuda, no_tf32):
+    """A live sequence migrated from shard 0 to shard 1 (two pools on one
+    card): the landing blocks hold the source blocks' rows bitwise, the
+    copy runs under its contract and sync-debug "error", and every
+    request's tokens and verify rounds equal the undisturbed run's."""
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving.admission import Request
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("qwen3-1.7b", reduced=True)
+    params = TransformerLM.init(cfg, seed=0, device=cuda)
+
+    def run(move):
+        eng = ServingEngine(cfg, params, topology=_two_shards(cuda),
+                            batch=4, window_max=8, max_len=56, eps_key=3,
+                            block_size=16, adaptive=False,
+                            use_verify_kernel=True)
+        rng = np.random.default_rng(7)
+        for i, L in enumerate((17, 23)):
+            eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, L),
+                               new_tokens=24))
+        eng.step()
+        if move:
+            src = next(b for b in range(2) if eng.slots[b] is not None)
+            dst = next(b for b in range(2, 4) if eng.slots[b] is None)
+            pools = [TransformerLM.pool_leaves(cfg, sh.paged)
+                     for sh in eng.shards]
+            ids = list(eng.owned[src])
+            before = [leaf[ids].clone() for leaf in pools[0]]
+            eng.migrate_slot(src, dst)
+            after = [leaf[list(eng.owned[dst])] for leaf in pools[1]]
+            for a, b in zip(before, after):
+                assert torch.equal(a, b)
+        done = {r.uid: r for r in eng.run()}
+        return done, eng
+
+    ref, _ = run(False)
+    got, eng = run(True)
+    assert eng.metrics.migrations == 1 and eng.metrics.blocks_migrated >= 1
+    for uid, r in ref.items():
+        np.testing.assert_array_equal(got[uid].result, r.result)
+        assert got[uid].calls_used == r.calls_used
+    if os.environ.get("REPRO_CHECK_CONTRACTS") == "1":
+        assert any(r.contract == "MIGRATION_COPY_CONTRACT" and r.ok
+                   for r in eng.contract_reports)
+    assert eng.pool.blocks_in_use() == 0
+
+
+def test_data2_engine_equals_data1_at_half_batch_on_gpu(cuda, no_tf32):
+    """At a fixed W a data=2 engine at batch 4 makes every call with the
+    rows of a data=1 engine at batch 2 (two per shard), so each row's
+    products have the same shapes: tokens and verify rounds bitwise, on
+    the kernel path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving.admission import Request
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("qwen3-1.7b", reduced=True)
+    params = TransformerLM.init(cfg, seed=0, device=cuda)
+
+    def run(**kw):
+        eng = ServingEngine(cfg, params, window_max=8, max_len=56,
+                            eps_key=3, block_size=16, adaptive=False,
+                            use_verify_kernel=True, **kw)
+        rng = np.random.default_rng(8)
+        for i, L in enumerate((17, 23, 9, 30)):
+            eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, L),
+                               new_tokens=20))
+        reset_launches()
+        done = {r.uid: r for r in eng.run()}
+        assert LAUNCHES["paged_decode"] > 0 and LAUNCHES["spec_verify"] > 0
+        return done
+
+    ref = run(batch=2, device=cuda)
+    got = run(batch=4, topology=_two_shards(cuda))
+    for uid, r in ref.items():
+        np.testing.assert_array_equal(got[uid].result, r.result)
+        assert got[uid].calls_used == r.calls_used

@@ -154,3 +154,11 @@ def test_scan_covers_the_analysis_launch_and_example_modules():
             "examples/quickstart_torch.py", "examples/serve_llm_torch.py",
             "examples/train_multiarch_torch.py",
             "examples/latent_autoencoder_torch.py"} <= names
+
+
+def test_scan_covers_the_mesh_modules():
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if PORT in p.parents}
+    assert {"launch/mesh.py", "serving/topology.py", "serving/blocks.py",
+            "serving/engine.py", "serving/hostcache/tier.py",
+            "analysis/contracts.py", "launch/serve.py"} <= names
