@@ -47,10 +47,10 @@ which fails the script when it fails:
    ``save_pytree``, loaded back bitwise, and 1 request served from them
    with the forecast heads;
 9. rwkv6-7b at full width (bf16, random parameters from seed 0), served
-   on its first 8 of 32 layers (``RWKV_SERVE_LAYERS``, 2.30 B of its 7.58
-   B parameters): phase 3's 4 requests with every layer's WKV recurrence
-   on the WKV kernel (8 launches per verify pass, all in its verify form,
-   and 8 per prefill chunk, all in its prefill form),
+   on its first 4 of 32 layers (``RWKV_SERVE_LAYERS``): phase 3's 4
+   requests with every layer's WKV recurrence on the WKV kernel (4
+   launches per verify pass, all in its verify form, and 4 per prefill
+   chunk, all in its prefill form),
    a profile, every request against the solo sampler on the plain scan
    under the margin rule; ``TransformerLM.apply`` at T = 1024 on all 32
    layers, on the kernel route against the plain route, gated beside two
@@ -95,13 +95,14 @@ which fails the script when it fails:
    and sampled as in phase 11.
 
 13. the mixture-of-experts layer at published widths, each model freed
-   before the next: (a) DeepSeek-V3 cut to its 3 dense-prefix layers plus
-   1 MoE layer (256 routed experts + 1 shared, top-8, sigmoid; 17.0 B
-   parameters), phase 6's 4 requests served on the latent kernel's path
+   before the next (``MOE_SERVE_LAYERS``: 2 layers each since the model
+   axis's phase 23 took their time): (a) DeepSeek-V3 cut to 1 dense-prefix
+   layer plus 1 MoE layer (256 routed experts + 1 shared, top-8, sigmoid),
+   phase 6's 4 requests served on the latent kernel's path
    with fixed-point forecasts and with the forecast heads, profiled, once
    on the gather fallback, every request against the plain solo sampler;
-   (b) dbrx-132b cut to 4 (attn, moe) layers (16 experts, top-4, softmax;
-   14.3 B), served on paged_decode (dbrx's 6 query heads per kv head) and
+   (b) dbrx-132b cut to 2 (attn, moe) layers (16 experts, top-4,
+   softmax), served on paged_decode (dbrx's 6 query heads per kv head) and
    on the gather fallback, held against the solo sampler on
    decode_attention; for each, one MoE call's device ms at the verify and
    prefill shapes beside the byte bound of the expert weights it reads,
@@ -128,9 +129,9 @@ which fails the script when it fails:
    launches per verify pass and prefill chunk, asserted), profiled, one
    request on the gather fallback (paged_write), every request against
    the solo sampler on decode_attention and on the plain route under the
-   margin rule; (b) gemma-2b cut to 6 of its 18 layers (8 query heads
+   margin rule; (b) gemma-2b cut to 3 of its 18 layers (8 query heads
    over one kv head of 256, no window) the same; (c) mistral-large-123b
-   cut to 4 of its 88 layers (96 query heads over 8 kv heads of 128,
+   cut to 2 of its 88 layers (96 query heads over 8 kv heads of 128,
    G = 12) the same; (d) gemma3-1b (all 26 layers) trained 3 AdamW steps at B = 2, S = 2048 on the flash kernel
    (per step 22 windowed and 4 global launches, counted by window), its
    step-1 logits and per-position losses against the plain route within
@@ -172,7 +173,7 @@ which fails the script when it fails:
    G = 7; paged_write at their 4096- and 256-byte K/V rows; spec_verify
    over vocabularies of 2,048 and 151,655, the odd one on its scalar
    branch); then for each arch at its published widths (bf16, random
-   weights from seed 0; cut to 12 layers, ``FRONTEND_LAYERS``:
+   weights from seed 0; cut to 6 layers, ``FRONTEND_LAYERS``:
    musicgen-large of its 48, internvl2-1b of its 24), each freed before
    the next: (a)
    phase 14's 4 requests in ``ServingEngine(batch=2, window_max=8,
@@ -290,6 +291,19 @@ which fails the script when it fails:
    (c) the four torch examples (``examples/*_torch.py``) as subprocesses
    on the card, at once, each exiting 0 with its exactness line; exit
    codes and seconds.
+22. the data-parallel mesh engine (``mesh_phase``): two shards of
+   phase 18's qwen3-1.7b on this card against one at batch 2 and 4, a
+   cross-shard migration, a rebalancing admission.
+23. the model axis (``model_axis_phase``): two model ranks, processes of
+   their own over gloo on this card, serve qwen3-1.7b at full width and
+   depth on tensor-parallel parameters (window logits within the
+   tolerance of model 1's, the collectives of a verify pass, tokens
+   bitwise across the ranks and under the margin rule against model 1,
+   ms per token and idle share of both), at data 2 x model 2 bitwise data
+   1 x model 2 at the same rows a call with a cross-shard migration, and
+   the dbrx-132b cut expert-parallel (the MoE layer against the whole
+   one, its time on each rank, served tokens against the solo sampler
+   with the routing judged as in phase 13).
 
 Phases 11-12 run no kernel of the port's own: the reference's image path
 reaches no Pallas kernel; phase 13's MoE layer neither (the reference's is
@@ -1758,10 +1772,10 @@ RWKV_OP_LIMITS = {"logits_mean_abs_diff": 0.1,
                   "logits_max_abs_diff": 1.0,
                   "xent_per_position_max_abs_diff": 0.5}
 # rwkv6-7b's depth cut for phase 9's serving, solo, preemption and snapshot
-# runs (of its 32 layers, at every published width): 8 since phase 22's
-# mesh runs were timed beside a batch-2 engine, 32 before; the route gates
-# above run all 32
-RWKV_SERVE_LAYERS = 8
+# runs (of its 32 layers, at every published width): 4 since phase 23 was
+# added, 8 since phase 22's mesh runs were timed beside a batch-2 engine,
+# 32 before; the route gates above run all 32
+RWKV_SERVE_LAYERS = 4
 
 
 def wkv_planted_fault(fault):
@@ -2613,6 +2627,11 @@ def experts_hit(ids_list):
             sorted(by_n.items())}
 
 
+# phase 13's served depths (4 each before phase 23 needed the time:
+# DeepSeek-V3's 3 dense layers + 1 MoE, dbrx's 4 (attn, moe))
+MOE_SERVE_LAYERS = {"deepseek-v3-671b": 2, "dbrx-132b": 2}
+
+
 def serve_moe(dev, tol, arch, n_layers, latent):
     """Phase 13 (a) or (b): ``arch`` at its published widths cut to
     ``n_layers``, served on the attention kernel's path (the latent kernel
@@ -2628,7 +2647,11 @@ def serve_moe(dev, tol, arch, n_layers, latent):
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models.transformer import TransformerLM
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    base = get_config(arch)
+    # a cut keeps at most n_layers - 1 of the dense prefix, so an MoE layer
+    # stays
+    cfg = dataclasses.replace(base, n_layers=n_layers,
+                              layer_prefix=base.layer_prefix[:n_layers - 1])
     t0 = time.perf_counter()
     params = TransformerLM.init(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -2823,8 +2846,9 @@ DENSE_NB = -(-(DENSE_MAX_LEN + 8) // BS)      # the engine's table width: 65
 # of its 88 layers since phase 19 was added (8 before); gemma3-1b 8 of 26
 # (one 5:1 block and the two trailing local layers) and gemma-2b 6 of 18
 # since phase 22's mesh runs were timed beside a batch-2 engine (uncut
-# before). Phase 14 (d) trains gemma3-1b uncut
-DENSE_LAYERS = {"gemma3-1b": 8, "gemma-2b": 6, "mistral-large-123b": 4}
+# before); gemma-2b 3 and mistral 2 since phase 23 was added. Phase 14
+# (d) trains gemma3-1b uncut
+DENSE_LAYERS = {"gemma3-1b": 8, "gemma-2b": 3, "mistral-large-123b": 2}
 
 
 def serve_dense(dev, tol, arch, n_layers=None):
@@ -3288,11 +3312,10 @@ def serve_jamba(dev, tol, gen):
 
 FRONTEND_ARCHS = ("musicgen-large", "internvl2-1b")
 SOLO_S = DENSE_MAX_LEN + 8     # the solo sampler's dense cache: max_len + W
-# the depth cuts (at every published width): musicgen-large 12 of its 48
-# layers (24 when phase 22 was added, uncut before), internvl2-1b 12 of
-# its 24 (uncut before phase 22's mesh runs were timed beside a batch-2
-# engine)
-FRONTEND_LAYERS = {"musicgen-large": 12, "internvl2-1b": 12}
+# the depth cuts (at every published width): musicgen-large 6 of its 48
+# layers and internvl2-1b 6 of its 24 since phase 23 was added (12 each
+# before; musicgen 24 when phase 22 was added, both uncut before)
+FRONTEND_LAYERS = {"musicgen-large": 6, "internvl2-1b": 6}
 
 
 def frontend_config(arch):
@@ -5237,9 +5260,15 @@ def timed_migrations(eng, log_to, block_bytes):
     return eng
 
 
-def mesh_phase(dev):
+# phase 22's qwen3-1.7b depth (all 28 layers before phase 23 needed the
+# time; the comparisons are between engines on the same weights)
+MESH_LAYERS = 14
+
+
+def mesh_phase(dev, n_layers=MESH_LAYERS):
     """Phase 22: the data-parallel mesh engine on phase 3's qwen3-1.7b
-    (full width, bf16, seed 0), two shards on this card, at a fixed W = 8
+    (full width, bf16, seed 0; its first ``n_layers`` layers), two shards
+    on this card, at a fixed W = 8
     (``block_size=16``, ``max_len=256``, no host tier), every run through
     ``drive``: (a) phase 18's 8 requests at data = 2, batch 4, bitwise a
     data = 1 engine at batch 2 (two rows per call on both) and under the
@@ -5262,7 +5291,7 @@ def mesh_phase(dev):
     from repro_torch.serving.admission import Request
     from repro_torch.serving.topology import ServingTopology
     t0 = time.perf_counter()
-    cfg = get_config("qwen3-1.7b")
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=n_layers)
     params = TransformerLM.init(cfg, seed=0, device=dev)
     serve(cfg, params, dev, make_requests(cfg, (17,), 4))      # warm-up
     out = {"setup_seconds": time.perf_counter() - t0}
@@ -5451,6 +5480,511 @@ def mesh_phase(dev):
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 22 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---- phase 23: the model axis (tensor and expert parallelism) -----------
+
+DBRX_EP_LAYERS = 2       # the dbrx-132b cut served on the model axis
+# (a)'s window logits at model 2 against model 1's, max-abs, and the margin
+# rule's tolerance there: the geometric mean, rounded down, of the sound
+# reading (0.1094) and the least planted fault's (0.3828, layer 27's MLP
+# all_reduce left out), both on an H100 (PERF.md); every run asserts it
+# still parts the two
+TP_LOGITS_TOL = 0.2
+TP_FAULT_LAYERS = (0, 14, 27)   # the layers whose collectives are planted
+
+
+class _OtherRank:
+    """A model axis that reports the other rank of two and reduces as
+    ``axis`` does: a leaf placed over it reads the other rank's slice."""
+
+    def __init__(self, axis):
+        self.axis, self.name = axis, axis.name
+        self.rank, self.size = 1 - axis.rank, axis.size
+
+    def all_reduce(self, t):
+        return self.axis.all_reduce(t)
+
+    def all_gather(self, t, dim=-1):
+        return self.axis.all_gather(t, dim)
+
+
+def planted_faults(cfg, params, dev, axis, ref):
+    """Qwen's window logits at model 2 under planted tensor-parallel
+    faults, each made alike on both ranks, as max-abs against ``ref``
+    (model 1's): the embedding's all_reduce left out, one layer's
+    attention-output or MLP all_reduce left out (each rank keeps its
+    partial sum), and one layer's ``wo`` reading the other rank's input
+    slice. A pass's all_reduce calls run: the embedding's, then each
+    layer's wq, wk, wv, wo and MLP down."""
+    import itertools
+    from repro_torch.sharding import tensor_parallel as tp
+    real = axis.all_reduce
+
+    def err():
+        return float((window_logits(cfg, params, dev).float() - ref)
+                     .abs().max())
+    skips = {"embedding all_reduce left out": 0}
+    for l in TP_FAULT_LAYERS:
+        skips[f"layer {l} wo all_reduce left out"] = 1 + 5 * l + 3
+        skips[f"layer {l} MLP all_reduce left out"] = 1 + 5 * l + 4
+    out = {}
+    for label, n in skips.items():
+        calls = itertools.count()
+        axis.all_reduce = lambda t: t if next(calls) == n else real(t)
+        try:
+            out[label] = err()
+        finally:
+            del axis.all_reduce
+    for l in TP_FAULT_LAYERS:
+        w = params["layers"][l]["mixer"]["wo"]["w"]
+        pls = tp.placements_of(w)
+        pl = pls["model"]
+        setattr(w, tp._ATTR, {**pls, "model": tp.Placement(
+            _OtherRank(axis), pl.dim, pl.shape)})
+        try:
+            out[f"layer {l} wo on the other rank's input slice"] = err()
+        finally:
+            setattr(w, tp._ATTR, pls)
+    return out
+
+
+def tp_traffic(cfg, new_tokens=None):
+    """The reference's tensor-parallel scenario (``tests/serving/
+    test_mesh_engine.py``'s TP_SCRIPT: 4 requests, prompts of 2-6 tokens,
+    3-5 new) at ``cfg``'s vocabulary; ``new_tokens`` fixes the lengths."""
+    import numpy as np
+    from repro_torch.serving.admission import Request
+    rng = np.random.default_rng(3)
+    out = []
+    for i in range(4):
+        prompt = rng.integers(0, cfg.vocab, size=int(rng.integers(2, 7)))
+        n = int(rng.integers(3, 6))
+        out.append(Request(uid=i, prompt=prompt,
+                           new_tokens=new_tokens or n))
+    return out
+
+
+def window_logits(cfg, params, dev, rows=2, width=8):
+    """A paged verify window's logits on the kernel path: ``rows`` rows of
+    ``width`` tokens (numpy seed 23) from position 0 over fresh pools."""
+    import numpy as np
+    import torch
+    from repro_torch.models.transformer import PagedView, TransformerLM
+    nb = -(-width // BS)
+    paged = TransformerLM.init_paged_cache(cfg, rows, 1 + rows * nb, BS,
+                                           device=dev)
+    tables = (1 + torch.arange(rows * nb, device=dev)).view(rows, nb).int()
+    toks = torch.as_tensor(np.random.default_rng(23).integers(
+        0, cfg.vocab, (rows, width)), device=dev)
+    logits, _, _ = TransformerLM.decode_window_paged(
+        params, cfg, toks, paged, PagedView(tables, torch.arange(
+            rows, device=dev), True), torch.zeros(rows, dtype=torch.int64,
+                                                  device=dev))
+    return logits
+
+
+def served(done):
+    """A run's requests as plain data for the parent, by uid: uid, prompt,
+    new tokens, result."""
+    return [{"uid": r.uid, "prompt": r.prompt.tolist(),
+             "new_tokens": r.new_tokens, "result": r.result.tolist()}
+            for r in sorted(done.values(), key=lambda r: r.uid)]
+
+
+def model_axis_rank(rank, world, store_path):
+    """Phase 23's model rank ``rank`` of 2 (a process of its own, started
+    by ``collectives.spawn``; the kernels the parent built are loaded).
+    Both ranks share this card over gloo. Returns what it measured: (a)
+    qwen3-1.7b at full width and depth, data 1 x model 2; (b) data 2 x
+    model 2; (c) the dbrx-132b cut, expert-parallel."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.analysis import Census
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.moe import MoE
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving.topology import ServingTopology
+    from repro_torch.sharding.moe_shard import _moe_ep_only
+    kernels.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    topo = ServingTopology(make_host_mesh(1, 2, devices=(dev,), rank=rank,
+                                          store_path=store_path))
+    axis = topo.model_axis
+    out = {"rank": axis.rank, "backend": topo.mesh.backend}
+    fixed = dict(adaptive=False, host_cache_mb=0, rounds_per_sync=8)
+
+    # (a) qwen3-1.7b, data 1 x model 2: slices, the window's logits
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-1.7b")
+    full = TransformerLM.init(cfg, seed=0, device=dev)
+    ref = window_logits(cfg, full, dev).float()
+    params = topo.place_params(cfg, full)
+    del full
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    with Census() as c:
+        got = window_logits(cfg, params, dev).float()
+    a = {"setup_s": time.perf_counter() - t0,
+         "param_gb": torch.cuda.memory_allocated() / 1e9,
+         "logits_max_abs_err": float((got - ref).abs().max()),
+         "argmax_equal": int((got.argmax(-1) == ref.argmax(-1)).sum()),
+         "argmax_of": int(ref.shape[0] * ref.shape[1]),
+         "census": c.collectives_by_axis, "census_launches": c.launches,
+         "faults": planted_faults(cfg, params, dev, axis, ref)}
+    del got, ref
+    serve_kw = dict(topology=topo, device=None, **fixed)
+    drive(cfg, params, dev, make_requests(cfg, (17,), 2), **serve_kw)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got, m, wall, launches, _, _ = drive(
+            cfg, params, dev, make_requests(cfg, PROMPT_LENS * 2,
+                                            NEW_TOKENS), **serve_kw)
+    busy = device_busy_s(prof)
+    a.update(served=served(got), metrics=m, wall_s=wall, launches=launches,
+             ms_per_token=wall / m["tokens_generated"] * 1e3,
+             device_busy_s=busy, idle_share=1 - busy / wall)
+    # the gather fallback (the writeback kernel) at model 2
+    got, m, _, launches, _, _ = drive(
+        cfg, params, dev, make_requests(cfg, (17,), 4),
+        use_attention_kernel=False, **serve_kw)
+    a.update(fallback_served=served(got), fallback_launches=launches,
+             fallback_passes=m["verify_passes"] + m["prefill_calls"],
+             seconds=time.perf_counter() - t0)
+    out["a"] = a
+
+    # (b) the reference's TP traffic (its prompts, 8 new tokens each so
+    # that every request is live at the first sync) at data 2 x model 2,
+    # batch 4, against data 1 x model 2 at batch 2 (the same rows a call),
+    # and again with a preemption and a cross-shard migration after the
+    # first sync (one round a sync)
+    t0 = time.perf_counter()
+    mesh2 = ServingTopology(make_host_mesh(2, 2, devices=(dev, dev)))
+    tp_kw = dict(window_max=4, max_len=32, block_size=4, adaptive=False,
+                 host_cache_mb=0, device=None, rounds_per_sync=1)
+    moved = {}
+
+    def disturb(e):
+        timed_migrations(e, moved, cfg.n_layers * 2 * 4 * KV * D * 2)
+        e.preempt_slot(0)
+        src = next(s for s in (2, 3) if e.slots[s] is not None)
+        e.migrate_slot(src, 0)
+    b = {}
+    for label, kw, hooks in (
+            ("data2_b4", dict(topology=mesh2, batch=4), []),
+            ("data1_b2", dict(topology=topo, batch=2), []),
+            ("migrated", dict(topology=mesh2, batch=4), [(1, disturb)])):
+        got, m, wall, launches, _, ev = drive(
+            cfg, params, dev, tp_traffic(cfg, 8), hooks=hooks, **tp_kw,
+            **kw)
+        b[label] = {"served": served(got), "metrics": m,
+                    "launches": launches, "resume": ev.get("resume", [])}
+    b["migrate"] = moved.get("migrate", [])
+    b["seconds"] = time.perf_counter() - t0
+    out["b"] = b
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) the dbrx-132b cut, expert-parallel: the MoE layer against the
+    # whole layer on the same input, then served with its routing logged
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("dbrx-132b"),
+                              n_layers=DBRX_EP_LAYERS)
+    full = TransformerLM.init(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn((2, 8, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.param_dtype)
+    y_ref, _ = MoE.apply(full["layers"][0]["ffn"], x, cfg,
+                         capacity_factor=None)
+    params = topo.place_params(cfg, full)
+    del full
+    torch.cuda.empty_cache()
+    p = params["layers"][0]["ffn"]
+    y_ep, _ = _moe_ep_only(p, x, cfg, None, axis)
+    err = (y_ep.float() - y_ref.float()).abs()
+    # the same layer in float32 (this rank's experts cast), for the CPU
+    # test's bound, against the whole layer the parent casts alike
+    p32 = {"router": {"w": p["router"]["w"].float()},
+           "experts": {k: v.float() for k, v in p["experts"].items()}}
+    y32, _ = _moe_ep_only(p32, x.float(), cfg, None, axis)
+    del p32
+    torch.cuda.empty_cache()
+    c = {"setup_s": time.perf_counter() - t0,
+         "experts_local": int(p["experts"]["up"].shape[0]),
+         "moe_max_abs_err": float(err.max()),
+         # in bf16 each side rounds its float32 sum once: one ulp apart
+         "moe_within": bool((err <= 2 ** -7 * y_ref.float().abs()).all()),
+         "y_ep_float32": y32.tolist(),
+         "moe_layer_eager_ms": eager_ms(
+             lambda: MoE.apply(p, x, cfg, capacity_factor=None), iters=10)}
+    drive(cfg, params, dev, make_requests(cfg, (17,), 2), topology=topo,
+          device=None, host_cache_mb=0)
+    with RouteLog() as routes:
+        got, m, wall, launches, _, _ = drive(
+            cfg, params, dev, make_requests(cfg, PROMPT_LENS[:2], 12),
+            topology=topo, device=None, host_cache_mb=0)
+    c.update(served=served(got), metrics=m, wall_s=wall, launches=launches,
+             ms_per_token=wall / m["tokens_generated"] * 1e3,
+             # plain lists: a tensor would cross the queue as shared
+             # memory, which dies with this process
+             routes={r.uid: {q: v.tolist() for q, v in routes.routes(
+                 r.seq_id, r.result).items()} for r in got.values()},
+             seconds=time.perf_counter() - t0)
+    out["c"] = c
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+class _KeptRoutes:
+    """A rank's ``RouteLog.routes`` results, by sequence."""
+
+    def __init__(self, by_seq):
+        import torch
+        self.by_seq = {seq: {q: torch.tensor(v) for q, v in kept.items()}
+                       for seq, kept in by_seq.items()}
+
+    def routes(self, seq, stream):
+        return self.by_seq[seq]
+
+
+def model_axis_phase(dev, tol):
+    """Phase 23: the model axis. Two model ranks (``collectives.spawn``,
+    ``model_axis_rank``) share this card over gloo, which stages every
+    collective through the host. (a) qwen3-1.7b at full width and depth,
+    bf16, data 1 x model 2: each rank's window logits against the whole
+    model's within ``TP_LOGITS_TOL`` (max-abs), which every planted fault
+    (``planted_faults``) must exceed, the collectives of one verify pass
+    (28 x (4 + 1) all-reduces + 1 for the embedding, 1 logits gather),
+    phase 18's 8 requests at W = 8 with tokens bitwise across the ranks
+    and under the margin rule (``TP_LOGITS_TOL``) against model 1 (this
+    process, alone on the card before the ranks start), ms per token and
+    idle share of both;
+    (b) data 2 x model 2 on the reference's TP traffic bitwise data 1 x
+    model 2 at the same rows a call, and a preemption plus a cross-shard
+    migration bitwise the undisturbed run; (c) the dbrx-132b cut at 2
+    (attn, moe) layers, 8 experts a rank: ``_moe_ep_only`` against
+    ``MoE.apply`` on the whole layer, the layer's eager ms on each rank
+    against the whole layer's here, and two requests served with the
+    routing logged, held against the solo sampler as phase 13 holds
+    them (margin rule, ``tol``)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.engine.agreement import check_token_agreement
+    from repro_torch.models.moe import MoE
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving.admission import Request
+    from repro_torch.sharding import collectives
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-1.7b")
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    fixed = dict(adaptive=False, host_cache_mb=0, rounds_per_sync=8)
+    drive(cfg, params, dev, make_requests(cfg, (17,), 2), **fixed)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got1, m1, wall1, l1, _, _ = drive(
+            cfg, params, dev, make_requests(cfg, PROMPT_LENS * 2,
+                                            NEW_TOKENS), **fixed)
+    busy1 = device_busy_s(prof)
+    one = {"metrics": m1, "wall_s": wall1, "launches": l1,
+           "ms_per_token": wall1 / m1["tokens_generated"] * 1e3,
+           "device_busy_s": busy1, "idle_share": 1 - busy1 / wall1}
+    torch.cuda.synchronize()
+    t_spawn = time.perf_counter()
+    ranks = collectives.spawn(model_axis_rank, 2, timeout=900)
+    out = {"model1": one, "ranks_s": time.perf_counter() - t_spawn,
+           "backend": ranks[0]["backend"]}
+    r0, r1 = ranks
+    out["rank_seconds"] = {k: r0[k]["seconds"] for k in ("a", "b", "c")}
+    log(f"phase 23: 2 model ranks on one card over {out['backend']}, "
+        f"{out['ranks_s']:.1f} s in the ranks (rank 0's parts: "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in
+                    out["rank_seconds"].items()) + ")")
+
+    # (a)
+    a0, a1 = r0["a"], r1["a"]
+    if a0["served"] != a1["served"]:
+        raise AssertionError("phase 23 (a): the ranks' tokens differ")
+    model = a0["census"].get("model", {})
+    want = {"all-reduce": cfg.n_layers * 5 + 1, "all-gather": 1}
+    found = {k: model.get(k, {}).get("count", 0) for k in want}
+    if found != want or set(a0["census"]) != {"model"}:
+        raise AssertionError(f"phase 23 (a): collectives per pass "
+                             f"{a0['census']}, want {want} on the model "
+                             "axis")
+    for r in (a0, a1):
+        if not r["logits_max_abs_err"] < TP_LOGITS_TOL:
+            raise AssertionError(f"phase 23 (a): window logits at model 2 "
+                                 f"{r['logits_max_abs_err']} from model "
+                                 f"1's, tolerance {TP_LOGITS_TOL}")
+        passes = r["metrics"]["verify_passes"] + r["metrics"]["prefill_calls"]
+        if not (r["launches"]["paged_decode"] == cfg.n_layers * passes
+                and r["launches"]["spec_verify"] > 0):
+            raise AssertionError(f"phase 23 (a): kernel path not taken "
+                                 f"({passes} passes): {r['launches']}")
+    for r in (a0, a1):
+        fl = r["fallback_launches"]
+        if not (fl["paged_write"] == 2 * cfg.n_layers * r["fallback_passes"]
+                and fl["paged_decode"] == 0 and fl["spec_verify"] > 0):
+            raise AssertionError(f"phase 23 (a): fallback path not taken: "
+                                 f"{fl}")
+    if a0["fallback_served"] != a1["fallback_served"]:
+        raise AssertionError("phase 23 (a): the ranks' fallback tokens "
+                             "differ")
+    lens = PROMPT_LENS * 2
+    ref1 = {u: r.result for u, r in got1.items()}
+    splits = {}
+    for s in a0["served"]:
+        u = s["uid"]
+        splits[u] = check_token_agreement(
+            ref1[u], np.asarray(s["result"]),
+            margin_fn(cfg, params, dev, ref1[u], u), TP_LOGITS_TOL,
+            start=lens[u])
+    a = {k: a0[k] for k in ("logits_max_abs_err", "argmax_equal",
+                            "argmax_of", "census", "census_launches",
+                            "metrics", "wall_s", "ms_per_token",
+                            "device_busy_s", "idle_share", "param_gb",
+                            "setup_s")}
+    faults = {k: min(a0["faults"][k], a1["faults"][k]) for k in a0["faults"]}
+    a.update(faults=faults,
+             launches_by_rank=[a0["launches"], a1["launches"]],
+             fallback_launches_by_rank=[a0["fallback_launches"],
+                                        a1["fallback_launches"]],
+             logits_err_by_rank=[a0["logits_max_abs_err"],
+                                 a1["logits_max_abs_err"]],
+             ms_per_token_by_rank=[a0["ms_per_token"], a1["ms_per_token"]],
+             splits_vs_model1=splits)
+    out["a"] = a
+    per_pass = {k: model[k] for k in want}
+    log(f"phase 23 (a) qwen3-1.7b data 1 x model 2: window logits within "
+        f"{max(a['logits_err_by_rank']):.4g} of model 1's (max-abs, "
+        f"tolerance {TP_LOGITS_TOL}; argmax equal at {a0['argmax_equal']} "
+        f"of {a0['argmax_of']}); collectives per verify pass {per_pass} "
+        f"(design: {want}); ranks' tokens bitwise (8 of 8); against model "
+        f"1 (margin rule, tolerance {TP_LOGITS_TOL}): " + ", ".join(
+            f"request {u} " + ("equal" if s is None else
+                               f"split at {s['position']} (margin "
+                               f"{s['margin']:.4g})")
+            for u, s in splits.items()))
+    log(f"phase 23 (a): model 2 {a['ms_per_token']:.3f} ms per token "
+        f"(rank 1 {a1['ms_per_token']:.3f}), idle share "
+        f"{a['idle_share']:.4f}, {a['metrics']['verify_passes']} verify "
+        f"passes; model 1 {one['ms_per_token']:.3f} ms per token, idle "
+        f"share {one['idle_share']:.4f}, {m1['verify_passes']} passes; "
+        f"launches rank 0 {a0['launches']}, rank 1 {a1['launches']}")
+    log("phase 23 (a): planted faults, window logits max-abs from model "
+        "1's (the lesser of the ranks'): " + ", ".join(
+            f"{k} {v:.4g}" for k, v in faults.items()))
+    caught = min(faults.values())
+    if not max(a["logits_err_by_rank"]) < TP_LOGITS_TOL < caught:
+        raise AssertionError(f"phase 23 (a): tolerance {TP_LOGITS_TOL} does "
+                             f"not part the sound reading "
+                             f"{max(a['logits_err_by_rank'])} from the "
+                             f"planted faults' least, {caught}")
+
+    # (b)
+    b0, b1 = r0["b"], r1["b"]
+    for label in ("data2_b4", "data1_b2", "migrated"):
+        if b0[label]["served"] != b1[label]["served"]:
+            raise AssertionError(f"phase 23 (b) {label}: the ranks differ")
+        need_path(b0[label]["launches"], f"phase 23 (b) {label}")
+    if b0["data2_b4"]["served"] != b0["data1_b2"]["served"]:
+        raise AssertionError("phase 23 (b): data 2 x model 2 differs from "
+                             "data 1 x model 2 at batch 2")
+    mig = b0["migrated"]
+    if not (mig["metrics"]["migrations"] == 1
+            and mig["served"] == b0["data2_b4"]["served"]):
+        raise AssertionError(f"phase 23 (b): migrations "
+                             f"{mig['metrics']['migrations']}, tokens "
+                             "differ from the undisturbed run")
+    out["b"] = {"seconds": b0["seconds"], "migrate": b0["migrate"],
+                "resume": mig["resume"],
+                "metrics": {k: b0[k]["metrics"] for k in
+                            ("data2_b4", "data1_b2", "migrated")}}
+    moves = ", ".join(f"{g['blocks']} blocks in {g['ms']:.3f} ms"
+                      for g in b0["migrate"])
+    log(f"phase 23 (b) data 2 x model 2: tokens bitwise data 1 x model 2 "
+        f"at batch 2 (4 of 4) and across the ranks; a preemption and a "
+        f"cross-shard migration ({moves}) bitwise the undisturbed run; "
+        f"{b0['seconds']:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c)
+    c0, c1 = r0["c"], r1["c"]
+    if c0["served"] != c1["served"]:
+        raise AssertionError("phase 23 (c): the ranks' tokens differ")
+    for r in (c0, c1):
+        if not r["moe_within"]:
+            raise AssertionError(f"phase 23 (c): _moe_ep_only "
+                                 f"{r['moe_max_abs_err']} from MoE.apply "
+                                 "in bf16, past one ulp")
+        passes = r["metrics"]["verify_passes"] + r["metrics"]["prefill_calls"]
+        if not (r["launches"]["paged_decode"] == DBRX_EP_LAYERS * passes
+                and r["launches"]["spec_verify"] > 0):
+            raise AssertionError(f"phase 23 (c): kernel path not taken: "
+                                 f"{r['launches']}")
+    cfg = dataclasses.replace(get_config("dbrx-132b"),
+                              n_layers=DBRX_EP_LAYERS)
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn((2, 8, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.param_dtype)
+    p = params["layers"][0]["ffn"]
+    single_ms = eager_ms(lambda: MoE.apply(p, x, cfg, capacity_factor=None),
+                         iters=10)
+    p32 = {"router": {"w": p["router"]["w"].float()},
+           "experts": {k: v.float() for k, v in p["experts"].items()}}
+    y32, _ = MoE.apply(p32, x.float(), cfg, capacity_factor=None)
+    del p32
+    torch.cuda.empty_cache()
+    err32 = [float((torch.tensor(r["y_ep_float32"], device=dev) - y32)
+                   .abs().max()) for r in (c0, c1)]
+    if not max(err32) < 2e-4:
+        raise AssertionError(f"phase 23 (c): _moe_ep_only in float32 "
+                             f"{err32} from MoE.apply, bound 2e-4")
+    done = []
+    for s in c0["served"]:
+        r = Request(uid=s["uid"], prompt=np.asarray(s["prompt"]),
+                    new_tokens=s["new_tokens"])
+        r.result = np.asarray(s["result"])
+        done.append(r)
+    log(f"solo agreement, {cfg.name} {DBRX_EP_LAYERS}L at model 2 (margin "
+        f"rule, tolerance {tol}, solo on decode_attention, the served "
+        "routing from rank 0):")
+    agreement = solo_agreement(
+        cfg, params, dev, done, tol,
+        routes=_KeptRoutes({r.seq_id: c0["routes"][r.uid] for r in done}),
+        use_attention_kernel=True)
+    out["c"] = {"experts_local": c0["experts_local"],
+                "moe_max_abs_err": [c0["moe_max_abs_err"],
+                                    c1["moe_max_abs_err"]],
+                "moe_max_abs_err_float32": err32,
+                "moe_layer_eager_ms_by_rank": [c0["moe_layer_eager_ms"],
+                                               c1["moe_layer_eager_ms"]],
+                "moe_layer_eager_ms_single": single_ms,
+                "ms_per_token": c0["ms_per_token"], "metrics": c0["metrics"],
+                "launches": c0["launches"], "agreement": agreement}
+    log(f"phase 23 (c) {cfg.name} {DBRX_EP_LAYERS}L expert-parallel, "
+        f"{c0['experts_local']} experts a rank: _moe_ep_only within "
+        f"{max(err32):.4g} of MoE.apply in float32 (bound 2e-4), "
+        f"{max(out['c']['moe_max_abs_err']):.4g} in bf16 (bound one bf16 "
+        f"ulp, 2^-7 |y|); MoE layer eager {c0['moe_layer_eager_ms']:.3f} / "
+        f"{c1['moe_layer_eager_ms']:.3f} ms on ranks 0 / 1 against "
+        f"{single_ms:.3f} ms whole; served {c0['ms_per_token']:.3f} ms per "
+        f"token, ranks' tokens bitwise; launches {c0['launches']}")
+    del params, p, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 23 took {out['seconds']:.1f} s")
     return out
 
 
@@ -5674,10 +6208,11 @@ def main(argv=None) -> int:
 
     # ---- phase 13: the MoE layer, DeepSeek-V3 and dbrx-132b --------------
     t13 = time.perf_counter()
-    report["moe_deepseek"], _ = serve_moe(dev, tol, "deepseek-v3-671b", 4,
-                                          latent=True)
-    report["moe_dbrx"], dbrx_launches = serve_moe(dev, tol, "dbrx-132b", 4,
-                                                  latent=False)
+    report["moe_deepseek"], _ = serve_moe(
+        dev, tol, "deepseek-v3-671b", MOE_SERVE_LAYERS["deepseek-v3-671b"],
+        latent=True)
+    report["moe_dbrx"], dbrx_launches = serve_moe(
+        dev, tol, "dbrx-132b", MOE_SERVE_LAYERS["dbrx-132b"], latent=False)
     report["train_dbrx"], dbrx_train_launches = train_dbrx(dev)
     report["phase13_s"] = time.perf_counter() - t13
     lap("13")
@@ -5727,6 +6262,10 @@ def main(argv=None) -> int:
     # ---- phase 22: the data-parallel mesh engine --------------------------
     report["mesh"] = mesh_phase(dev)
     lap("22")
+
+    # ---- phase 23: the model axis (tensor and expert parallelism) ---------
+    report["model_axis"] = model_axis_phase(dev, tol)
+    lap("23")
     log("seconds by phase: " + json.dumps(
         {k: round(v, 1) for k, v in report["phase_seconds"].items()}))
 
@@ -5888,6 +6427,18 @@ def main(argv=None) -> int:
         entry[key].update(launches=n, path=path)
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    float(row["max_abs_err"]))
+    # phase 23's path on each of its two model ranks (rank 0's counts)
+    ax = report["model_axis"]["a"]
+    for name, n, path in (
+            ("spec_verify", ax["launches_by_rank"][0]["spec_verify"],
+             "serve_model_axis"),
+            ("paged_decode", ax["launches_by_rank"][0]["paged_decode"],
+             "serve_model_axis"),
+            ("paged_write", ax["fallback_launches_by_rank"][0]["paged_write"],
+             "serve_model_axis_fallback")):
+        entry = next(e for e in entries if e["name"] == name)
+        entry["model_axis"] = {"launches": n, "path": path,
+                               "ranks": 2}
     report["kernels"] = entries
     if args.report:
         path = Path(args.report)

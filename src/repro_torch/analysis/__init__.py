@@ -19,8 +19,8 @@ The reference's jaxpr and HLO walkers (``EqnSite``,
 ``find_dtype_leaks``, ``find_collectives``, ``parse_collective_bytes``,
 ``parse_shape_bytes``) have no counterpart: an eager program has no
 trace, and :class:`Census` records its ops as they run instead (c10d ops
-for the collectives, which the model axis of ROADMAP item 20b will
-bring).
+for the collectives, each filed under the mesh axis that issued it: the
+model axis's all-reduces and all-gathers under tensor parallelism).
 """
 from repro_torch.analysis.census import Census, OpRecord
 from repro_torch.analysis.contracts import (CONTRACTS,

@@ -12,9 +12,11 @@ program has neither, so the port runs the region once under a
 * the devices a copy ran between (``_to_copy`` / ``copy_``), which tells
   device-to-host copies and synchronous pageable uploads apart;
 * c10d ops, which stand in for the reference's ``find_collectives`` /
-  ``parse_collective_bytes`` (zero: the data-parallel mesh engine runs
-  its shards from one process, and a model axis over torch.distributed is
-  ROADMAP item 20b);
+  ``parse_collective_bytes``: each filed under the mesh axis that issued
+  it (``sharding.collectives.current_axis``; the data-parallel mesh engine
+  runs its shards from one process and issues none), and the axes'
+  collectives with their bytes (``collectives_by_axis``, the deltas of
+  ``sharding.collectives.STATS``);
 * the peak of live bytes the region allocated: on the card from the
   caching allocator (``max_memory_allocated`` less what was allocated
   before; the peak statistics are reset on entry), elsewhere from the
@@ -27,7 +29,11 @@ the dispatcher, so the census also takes the deltas of
 
 Where a CUDA device is present the region also runs under
 ``torch.cuda.set_sync_debug_mode("error")`` (``sync_debug_error``): any
-synchronizing CUDA call raises there.
+synchronizing CUDA call raises there. Not while this process holds a
+model axis whose collectives stage CUDA tensors through the host (gloo,
+ranks sharing a card): each of those synchronizes by design, so the
+check holds under tensor parallelism only on NCCL, which needs a card a
+rank.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import kernels
+from repro_torch.sharding import collectives as _coll
 
 # the reference's collective spellings, keyed by the c10d ops that are them
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
@@ -72,6 +79,7 @@ class OpRecord:
     writes: list = field(default_factory=list)      # [TensorInfo] written in place
     writes_watched: bool = False    # an in-place write into a watched tensor
     copy: tuple = ()                # (src device, dst device, src pinned)
+    axis: str = None                # the mesh axis of a c10d op
 
     @property
     def rank(self) -> int:
@@ -86,8 +94,10 @@ class OpRecord:
 @contextlib.contextmanager
 def sync_debug_error(device):
     """``set_sync_debug_mode("error")`` around a region on a CUDA device
-    (a synchronizing call raises there); nothing elsewhere."""
-    if device is None or device.type != "cuda":
+    (a synchronizing call raises there); nothing elsewhere, nor while a
+    host-staged model axis is held (``collectives.stages_through_host``)."""
+    if (device is None or device.type != "cuda"
+            or _coll.stages_through_host()):
         yield
         return
     before = torch.cuda.get_sync_debug_mode()
@@ -117,7 +127,8 @@ class Census(TorchDispatchMode):
     ``watch`` are tensors whose in-place writes are flagged (the pool
     leaves). After the region: ``ops`` (``OpRecord`` list), ``launches``
     and ``meta_calls`` (kernel count deltas by name), ``collectives``
-    (count per reference spelling), ``peak_bytes`` and ``device``."""
+    (count per reference spelling), ``collectives_by_axis`` (``{axis:
+    {kind: {"count", "bytes"}}}``), ``peak_bytes`` and ``device``."""
 
     def __init__(self, watch=()):
         super().__init__()
@@ -127,6 +138,7 @@ class Census(TorchDispatchMode):
         self.launches: dict = {}
         self.meta_calls: dict = {}
         self.collectives = dict.fromkeys(COLLECTIVES, 0)
+        self.collectives_by_axis: dict = {}
         self.peak_bytes = 0
         self.device = None
         self._live = 0
@@ -137,6 +149,7 @@ class Census(TorchDispatchMode):
     # -- region --------------------------------------------------------
     def __enter__(self):
         self._l0 = dict(kernels.LAUNCHES)
+        self._c0 = {k: tuple(v) for k, v in _coll.STATS.items()}
         self._m0 = dict(kernels.META_CALLS)
         self._cuda = torch.cuda.is_available()
         if self._cuda:
@@ -153,6 +166,7 @@ class Census(TorchDispatchMode):
                          for k, v in kernels.LAUNCHES.items()}
         self.meta_calls = {k: v - self._m0[k]
                            for k, v in kernels.META_CALLS.items()}
+        self.collectives_by_axis = _coll.stats_by_axis(self._c0)
         if self.device == "cuda":
             torch.cuda.synchronize()
             self.peak_bytes = torch.cuda.max_memory_allocated() - self._alloc0
@@ -210,6 +224,7 @@ class Census(TorchDispatchMode):
         if func.namespace in _C10D_NAMESPACES:
             # a collective works on its buffers in place
             rec.writes = [_info(t, False) for t in _tensors(args)]
+            rec.axis = _coll.current_axis()
             kind = _C10D.get(rec.name)
             if kind is not None:
                 self.collectives[kind] += 1

@@ -18,8 +18,11 @@ contracts cover the engine's device programs:
   signature (its ids padded to the table width).
 
 On a mesh every shard's round dispatch is checked under its own label.
-The tensor-parallel exemption of ``select_contract`` waits for the model
-axis (ROADMAP item 20b).
+``select_contract(tensor_parallel=True)`` (an engine on a model axis)
+allows the model axis's collectives, which are the tensor-parallel
+contractions; a data-axis collective still fails. Unlike the reference,
+whose compiled GSPMD program loses the pool's donation aliasing, the port
+keeps DonationAliasCovers there: its pools are still written in place.
 
 ``check_program(fn, args, contract)`` runs one call through one contract
 and returns a :class:`Report` (the call's return value in ``value``).
@@ -132,17 +135,22 @@ _KIND_TO_CONTRACT = {
 
 
 def select_contract(kind: str, *, donate: bool = True,
+                    tensor_parallel: bool = False,
                     pool_scatter_shapes=None) -> Contract:
     """The contract enforced for an engine program of ``kind`` ("round" /
     "staged_round" / "prefill" / "migration_copy"). ``donate=False`` (an engine that copies
     its pool out of place each dispatch, ``--no-donate``) drops
-    DonationAliasCovers. ``pool_scatter_shapes`` (the engine's exact pool
+    DonationAliasCovers. ``tensor_parallel`` allows the model axis's
+    collectives in NoCollectives. ``pool_scatter_shapes`` (the engine's exact pool
     leaf shapes) narrows NoPoolRankedScatters from the rank proxy to real
     pool writes, so MoE dispatch buffers and recurrent state rows pass
     while a pool-shaped result made out of place is still caught."""
     contract = CONTRACTS[_KIND_TO_CONTRACT[kind]]
     rules = [r for r in contract.rules
              if donate or r.name != "DonationAliasCovers"]
+    if tensor_parallel:
+        rules = [NoCollectives(allow_axes=("model",))
+                 if r.name == "NoCollectives" else r for r in rules]
     if pool_scatter_shapes is not None:
         rules = [NoPoolRankedScatters(min_rank=r.min_rank,
                                       pool_shapes=pool_scatter_shapes)
@@ -188,7 +196,8 @@ _CHECKED: set = set()
 
 def maybe_check(kind: str, fn, args, *, label: str = None, variant=None,
                 donate: bool = True, pool=(), state=(),
-                pool_scatter_shapes=None, device=None, reports=None):
+                pool_scatter_shapes=None, tensor_parallel: bool = False,
+                device=None, reports=None):
     """Engine seam: return ``fn(*args)``. Under ``REPRO_CHECK_CONTRACTS=1``
     the first call of each (label, kind, argument signature, ``variant``)
     runs under the census against :func:`select_contract`'s contract and
@@ -207,6 +216,7 @@ def maybe_check(kind: str, fn, args, *, label: str = None, variant=None,
             return fn(*args)
     _CHECKED.add(key)
     contract = select_contract(kind, donate=donate,
+                               tensor_parallel=tensor_parallel,
                                pool_scatter_shapes=pool_scatter_shapes)
     report = check_program(fn, args, contract, label=label or kind,
                            pool=pool, state=state)

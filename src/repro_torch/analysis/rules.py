@@ -161,16 +161,24 @@ class Rule:
 
 
 class NoCollectives(Rule):
-    """Zero c10d collectives in the region."""
+    """Zero c10d collectives in the region, but those of the mesh axes
+    ``allow_axes`` (the model axis of a tensor-parallel program, whose
+    collectives are its contractions); a collective of another axis, or
+    of none, still fails."""
     name = "NoCollectives"
 
+    def __init__(self, allow_axes=()):
+        self.allow_axes = tuple(allow_axes)
+
     def check(self, program):
-        return [Violation(self.name, f"collective `{r.name}` on the hot path",
-                          site=r.op, evidence={"op": r.name, "bytes": sum(
-                              t.nbytes for t in r.outputs + r.writes)})
+        return [Violation(self.name, f"collective `{r.name}` on the hot path"
+                          f" (axis {r.axis})", site=r.op, evidence={
+                              "op": r.name, "axis": r.axis, "bytes": sum(
+                                  t.nbytes for t in r.outputs + r.writes)})
                 for r in program.census.ops
                 if r.op.split(".")[0] in ("c10d", "_c10d_functional",
-                                          "c10d_functional")]
+                                          "c10d_functional")
+                and r.axis not in self.allow_axes]
 
 
 def _pool_scatters(census: Census, min_rank: int, pool_shapes=None) -> list:
@@ -342,6 +350,7 @@ def census(program: Program) -> dict:
         "kernel_launches": sum(c.launches.values()),
         "kernel_calls": {k: v for k, v in c.launches.items() if v},
         "collectives": dict(c.collectives),
+        "collectives_by_axis": c.collectives_by_axis,
         "aten_ops": len(c.ops),
         "peak_bytes": c.peak_bytes,
     }

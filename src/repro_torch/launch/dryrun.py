@@ -27,8 +27,10 @@ their capacity's slots), ``param_bytes``, ``optimizer_bytes`` (train),
 the step allocated: activations, gradients, new caches), ``aten_ops``,
 ``kernel_calls`` by name and ``fits_one_card``: whether parameters,
 optimizer state, cache and that peak fit the card's 80 GB. These are
-reckonings from shapes, not measurements. ``mesh`` is null until the
-model axis shards parameters (ROADMAP item 20b).
+reckonings from shapes, not measurements. ``mesh`` is null: the model
+axis shards serving parameters since item 20b, but the dry run's
+per-mesh reckoning (the training step's FSDP and TP placement) is
+ROADMAP item 20c.
 """
 from __future__ import annotations
 

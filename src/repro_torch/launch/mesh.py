@@ -2,12 +2,18 @@
 ``launch/mesh.py``.
 
 A mesh here is a plain record, not a runtime object: the names of its
-axes, their sizes, and one ``torch.device`` for each data shard. The
-mesh engine (``serving/topology.py``) runs every data shard from one
-process, each shard's tensors on its own device, so the data axis needs no
-process group. The model axis (tensor and expert parallelism over
-``torch.distributed``) is ROADMAP item 20b; a mesh with ``model > 1``
-raises until then. Importing this module touches no device.
+axes, their sizes, and one ``torch.device`` for each data shard of this
+process. The mesh engine (``serving/topology.py``) runs every data shard
+from one process, each shard's tensors on its own device, so the data
+axis needs no process group. The model axis (tensor and expert
+parallelism) is one process per rank over ``torch.distributed``: with
+``model > 1`` the record also names this process's model rank, the world
+size, the backend and the model axis (``sharding.collectives.Axis``, its
+process group and collectives). ``launch/serve.py --mesh D,M`` spawns the
+M ranks itself; a process that builds such a mesh otherwise joins the
+group through ``rank`` and ``store_path`` (a ``FileStore``), unless
+``sharding.collectives.init_axes`` has already made it. Importing this
+module touches no device.
 """
 from __future__ import annotations
 
@@ -18,33 +24,84 @@ import torch
 
 @dataclass(frozen=True)
 class Mesh:
-    """``axis_names`` in order, ``shape`` as ``{axis: size}``, and
-    ``devices``, the device of each data shard in shard order."""
+    """``axis_names`` in order, ``shape`` as ``{axis: size}``,
+    ``devices``, the device of each of this process's data shards in
+    shard order; on a model axis of size > 1, this process's
+    ``model_rank``, the ``world_size``, the ``backend`` and the model
+    ``group`` (a ``collectives.Axis``)."""
     axis_names: tuple
     shape: dict
     devices: tuple
+    model_rank: int = 0
+    world_size: int = 1
+    backend: str = None
+    group: object = None
 
 
-def make_host_mesh(data: int = 1, model: int = 1, devices=None) -> Mesh:
-    """A ``(data, model)`` mesh. ``devices=None`` puts data shard ``s`` on
-    ``cuda:s`` and raises when there are fewer cards than shards; an
-    explicit list names each shard's device (two shards may share one
-    card, or run on the CPU)."""
-    if data < 1 or model < 1:
-        raise ValueError(f"mesh ({data}, {model}): sizes must be >= 1")
-    if model > 1:
-        raise NotImplementedError(
-            "a model axis (tensor and expert parallelism over "
-            "torch.distributed) is ROADMAP item 20b; use model=1")
+def _rank_devices(data: int, model: int, devices):
+    """Each model rank's data-shard devices: ``devices=None`` gives rank
+    ``r`` the cards ``r * data ..``, one a shard (an error with fewer
+    cards); a list of ``data`` devices is every rank's (ranks share them),
+    one of ``data * model`` is cut rank by rank."""
     if devices is None:
         have = torch.cuda.device_count()
-        if have < data:
+        if have < data * model:
             raise RuntimeError(
-                f"a data={data} mesh needs {data} CUDA devices, have "
-                f"{have}; name the shards' devices explicitly to share one")
-        devices = [f"cuda:{s}" for s in range(data)]
-    devices = tuple(torch.device(d) for d in devices)
-    if len(devices) != data:
-        raise ValueError(f"{len(devices)} devices for {data} data shards")
-    return Mesh(axis_names=("data", "model"),
-                shape={"data": data, "model": model}, devices=devices)
+                f"a ({data}, {model}) mesh needs {data * model} CUDA "
+                f"devices, have {have}; name the shards' devices "
+                "explicitly to share one")
+        devices = [f"cuda:{i}" for i in range(data * model)]
+    devices = [torch.device(d) for d in devices]
+    if len(devices) == data:
+        return [devices] * model
+    if len(devices) == data * model:
+        return [devices[r * data:(r + 1) * data] for r in range(model)]
+    raise ValueError(f"{len(devices)} devices for {data} data shards on "
+                     f"{model} model ranks")
+
+
+def make_host_mesh(data: int = 1, model: int = 1, devices=None,
+                   backend: str = None, *, rank: int = None,
+                   store_path: str = None) -> Mesh:
+    """A ``(data, model)`` mesh. ``devices=None`` puts data shard ``s`` of
+    model rank ``r`` on ``cuda:{r * data + s}`` and raises when there are
+    fewer cards; an explicit list names the shards' devices (see
+    ``_rank_devices``: two shards or two ranks may share one card, or run
+    on the CPU). With ``model > 1`` this process is one model rank:
+    ``backend`` (default ``collectives.choose_backend``: NCCL when each
+    rank has cards of its own, gloo otherwise) is printed when the group
+    is made."""
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh ({data}, {model}): sizes must be >= 1")
+    per_rank = _rank_devices(data, model, devices)
+    shape = {"data": data, "model": model}
+    if model == 1:
+        return Mesh(axis_names=("data", "model"), shape=shape,
+                    devices=tuple(per_rank[0]))
+    from repro_torch.sharding import collectives
+    import torch.distributed as dist
+    backend = backend or collectives.choose_backend(per_rank)
+    if backend == "nccl" and data > 1:
+        raise NotImplementedError(
+            "NCCL binds one card to each rank; several data shards a rank "
+            "under NCCL is ROADMAP item 20c (gloo serves them)")
+    axis = collectives.AXES.get("model")
+    if axis is None:
+        if dist.is_initialized():
+            raise RuntimeError("a process group exists without the model "
+                               "axis; build it with collectives.init_axes")
+        if rank is None or store_path is None:
+            raise ValueError(
+                "a model axis needs this process's rank and the group's "
+                "store_path (or run it through launch.serve --mesh D,M, "
+                "which spawns the ranks)")
+        axis = collectives.init_axes(
+            rank, model, model, store_path=store_path, backend=backend,
+            device=per_rank[rank][0])["model"]
+    if axis.size != model:
+        raise ValueError(f"the process group's model axis has "
+                         f"{axis.size} ranks, the mesh {model}")
+    return Mesh(axis_names=("data", "model"), shape=shape,
+                devices=tuple(per_rank[axis.rank]), model_rank=axis.rank,
+                world_size=dist.get_world_size(), backend=axis.backend,
+                group=axis)

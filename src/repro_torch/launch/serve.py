@@ -23,7 +23,15 @@ in-place update saves; the tokens do not change). ``--mesh DATA`` serves
 on a data-parallel mesh of DATA shards, one card each, or on the devices
 ``--mesh-devices`` names (``cpu,cpu``; ``cuda:0,cuda:0`` puts two shards
 on one card); ``--no-rebalance`` keeps admission from migrating a
-resident between shards.
+resident between shards. ``--mesh DATA,MODEL`` with MODEL > 1 spawns
+MODEL processes, one model rank each (tensor-parallel parameters, expert
+parallelism, ``torch.distributed`` over a ``FileStore`` in a temporary
+directory), each driving the DATA shards on the devices ``--mesh-devices``
+names (DATA devices shared by every rank, or DATA x MODEL, rank by rank;
+default one card a shard and rank) over NCCL where every rank has cards
+of its own, gloo otherwise. Every rank serves the same requests;
+rank 0 prints. On the card the kernels are built once, before the ranks
+start.
 
 Also exports ``make_serve_step``, the reference's one-round verify step
 over a dense cache, with its two-pass low-memory form for recurrent and
@@ -80,22 +88,30 @@ def make_serve_step(cfg, window: int = 8, low_memory: bool = False,
     return serve_step
 
 
-def make_serving_topology(mesh_arg: str, devices_arg=None):
-    """``--mesh DATA[,MODEL]`` (and ``--mesh-devices D0,D1,...``) as a
-    ``ServingTopology``. Without a device list each shard takes a card of
-    its own; too few cards, or MODEL > 1 (ROADMAP item 20b), is an
-    error."""
-    from repro_torch.launch.mesh import make_host_mesh
+def mesh_sizes(mesh_arg: str) -> tuple:
+    """``--mesh DATA[,MODEL]`` as ``(data, model)``."""
     try:
         parts = [int(p) for p in mesh_arg.split(",")]
     except ValueError:
         parts = []
     if not 1 <= len(parts) <= 2:
         raise SystemExit(f"--mesh wants DATA or DATA,MODEL, got {mesh_arg!r}")
-    data, model = (parts + [1])[:2]
+    return tuple((parts + [1])[:2])
+
+
+def make_serving_topology(mesh_arg: str, devices_arg=None, rank=None,
+                          store_path=None):
+    """``--mesh DATA[,MODEL]`` (and ``--mesh-devices D0,D1,...``) as a
+    ``ServingTopology``. Without a device list each shard (of each model
+    rank) takes a card of its own; too few cards is an error. With MODEL >
+    1 this process is model rank ``rank``, joining the group at
+    ``store_path``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    data, model = mesh_sizes(mesh_arg)
     devices = devices_arg.split(",") if devices_arg else None
     try:
-        return ServingTopology(make_host_mesh(data, model, devices=devices))
+        return ServingTopology(make_host_mesh(
+            data, model, devices=devices, rank=rank, store_path=store_path))
     except (NotImplementedError, RuntimeError, ValueError) as e:
         raise SystemExit(f"--mesh {mesh_arg}: {e}")
 
@@ -116,12 +132,14 @@ def main(argv=None):
                     help="pin W instead of adapting it to acceptance")
     ap.add_argument("--no-prefix-cache", action="store_true")
     ap.add_argument("--mesh", default=None, metavar="DATA[,MODEL]",
-                    help="serve on a data-parallel mesh of DATA shards "
-                         "(slots, block sub-pools and row state split by "
-                         "shard); MODEL > 1 is not ported yet")
+                    help="serve on a mesh of DATA data shards (slots, "
+                         "block sub-pools and row state split by shard) "
+                         "and MODEL model ranks (one process each: "
+                         "tensor-parallel parameters, expert parallelism)")
     ap.add_argument("--mesh-devices", default=None, metavar="D0,D1,...",
-                    help="with --mesh: each shard's device (default: "
-                         "cuda:0 ... cuda:DATA-1, one card a shard)")
+                    help="with --mesh: each shard's device, DATA of them "
+                         "(every model rank's) or DATA x MODEL (rank by "
+                         "rank) (default: one card a shard and rank)")
     ap.add_argument("--no-rebalance", action="store_true",
                     help="no shard rebalancing (migrating a resident "
                          "between block sub-pools to admit an arrival)")
@@ -207,18 +225,47 @@ def main(argv=None):
                     help="run the Gumbel-max verify through the spec_verify "
                          "op (the CUDA kernel on the GPU)")
     args = ap.parse_args(argv)
+    if args.mesh and mesh_sizes(args.mesh)[1] > 1:
+        return _spawn_ranks(args)
+    _serve(args)
 
+
+def _spawn_ranks(args):
+    """``--mesh D,M``, M > 1: the kernels built here (on a card) so the
+    ranks load one build, then M processes, each ``_serve`` as one model
+    rank."""
+    from repro_torch.sharding import collectives
+    if args.durable_dir:
+        raise SystemExit("--durable-dir with a model axis: which rank owns "
+                         "the journal and the checkpoints is ROADMAP item "
+                         "20c")
+    if args.device != "cpu" and torch.cuda.is_available():
+        from repro_torch import kernels
+        kernels.build()
+    collectives.spawn(_rank_main, mesh_sizes(args.mesh)[1], args)
+
+
+def _rank_main(rank, world, store_path, args):
+    _serve(args, rank=rank, store_path=store_path)
+
+
+def _serve(args, rank=None, store_path=None):
     topo = None
     if args.mesh:
         # the shards' devices come from the mesh; ``--device`` is where the
         # weights are made (the engine copies them to each shard's device)
-        topo = make_serving_topology(args.mesh, args.mesh_devices)
+        topo = make_serving_topology(args.mesh, args.mesh_devices, rank,
+                                     store_path)
         device = (topo.device(0) if args.device is None
                   else resolve_device(args.device))
     else:
         device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
     params = TransformerLM.init(cfg, seed=0, device=device)
+    if topo is not None:
+        # this rank's slice of the tensor-parallel leaves (the whole tree
+        # without a model axis)
+        params = topo.place_params(cfg, params)
     engine = ServingEngine(cfg, params, batch=args.batch,
                            window_max=args.window, max_len=args.max_len,
                            eps_key=1, block_size=args.block_size,
@@ -264,9 +311,14 @@ def main(argv=None):
     dt = time.time() - t0
     engine.close()
     m = engine.export_metrics()
+    if topo is not None and topo.model_rank:
+        return                        # rank 0 prints
     total_new = sum(r.new_tokens for r in done)
     where = (f"{topo.data_size} shards on "
              f"{', '.join(map(str, topo.mesh.devices))}" if topo else device)
+    if topo is not None and topo.model_axis is not None:
+        where += (f", {topo.model_axis.size} model ranks "
+                  f"({topo.mesh.backend})")
     print(f"served {len(done)} requests / {total_new} tokens "
           f"in {m['rounds']} verify rounds ({dt:.1f}s) on {where}")
     print(f"ARM calls vs ancestral baseline: "

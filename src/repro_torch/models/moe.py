@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn.core import Dense, _normal
+from repro_torch.sharding import tensor_parallel as tp
 
 
 def _mlp_init(gen, d_model, d_ff, kind, dtype, device=None):
@@ -55,9 +56,12 @@ def _glu_hidden(up, gate, kind):
 
 
 def _mlp_apply(p, x, kind):
-    gate = Dense.apply(p["gate"], x) if "gate" in p else None
-    return Dense.apply(p["down"], _glu_hidden(Dense.apply(p["up"], x), gate,
-                                              kind))
+    # a column-parallel up and gate keep their columns for the
+    # row-parallel down (``sharding/tensor_parallel.py``)
+    gate = (Dense.apply(p["gate"], x, keep_sharded=True) if "gate" in p
+            else None)
+    return Dense.apply(p["down"], _glu_hidden(
+        Dense.apply(p["up"], x, keep_sharded=True), gate, kind))
 
 
 def _stacked_normal(gen, E, shape, dtype, device, std):
@@ -149,6 +153,48 @@ class MoE:
         return order, ids_s, pos, pos < C
 
     @staticmethod
+    def expert_sum(pe, xf, ids, w, C: int, e0: int, E_loc: int, cfg):
+        """The float32 sum (N, D) of each token's contributions from experts
+        ``[e0, e0 + E_loc)``, whose weights ``pe`` holds ((E_loc, ...)),
+        added in ascending expert order. ``apply`` takes every expert; an
+        expert-parallel rank (``sharding/moe_shard.py``) takes its own."""
+        N, _ = xf.shape
+        k = cfg.top_k
+        dev = xf.device
+        order, ids_s, pos, keep = MoE.plan(ids, C)
+
+        # dispatch (E_loc, C, D): slot (e, c) holds expert e0 + e's c-th entry
+        experts = torch.arange(e0, e0 + E_loc, dtype=ids_s.dtype, device=dev)
+        start = torch.searchsorted(ids_s, experts, side="left")
+        count = torch.searchsorted(ids_s, experts, side="right") - start
+        slot = torch.arange(C, device=dev)
+        src = (start[:, None] + slot).clamp(max=N * k - 1)     # (E_loc, C)
+        buf = xf[order[src] // k].masked_fill_(
+            ~(slot < count[:, None])[..., None], 0)
+
+        # expert MLPs, batched over the range
+        up = torch.bmm(buf, pe["up"])
+        gate = torch.bmm(buf, pe["gate"]) if "gate" in pe else None
+        out = torch.bmm(_glu_hidden(up, gate, cfg.mlp_kind), pe["down"])
+
+        # combine: each token's k entries, found through the inverse
+        # permutation, in ascending expert order (their sorted order); an
+        # entry bound outside the range adds zero
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(N * k, device=dev)
+        sp = torch.sort(inv.reshape(N, k), dim=-1).values          # (N, k)
+        eid = ids_s[sp].long() - e0
+        mine = keep[sp] & (eid >= 0) & (eid < E_loc)
+        got = out[eid.clamp(0, E_loc - 1), pos[sp].clamp(max=C - 1)]
+        got = got.masked_fill_(~mine[..., None], 0)             # (N, k, D)
+        w_tk = torch.where(mine, w.reshape(N * k)[order[sp]], 0.0)
+        contrib = got.float() * w_tk[..., None]
+        acc = contrib[:, 0]
+        for j in range(1, k):
+            acc = acc + contrib[:, j]
+        return acc
+
+    @staticmethod
     def apply(p, x, cfg, capacity_factor: float | None = 1.25):
         """x: (B, T, D) -> (y (B, T, D), aux loss, a float32 scalar).
 
@@ -158,51 +204,22 @@ class MoE:
         expert at C slots, filled in token order; the entries past C are
         dropped (training's trade).
 
-        The reference dispatches to an expert-parallel ``shard_map`` path
-        under an active mesh (``sharding/moe_shard.py``); the port's mesh
-        is data-parallel only, each shard running the whole layer, so it
-        has no such branch (expert parallelism is ROADMAP.md §1 item
-        20b)."""
+        Experts placed over the model axis (``sharding/
+        tensor_parallel.py``) take the expert-parallel path of
+        ``sharding/moe_shard.py``, as the reference dispatches there under
+        an active mesh: tokens whole on every rank, each rank running its
+        own experts, one ``all_reduce``; with the experts also split over
+        data (FSDP), the training layout ``moe_apply_sharded``."""
+        if tp.placement_of(p["experts"]["up"]) is not None:
+            from repro_torch.sharding.moe_shard import moe_apply_placed
+            return moe_apply_placed(p, x, cfg, capacity_factor)
         B, T, D = x.shape
-        E, k = cfg.n_experts, cfg.top_k
-        N = B * T
-        dev = x.device
-        xf = x.reshape(N, D)
+        xf = x.reshape(B * T, D)
         ids, w, probs = MoE.route(p, xf, cfg)
         aux = MoE.load_balance_loss(probs, ids, cfg)
-        C = MoE.capacity(N, cfg, capacity_factor)
-        order, ids_s, pos, keep = MoE.plan(ids, C)
-
-        # dispatch (E, C, D): slot (e, c) holds expert e's c-th entry
-        experts = torch.arange(E, dtype=ids_s.dtype, device=dev)
-        start = torch.searchsorted(ids_s, experts, side="left")
-        count = torch.searchsorted(ids_s, experts, side="right") - start
-        slot = torch.arange(C, device=dev)
-        src = (start[:, None] + slot).clamp(max=N * k - 1)        # (E, C)
-        buf = xf[order[src] // k].masked_fill_(
-            ~(slot < count[:, None])[..., None], 0)
-
-        # expert MLPs, batched over E
-        pe = p["experts"]
-        up = torch.bmm(buf, pe["up"])
-        gate = torch.bmm(buf, pe["gate"]) if "gate" in pe else None
-        out = torch.bmm(_glu_hidden(up, gate, cfg.mlp_kind), pe["down"])
-
-        # combine: each token's k entries, found through the inverse
-        # permutation, in ascending expert order (their sorted order)
-        inv = torch.empty_like(order)
-        inv[order] = torch.arange(N * k, device=dev)
-        sp = torch.sort(inv.reshape(N, k), dim=-1).values          # (N, k)
-        kept = keep[sp]
-        got = out[ids_s[sp].long(), pos[sp].clamp(max=C - 1)]      # (N, k, D)
-        got = got.masked_fill_(~kept[..., None], 0)
-        w_tk = torch.where(kept, w.reshape(N * k)[order[sp]], 0.0)
-        contrib = got.float() * w_tk[..., None]
-        acc = contrib[:, 0]
-        for j in range(1, k):
-            acc = acc + contrib[:, j]
-        y = acc.to(x.dtype)
-
+        C = MoE.capacity(B * T, cfg, capacity_factor)
+        y = MoE.expert_sum(p["experts"], xf, ids, w, C, 0, cfg.n_experts,
+                           cfg).to(x.dtype)
         if "shared" in p:
             y = y + _mlp_apply(p["shared"], xf, cfg.mlp_kind)
         return y.reshape(B, T, D), aux

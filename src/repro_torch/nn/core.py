@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import tensor_parallel as tp
+
 
 def _normal(gen: torch.Generator, shape, dtype, device, std: float):
     # drawn in float32 and then rounded, so every dtype sees one stream
@@ -54,7 +56,14 @@ class Dense:
         return params
 
     @staticmethod
-    def apply(params, x):
+    def apply(params, x, keep_sharded: bool = False):
+        """``x @ w + b``. A weight placed over the model axis
+        (``sharding/tensor_parallel.py``) runs row- or column-parallel;
+        ``keep_sharded`` leaves a column-parallel output on the rank's
+        columns for a row-parallel product on the same dim to take (the
+        MLP), and is nothing to any other weight."""
+        if tp.placement_of(params["w"]) is not None:
+            return tp.dense(params, x, keep_sharded)
         y = x @ params["w"]
         if "b" in params:
             y = y + params["b"]
@@ -69,11 +78,16 @@ class Embedding:
 
     @staticmethod
     def apply(params, ids):
+        if tp.placement_of(params["table"]) is not None:
+            return tp.embed(params, ids)
         return params["table"][ids]
 
     @staticmethod
     def attend(params, x):
-        """Tied-readout logits: x @ table.T"""
+        """Tied-readout logits: x @ table.T (over the whole vocabulary on
+        every rank where the table is placed over the model axis)."""
+        if tp.placement_of(params["table"]) is not None:
+            return tp.attend(params, x)
         return x @ params["table"].T
 
 
@@ -88,7 +102,8 @@ class RMSNorm:
         x32 = x.float()
         var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(var + eps)
-        return (y * params["scale"].float()).to(dtype)
+        # a scale split over the model axis is gathered whole first
+        return (y * tp.whole(params["scale"]).float()).to(dtype)
 
 
 class LayerNorm:

@@ -153,8 +153,20 @@ engine's tokens, migrated and rebalanced ones included, equal bitwise
 those of the single-device engine whose calls carry the same rows: data D
 at batch B against data 1 at batch B / D. At the same total batch a
 matmul's rows may round otherwise (on the CPU as on the card), and tokens
-agree under the margin rule. The model axis (tensor and expert
-parallelism) is ROADMAP item 20b.
+agree under the margin rule.
+
+* **Model axis** — on a ``(data, model)`` mesh with ``model > 1`` this
+  process is one model rank: it holds its slice of the tensor-parallel
+  parameters (``ServingTopology.place_params``) and a whole replica of each data shard's pool, and runs
+  the same scheduler over the same requests as every other rank, the
+  collectives inside each forward (``sharding/tensor_parallel.py``,
+  ``sharding/moe_shard.py``) joining them. The host's decisions follow
+  the tokens, so at every host sync the ranks compare a digest of the
+  stats and of the accepted tokens and fail on a mismatch
+  (``collectives.RankDivergence``). Wall-clock decisions differ between
+  processes, so a request ``deadline`` and ``max_request_seconds`` are
+  refused there, as is ``durable_dir`` (which rank owns the journal is
+  ROADMAP item 20c); so are MLA and the recurrent mixers (item 20c).
 """
 from __future__ import annotations
 
@@ -188,6 +200,7 @@ from repro_torch.serving.hostcache import DiskTier, LeafLayout
 from repro_torch.serving.journal import RequestJournal
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.topology import ServingTopology
+from repro_torch.sharding import tensor_parallel as tp
 
 # the host mirrors the round loops read, by their device-copy names
 _MIRRORS = {"tables": "tables", "target": "target", "seq": "seq_ids",
@@ -253,7 +266,10 @@ def _params_on(tree, device):
         return {k: _params_on(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_params_on(v, device) for v in tree)
-    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    # a placed leaf keeps its placement on the copy
+    return tp.carry(tree, tree.to(device))
 
 
 def _to_host(t: torch.Tensor, pin: bool) -> torch.Tensor:
@@ -344,10 +360,14 @@ class ServingEngine:
         if self.topo.mesh is not None and device is not None:
             raise ValueError("a mesh topology names its devices; pass "
                              "device=None with it")
-        if self.topo.auto_axes:
-            raise NotImplementedError(
-                f"mesh axes {sorted(self.topo.auto_axes)} beside data are "
-                "ROADMAP item 20b")
+        # this process's rank of the model axis, None without one
+        self.model_axis = self.topo.model_axis
+        if self.model_axis is not None:
+            self._check_model_axis(cfg, durable_dir, max_request_seconds)
+            if not tp.is_placed(params):
+                raise ValueError("a model axis serves this rank's slice of "
+                                 "the parameters: pass topology."
+                                 "place_params(cfg, params)")
         D = self.topo.data_size
         self.B_local = self.topo.slots_per_shard(batch)
         devices = [self.topo.device(s, device) for s in range(D)]
@@ -540,6 +560,24 @@ class ServingEngine:
         # loop is ever at n < plen (its forced-acceptance prefill)
         self.plen = np.zeros(batch, np.int64)
 
+    @staticmethod
+    def _check_model_axis(cfg, durable_dir, max_request_seconds):
+        """What the model axis does not serve yet raises here."""
+        other = sorted({m for m, f in cfg.layer_specs()
+                        if m not in ("attn", "local")}
+                       | {f for m, f in cfg.layer_specs()
+                          if f not in ("dense", "moe")})
+        if other:
+            raise NotImplementedError(
+                f"{cfg.name}: {other} on a model axis is ROADMAP item 20c")
+        if durable_dir is not None:
+            raise NotImplementedError(
+                "durable_dir with a model axis: which rank owns the journal "
+                "and the checkpoints is ROADMAP item 20c")
+        if max_request_seconds is not None:
+            raise ValueError("max_request_seconds with a model axis: each "
+                             "rank's clock would decide alone")
+
     # -- shards -----------------------------------------------------------
     def _shard_of(self, b: int) -> _Shard:
         """The shard that owns slot ``b``."""
@@ -618,6 +656,10 @@ class ServingEngine:
             return RequestError(
                 "too_long", f"{prompt.size} prompt + {req.new_tokens} new "
                 f"> max_len={self.max_len}")
+        if req.deadline is not None and self.model_axis is not None:
+            return RequestError(
+                "deadline_on_model_axis", "a deadline orders the queue by "
+                "each rank's clock; the model ranks would part")
         lo, hi = int(prompt.min()), int(prompt.max())
         if lo < 0 or hi >= self.cfg.vocab:
             return RequestError(
@@ -985,11 +1027,24 @@ class ServingEngine:
         the exact KV-pool leaf shapes (a shard's, the same on every shard),
         narrows NoPoolRankedScatters from the rank proxy to real pool
         writes (MoE dispatch buffers and recurrent state rows are high-rank
-        scatters the round runs by design). The tensor-parallel exemption
-        waits for the model axis (ROADMAP item 20b)."""
+        scatters the round runs by design); ``tensor_parallel`` on a model
+        axis allows the collectives of that axis (a data-axis one still
+        fails)."""
         return {"pool_scatter_shapes": frozenset(
             tuple(leaf.shape) for leaf in TransformerLM.pool_leaves(
-                self.cfg, self.shards[0].paged))}
+                self.cfg, self.shards[0].paged)),
+            "tensor_parallel": self.model_axis is not None}
+
+    def _agree(self, busy, outs):
+        """The model ranks' agreement at a host sync: a digest of every
+        busy shard's stats and of its token rows (each row's tokens summed
+        against their positions, on the device) compared across the axis;
+        ``sharding.collectives.RankDivergence`` on a mismatch."""
+        parts = [torch.cat([out.reshape(-1), (sh.tokens * torch.arange(
+            1, self.max_len + 1, device=sh.device)).sum(dim=1)]).cpu()
+            for sh, out in zip(busy, outs)]
+        self.model_axis.agree(torch.cat(parts).numpy().tobytes(),
+                              f"host sync {self.metrics.host_syncs}")
 
     # -- slot / block plumbing ---------------------------------------------
     def _ensure_capacity(self, b: int, upto_pos: int):
@@ -2197,6 +2252,8 @@ class ServingEngine:
         stats = np.zeros((self.B, 7 if S else 5), np.int64)
         stats[:, 2] = self.n_host
         adopt = {}
+        if self.model_axis is not None:
+            self._agree(busy, outs)
         for sh, out in zip(busy, outs):
             flat = out.cpu().numpy()
             rows = slice(sh.rows.start, sh.rows.stop)

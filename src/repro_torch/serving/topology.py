@@ -18,10 +18,15 @@ mesh — the port of the reference's ``serving/topology.py``.
   placement-independent and the round is row-local, so a mesh engine's
   tokens equal the single-device engine's.
 
+* **Model axis** — ``auto_axes`` names it where its size is > 1: this
+  process is then one model rank (``model_rank``, ``model_axis``), holding
+  its slice of the tensor-parallel parameters (``place_params``, the
+  counterpart of the reference's ``launch/serve.py:place_params``) and a
+  whole replica of each of its data shards' pools; the host tier stays
+  per rank, each rank's arena over its own replicas.
+
 ``ServingTopology()`` (no mesh) is the single-device case: one shard on
-the engine's device, so the engine keeps one code path. Other mesh axes
-(``model``) are ROADMAP item 20b: ``auto_axes`` names them, and
-``launch.mesh.make_host_mesh`` refuses a model axis until then.
+the engine's device, so the engine keeps one code path.
 """
 from __future__ import annotations
 
@@ -46,18 +51,41 @@ class ServingTopology:
 
     @property
     def auto_axes(self) -> frozenset:
-        """Mesh axes other than data, of size > 1 (tensor-parallel
-        parameters would live there)."""
+        """Mesh axes other than data, of size > 1: the model axis, over
+        which the parameters are tensor-parallel."""
         if self.mesh is None:
             return frozenset()
         return frozenset(a for a in self.mesh.axis_names
                          if a != self.data_axis and self.mesh.shape[a] > 1)
 
+    @property
+    def model_axis(self):
+        """This process's model axis (``collectives.Axis``), None where
+        the mesh has none of size > 1."""
+        return None if self.mesh is None else self.mesh.group
+
+    @property
+    def model_rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.model_rank
+
+    def place_params(self, cfg, params):
+        """This rank's slice of every tensor-parallel leaf
+        (``rules.serving_param_specs``), cut on the leaf's device and
+        copied to data shard 0's; the whole tree where there is no model
+        axis."""
+        if self.model_axis is None:
+            return params
+        from repro_torch.sharding.tensor_parallel import place_params
+        return place_params(cfg, params, self.mesh, self.model_axis,
+                            self.device(0))
+
     def __repr__(self):
         if self.mesh is None:
             return "ServingTopology(single-device)"
+        rank = (f", model rank {self.model_rank}"
+                if self.model_axis is not None else "")
         return (f"ServingTopology(mesh={dict(self.mesh.shape)}, "
-                f"data_axis={self.data_axis!r})")
+                f"data_axis={self.data_axis!r}{rank})")
 
     # -- slot / block partition math ------------------------------------------
     def slots_per_shard(self, batch: int) -> int:

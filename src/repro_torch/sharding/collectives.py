@@ -1,0 +1,264 @@
+"""The model axis over ``torch.distributed``: process groups, the
+collectives GSPMD inserts in the reference, written out, and the spawner
+that runs one process per rank.
+
+* ``Axis`` — one mesh axis of this process: its name, this process's rank
+  on it, its size and its process group. ``all_reduce`` (a sum) and
+  ``all_gather`` (along a dim) are the only collectives the port issues;
+  each is counted in ``STATS`` (``{(axis, kind): [count, bytes]}``, the
+  bytes of the result on this rank), and while it runs ``current_axis()``
+  names its axis, so the op census (``analysis/census.py``) files the c10d
+  op under it. ``agree`` compares a host value across the axis (the
+  serving engine's digest of the accepted tokens) and raises on a
+  mismatch.
+* The backend is chosen once and printed: NCCL when every rank has a card
+  of its own, gloo otherwise. NCCL refuses two ranks on one device; gloo
+  stages CUDA tensors through the host (which synchronizes), and is the
+  backend of the CPU. A collective that fails fails the run: nothing falls
+  back.
+* ``spawn(fn, world, *args)`` runs ``fn(rank, world, store_path, *args)``
+  in ``world`` processes (the ``spawn`` start method, a ``FileStore`` in a
+  temporary directory) and returns their results in rank order.
+
+Importing this module touches no device and starts no process.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import shutil
+import tempfile
+import threading
+import time
+import zlib
+
+import torch
+import torch.distributed as dist
+
+STATS: dict = {}
+_CUR = threading.local()
+# the axes this process holds, by name, while their groups live
+AXES: dict = {}
+
+
+def current_axis():
+    """The name of the axis whose collective is running, or None."""
+    return getattr(_CUR, "axis", None)
+
+
+def stats_by_axis(before: dict = None) -> dict:
+    """``{axis: {kind: {"count", "bytes"}}}``, less ``before`` (an earlier
+    copy of ``STATS``)."""
+    before = before or {}
+    out: dict = {}
+    for (axis, kind), (n, b) in STATS.items():
+        n0, b0 = before.get((axis, kind), (0, 0))
+        if n - n0:
+            out.setdefault(axis, {})[kind] = {"count": n - n0,
+                                              "bytes": b - b0}
+    return out
+
+
+def stages_through_host() -> bool:
+    """Whether a collective of this process stages CUDA tensors through the
+    host: a gloo axis of size > 1 on a card. Such a collective
+    synchronizes, so the sync-debug check (``analysis.census.
+    sync_debug_error``) is off while one is held; it stays on under NCCL."""
+    return any(a.size > 1 and a.backend == "gloo" and a.device.type == "cuda"
+               for a in AXES.values())
+
+
+def choose_backend(rank_devices) -> str:
+    """NCCL when every rank's devices are cards no other rank uses, gloo
+    otherwise (ranks sharing a card, or on the CPU). ``rank_devices`` holds
+    one list of devices per rank."""
+    seen, shared = set(), False
+    for devs in rank_devices:
+        devs = {torch.device(d) for d in devs}
+        if any(d.type != "cuda" for d in devs) or devs & seen:
+            shared = True
+        seen |= devs
+    return "gloo" if shared else "nccl"
+
+
+class Axis:
+    """One mesh axis of this process (see the module docstring). A size-1
+    axis has no group and its collectives are the identity."""
+
+    def __init__(self, name: str, rank: int, size: int, group=None,
+                 backend: str = "gloo", host_group=None, device=None):
+        self.name, self.rank, self.size = name, rank, size
+        self.group, self.backend = group, backend
+        # host values (digests) go over gloo whatever the tensors' backend
+        self.host_group = host_group if host_group is not None else group
+        self.device = torch.device(device or "cpu")
+
+    def __repr__(self):
+        return (f"Axis({self.name!r}, rank {self.rank} of {self.size}, "
+                f"{self.backend})")
+
+    @contextlib.contextmanager
+    def _issuing(self, kind: str, nbytes: int):
+        prev = current_axis()
+        _CUR.axis = self.name
+        try:
+            yield
+        finally:
+            _CUR.axis = prev
+        rec = STATS.setdefault((self.name, kind), [0, 0])
+        rec[0] += 1
+        rec[1] += nbytes
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the axis, in place; returns ``t``."""
+        if self.size == 1:
+            return t
+        with self._issuing("all-reduce", t.numel() * t.element_size()):
+            dist.all_reduce(t, group=self.group)
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The axis's ``t`` concatenated along ``dim`` in rank order."""
+        if self.size == 1:
+            return t
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        with self._issuing("all-gather",
+                           self.size * t.numel() * t.element_size()):
+            dist.all_gather(parts, t, group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def agree(self, data: bytes, what: str) -> int:
+        """Compare a digest of ``data`` across the axis on the host; raise
+        ``RankDivergence`` if any rank's differs. Returns the digest."""
+        digest = zlib.crc32(data)
+        if self.size == 1:
+            return digest
+        mine = torch.tensor([digest], dtype=torch.int64)
+        every = [torch.empty_like(mine) for _ in range(self.size)]
+        dist.all_gather(every, mine, group=self.host_group)
+        got = [int(x) for x in every]
+        if len(set(got)) != 1:
+            raise RankDivergence(f"{what}: the {self.name} ranks disagree "
+                                 f"(digests {got}; this is rank "
+                                 f"{self.rank})")
+        return digest
+
+
+class RankDivergence(RuntimeError):
+    """The ranks of an axis computed different host-visible values: the
+    schedules would part, and the collectives after them would not
+    match."""
+
+
+def init_axes(rank: int, world: int, model: int, *, store_path: str,
+              backend: str, device=None) -> dict:
+    """Join the world's process group (a ``FileStore`` at ``store_path``)
+    and build this rank's axes: ranks are laid out ``(data, model)``,
+    model fastest, so rank ``r`` is data ``r // model``, model ``r %
+    model``. Returns ``{"data": Axis, "model": Axis}`` (the data axis of
+    size ``world // model``; the serving engine runs its data shards in one
+    process, so there it has size 1). Every process calls this in the same
+    order: the groups are made collectively."""
+    if world % model:
+        raise ValueError(f"world {world} is not a multiple of model {model}")
+    device = torch.device(device or "cpu")
+    if backend == "nccl" and device.type == "cuda":
+        torch.cuda.set_device(device)
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world)
+    data = world // model
+    d, m = divmod(rank, model)
+    groups = {}
+    for name, members in (
+            ("model", [[dd * model + mm for mm in range(model)]
+                       for dd in range(data)]),
+            ("data", [[dd * model + mm for dd in range(data)]
+                      for mm in range(model)])):
+        for ranks in members:
+            g = dist.new_group(ranks, backend=backend)
+            h = (dist.new_group(ranks, backend="gloo") if backend != "gloo"
+                 else g)
+            if rank in ranks:
+                groups[name] = (g, h)
+    axes = {"model": Axis("model", m, model, groups["model"][0],
+                          backend=backend, host_group=groups["model"][1],
+                          device=device),
+            "data": Axis("data", d, data, groups["data"][0],
+                         backend=backend, host_group=groups["data"][1],
+                         device=device)}
+    AXES.clear()
+    AXES.update(axes)
+    print(f"rank {rank} of {world}: {backend} process group, "
+          f"{axes['model']}, {axes['data']}", flush=True)
+    return axes
+
+
+def shutdown() -> None:
+    """Leave the process group (every rank calls it)."""
+    AXES.clear()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _child(rank, world, store_path, fn, args, queue):
+    try:
+        out = fn(rank, world, store_path, *args)
+        queue.put((rank, True, out))
+    except BaseException as e:          # reported to the parent, re-raised
+        import traceback
+        queue.put((rank, False, f"{type(e).__name__}: {e}\n"
+                   + traceback.format_exc()))
+        raise
+    finally:
+        shutdown()
+
+
+def spawn(fn, world: int, *args, timeout: float = 600.0) -> list:
+    """Run ``fn(rank, world, store_path, *args)`` in ``world`` new
+    processes (``spawn`` start method; ``fn`` must be importable) and
+    return their results in rank order; raise if any rank raised or a
+    process died. Every process is joined (and killed past ``timeout``)
+    before this returns."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    queue = ctx.SimpleQueue()
+    tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")
+    store_path = os.path.join(tmp, "store")
+    procs = [ctx.Process(target=_child,
+                         args=(r, world, store_path, fn, args, queue))
+             for r in range(world)]
+    results, errors = {}, []
+    try:
+        for p in procs:
+            p.start()
+        got = 0
+        deadline = time.monotonic() + timeout
+        while got < world:
+            if not queue.empty():
+                rank, ok, out = queue.get()
+                got += 1
+                (results.__setitem__(rank, out) if ok
+                 else errors.append(f"rank {rank}: {out}"))
+                if not ok:
+                    break
+                continue
+            if any(p.exitcode not in (None, 0) for p in procs):
+                errors.append("a rank died: exit codes "
+                              f"{[p.exitcode for p in procs]}")
+                break
+            if time.monotonic() > deadline:
+                errors.append(f"ranks still running after {timeout} s")
+                break
+            time.sleep(0.01)
+    finally:
+        for p in procs:
+            p.join(timeout=5 if errors else 60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if errors:
+        raise RuntimeError("; ".join(errors))
+    return [results[r] for r in range(world)]

@@ -69,6 +69,12 @@ migration's landing blocks bitwise the source blocks, under its contract
 and sync-debug "error", tokens bitwise the undisturbed run; a data=2
 engine at batch 4 bitwise a data=1 engine at batch 2 (the same rows per
 call).
+The model axis (``tests/torch_tp_driver.py gpu``, two spawned ranks of
+reduced qwen3-1.7b in float32): both ranks on this card over gloo give
+the same tokens on the kernel path (paged_decode and spec_verify
+launched) and window logits within 1e-4 of model 1's; over NCCL, a card a
+rank, every checked dispatch also runs under sync-debug "error", which
+gloo's host staging rules out (skipped with fewer than two cards).
 """
 import numpy as np
 import pytest
@@ -1799,3 +1805,43 @@ def test_data2_engine_equals_data1_at_half_batch_on_gpu(cuda, no_tf32):
     for uid, r in ref.items():
         np.testing.assert_array_equal(got[uid].result, r.result)
         assert got[uid].calls_used == r.calls_used
+
+
+def _tp_ranks(backend, **env):
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, str(root / "tests" / "torch_tp_driver.py"), "gpu",
+         backend], capture_output=True, text=True, cwd=root, timeout=400,
+        env=dict(os.environ, **env))
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_tensor_parallel_ranks_agree_on_one_gpu(cuda):
+    """Two model ranks on one card over gloo (which stages each collective
+    through the host, so the sync check is off there): the same tokens on
+    both, through the kernels, and window logits within 1e-4 of model
+    1's (float32, row-parallel sums in another order)."""
+    r0, r1 = _tp_ranks("gloo")
+    assert r0["backend"] == r1["backend"] == "gloo"
+    assert r0["tokens"] == r1["tokens"] and len(r0["tokens"]) == 4
+    for r in (r0, r1):
+        assert r["launches"]["paged_decode"] > 0
+        assert r["launches"]["spec_verify"] > 0
+        assert r["logits_err_vs_model1"] < 1e-4
+        assert not r["sync_check"]
+
+
+def test_tensor_parallel_over_nccl_keeps_the_sync_check(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL needs a card a rank; this machine has "
+                    f"{torch.cuda.device_count()}")
+    r0, r1 = _tp_ranks("nccl", REPRO_CHECK_CONTRACTS="1")
+    assert r0["backend"] == "nccl" and r0["tokens"] == r1["tokens"]
+    for r in (r0, r1):
+        assert r["sync_check"] and r["checked"] > 0 and r["contracts_ok"]

@@ -200,7 +200,9 @@ def test_make_host_mesh():
     assert topo.data_size == 2 and topo.auto_axes == frozenset()
     assert topo.device(1) == torch.device("cpu")
     assert ServingTopology().device(0, "cpu") == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="20b"):
+    # a model axis is one process a rank: without its rank and the group's
+    # store, and with no group made, this process cannot be one
+    with pytest.raises(ValueError, match="rank"):
         make_host_mesh(2, 2, devices=("cpu", "cpu"))
     with pytest.raises(ValueError):
         make_host_mesh(2, devices=("cpu",))
