@@ -243,7 +243,8 @@ which fails the script when it fails:
    ones; (c) ``arena_corrupt=@0`` on (b) (one resume recomputes, tokens
    bitwise) and ``stage_drop=@0`` on (a) (one staging error, tokens
    bitwise).
-20. crash-safe serving on phase 3's qwen3-1.7b at a fixed W = 8, the
+20. crash-safe serving on phase 3's qwen3-1.7b cut to its first 14
+   layers (``DURABLE_LAYERS``) at a fixed W = 8, the
    durable directories temporary ones under ``build/`` (their filesystem
    type from ``/proc/mounts`` logged): (a) phase 19 (b)'s workload on an
    engine with ``durable_dir`` and ``journal_fsync_every=1`` against the
@@ -252,8 +253,8 @@ which fails the script when it fails:
    park per preemption, 4 finishes), a checkpoint per host sync, the
    parks' 2 shared blocks flushed to disk; ms per token of both runs, ms
    per fsync and per checkpoint (mean, max), the journal's bytes; (b)
-   phase 19 (a)'s traffic through a 4 MiB arena (two of qwen's 1.835 MB
-   blocks) over the disk tier: A's prefix blocks go pool -> arena ->
+   phase 19 (a)'s traffic through a 2 MiB arena (two of the cut's
+   0.9175 MB blocks) over the disk tier: A's prefix blocks go pool -> arena ->
    disk and C restages its 4 through disk and arena, at least 2 disk
    hits and promotions, fewer prefill chunks than the tier-less run,
    tokens bitwise its; disk put and get ms and MB/s a block, the restage
@@ -292,11 +293,12 @@ which fails the script when it fails:
    on the card, at once, each exiting 0 with its exactness line; exit
    codes and seconds.
 22. the data-parallel mesh engine (``mesh_phase``): two shards of
-   phase 18's qwen3-1.7b on this card against one at batch 2 and 4, a
-   cross-shard migration, a rebalancing admission.
+   phase 18's qwen3-1.7b (its first ``MESH_LAYERS`` = 7 layers) on this
+   card against one at batch 2 and 4, a cross-shard
+   migration, a rebalancing admission.
 23. the model axis (``model_axis_phase``): two model ranks, processes of
-   their own over gloo on this card, serve qwen3-1.7b at full width and
-   depth on tensor-parallel parameters (window logits within the
+   their own over gloo on this card, serve qwen3-1.7b at full width (its
+   first ``TP_LAYERS`` = 14 layers) on tensor-parallel parameters (window logits within the
    tolerance of model 1's, the collectives of a verify pass, tokens
    bitwise across the ranks and under the margin rule against model 1,
    ms per token and idle share of both), at data 2 x model 2 bitwise data
@@ -304,6 +306,24 @@ which fails the script when it fails:
    the dbrx-132b cut expert-parallel (the MoE layer against the whole
    one, its time on each rank, served tokens against the solo sampler
    with the routing judged as in phase 13).
+24. the model axis for training (``train_mesh_phase``): qwen3-1.7b at
+   full width cut to 14 layers, B = 2, S = 2048, bf16, AdamW,
+   ``remat=True``, phase 7's seed-0 parameters and batches, first on one
+   device (step 1's loss, global norm and four named gradients kept on
+   the host; two steps timed), then on two ranks sharing this card over
+   gloo, (a) at data 1 x model 2 and (b) at data 2 x model 1
+   (``shard_train_step``): step 1's loss, norm and named gradients
+   gathered whole within ``TRAIN_MESH_TOL`` of the single device's,
+   which every planted fault (``TRAIN_FAULTS``: a copy_to backward left
+   out, the data mean's all-reduce of the leaves not split over data
+   left out, the FSDP sum left out, the norm counted per rank) exceeds,
+   two steps timed (ms, tokens/s, peak memory, the
+   collectives and bytes a step by axis, flash launches: 2 x layers a
+   step, the forward and the recompute), the replicated leaves bitwise
+   across the ranks after each, the logits gather timed alone; (c) the
+   dbrx-132b cut's MoE layer at data 1 x model 2 (8 experts a rank), a
+   forward and backward at capacity 1.25 and an Adafactor step against
+   the whole layer's within ``MOE_TRAIN_TOL``.
 
 Phases 11-12 run no kernel of the port's own: the reference's image path
 reaches no Pallas kernel; phase 13's MoE layer neither (the reference's is
@@ -324,7 +344,8 @@ The second line from the end is a JSON object with one entry per kernel
 its prefill and decode rows, rwkv_wkv's its prefill and zero-state rows,
 paged_decode's, decode_attention's and flash_attention's their dbrx rows,
 with the launches of phase 13's paths, five of them phase 14's rows,
-three phase 15's and five phase 16's, with the launches of their paths);
+three phase 15's and five phase 16's, with the launches of their paths;
+the model-axis paths' launches a rank, phase 23's and phase 24's);
 the last line is ``{"ok": true, "device": {...}}``. ``--report PATH``
 also writes every number measured to PATH as JSON, the seconds of each
 phase among them (``phase_seconds``), phase 20's under ``durable``.
@@ -4720,7 +4741,11 @@ def rate_mbps(rows):
 
 
 RECOVERY_KILLS = ("post_sync:1", "mid_spill:0")
-DISK_ARENA_MB = 4                  # phase 20 (b): two of qwen's blocks
+# phase 20's qwen3-1.7b depth (all 28 layers before phase 24 needed the
+# time; every comparison is between engines, or processes, on the same
+# weights), and (b)'s arena: two of its blocks (0.9175 MB each)
+DURABLE_LAYERS = 14
+DISK_ARENA_MB = 2
 CHILD_KEYS = ("requests_finished", "prefill_calls", "preemptions",
               "recovered_requests", "recovered_parked", "checkpoints_written",
               "disk_spills", "disk_hits", "disk_promotes", "journal_appends",
@@ -4814,8 +4839,8 @@ def run_child(mode, ddir, kill=None, disk_tier=True):
 
 
 def durable_phase(dev, tol):
-    """Phase 20: crash-safe serving of qwen3-1.7b at full width (bf16,
-    seed 0) at a fixed W = 8, every in-process run through ``drive``
+    """Phase 20: crash-safe serving of qwen3-1.7b at full width, its first
+    ``DURABLE_LAYERS`` layers (bf16, seed 0), at a fixed W = 8, every in-process run through ``drive``
     (spec_verify and paged_decode asserted): (a) phase 19 (b)'s workload
     on a durable engine against the volatile one, (b) phase 19 (a)'s
     through a 4 MiB arena over the disk tier, (c) crash and restart in
@@ -4829,7 +4854,8 @@ def durable_phase(dev, tol):
     from repro_torch.engine.agreement import check_token_agreement
     from repro_torch.models.transformer import TransformerLM
     t0 = time.perf_counter()
-    cfg = get_config("qwen3-1.7b")
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              n_layers=DURABLE_LAYERS)
     params = TransformerLM.init(cfg, seed=0, device=dev)
     serve(cfg, params, dev, make_requests(cfg, (17,), 4))      # warm-up
     block_bytes = cfg.n_layers * 2 * BS * KV * D * 2
@@ -5261,8 +5287,9 @@ def timed_migrations(eng, log_to, block_bytes):
 
 
 # phase 22's qwen3-1.7b depth (all 28 layers before phase 23 needed the
-# time; the comparisons are between engines on the same weights)
-MESH_LAYERS = 14
+# time, 14 before phase 24 did; the comparisons are between engines on the
+# same weights)
+MESH_LAYERS = 7
 
 
 def mesh_phase(dev, n_layers=MESH_LAYERS):
@@ -5488,11 +5515,15 @@ def mesh_phase(dev, n_layers=MESH_LAYERS):
 DBRX_EP_LAYERS = 2       # the dbrx-132b cut served on the model axis
 # (a)'s window logits at model 2 against model 1's, max-abs, and the margin
 # rule's tolerance there: the geometric mean, rounded down, of the sound
-# reading (0.1094) and the least planted fault's (0.3828, layer 27's MLP
-# all_reduce left out), both on an H100 (PERF.md); every run asserts it
-# still parts the two
+# reading and the least planted fault's, both on an H100 (PERF.md): 0.2 at
+# 28 layers (0.1094, 0.3828: layer 27's MLP all_reduce left out) and again
+# at 14 (0.08594, 0.4902: layer 13's); every run asserts it still parts
+# the two
 TP_LOGITS_TOL = 0.2
-TP_FAULT_LAYERS = (0, 14, 27)   # the layers whose collectives are planted
+# (a)'s qwen3-1.7b depth (all 28 layers before phase 24 needed the time)
+TP_LAYERS = 14
+# the layers whose collectives are planted: the first, middle and last
+TP_FAULT_LAYERS = (0, TP_LAYERS // 2, TP_LAYERS - 1)
 
 
 class _OtherRank:
@@ -5597,7 +5628,8 @@ def model_axis_rank(rank, world, store_path):
     """Phase 23's model rank ``rank`` of 2 (a process of its own, started
     by ``collectives.spawn``; the kernels the parent built are loaded).
     Both ranks share this card over gloo. Returns what it measured: (a)
-    qwen3-1.7b at full width and depth, data 1 x model 2; (b) data 2 x
+    qwen3-1.7b at full width (its first ``TP_LAYERS`` layers), data 1 x
+    model 2; (b) data 2 x
     model 2; (c) the dbrx-132b cut, expert-parallel."""
     import numpy as np
     import torch
@@ -5622,7 +5654,7 @@ def model_axis_rank(rank, world, store_path):
 
     # (a) qwen3-1.7b, data 1 x model 2: slices, the window's logits
     t0 = time.perf_counter()
-    cfg = get_config("qwen3-1.7b")
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=TP_LAYERS)
     full = TransformerLM.init(cfg, seed=0, device=dev)
     ref = window_logits(cfg, full, dev).float()
     params = topo.place_params(cfg, full)
@@ -5756,11 +5788,12 @@ class _KeptRoutes:
 def model_axis_phase(dev, tol):
     """Phase 23: the model axis. Two model ranks (``collectives.spawn``,
     ``model_axis_rank``) share this card over gloo, which stages every
-    collective through the host. (a) qwen3-1.7b at full width and depth,
+    collective through the host. (a) qwen3-1.7b at full width, its first
+    ``TP_LAYERS`` layers,
     bf16, data 1 x model 2: each rank's window logits against the whole
     model's within ``TP_LOGITS_TOL`` (max-abs), which every planted fault
     (``planted_faults``) must exceed, the collectives of one verify pass
-    (28 x (4 + 1) all-reduces + 1 for the embedding, 1 logits gather),
+    (layers x (4 + 1) all-reduces + 1 for the embedding, 1 logits gather),
     phase 18's 8 requests at W = 8 with tokens bitwise across the ranks
     and under the margin rule (``TP_LOGITS_TOL``) against model 1 (this
     process, alone on the card before the ranks start), ms per token and
@@ -5783,7 +5816,7 @@ def model_axis_phase(dev, tol):
     from repro_torch.serving.admission import Request
     from repro_torch.sharding import collectives
     t0 = time.perf_counter()
-    cfg = get_config("qwen3-1.7b")
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=TP_LAYERS)
     params = TransformerLM.init(cfg, seed=0, device=dev)
     fixed = dict(adaptive=False, host_cache_mb=0, rounds_per_sync=8)
     drive(cfg, params, dev, make_requests(cfg, (17,), 2), **fixed)
@@ -5988,6 +6021,541 @@ def model_axis_phase(dev, tol):
     return out
 
 
+# ---- phase 24: the model axis for training -------------------------------
+
+TRAIN_MESH = dict(layers=14, B=2, S=2048, steps=2, moe_B=2, moe_T=256)
+# the leaves whose step-1 gradients each rank gathers whole and holds
+# against the single-device step's
+TRAIN_NAMED = {"layer 0 wq": ("layers", 0, "mixer", "wq", "w"),
+               "last layer ffn/down": ("layers", -1, "ffn", "down", "w"),
+               "layer 0 norm1/scale": ("layers", 0, "norm1", "scale"),
+               "final_norm/scale": ("final_norm", "scale")}
+# (a) and (b)'s step-1 gate: the loss, the global norm and each named
+# leaf's gradient, each as |difference| over the single-device value's
+# (max-abs for a leaf). Set as TP_LOGITS_TOL is set: the geometric mean,
+# rounded down, of the sound reading (0.02348, layer 0's wq at data 1 x
+# model 2) and the least planted fault's (0.2406, the global norm counted
+# per rank), both on an H100 (PERF.md); every run asserts it still parts
+# the two
+TRAIN_MESH_TOL = 0.075
+# (c)'s limit: each compared tensor's max |difference| over its max |value|,
+# two bf16 ulps of the largest value (each side rounds its float32 sums
+# once; 0.00714 at most on an H100, the input's gradient)
+MOE_TRAIN_TOL = 2 ** -6
+MOE_TRAIN_AUX = 1.0        # the aux's weight in (c)'s loss
+
+
+class _NoBackwardSum:
+    """An axis whose all-reduce does nothing in a backward (grad mode is
+    off there): ``copy_to``'s backward on it keeps each rank's partial
+    gradient (a planted fault)."""
+
+    def __init__(self, axis):
+        self._axis = axis
+
+    def __getattr__(self, name):
+        return getattr(self._axis, name)
+
+    def all_reduce(self, t):
+        import torch
+        return self._axis.all_reduce(t) if torch.is_grad_enabled() else t
+
+
+class _OwnSlice:
+    """An axis whose reduce-scatter keeps this rank's slice of its own
+    gradient, unsummed: ``fsdp_gather``'s backward without the sum (a
+    planted fault)."""
+
+    def __init__(self, axis):
+        self._axis = axis
+
+    def __getattr__(self, name):
+        return getattr(self._axis, name)
+
+    def reduce_scatter(self, t, dim):
+        n = t.shape[dim] // self._axis.size
+        return t.narrow(dim, self._axis.rank * n, n).contiguous()
+
+
+def replace_axis(leaves, name, wrap):
+    """Put ``wrap(axis)`` in place of each leaf's placement axis ``name``;
+    returns what to restore (``restore_axes``)."""
+    from repro_torch.sharding import tensor_parallel as tp
+    kept = []
+    for t in leaves:
+        pls = tp.placements_of(t)
+        if name in pls:
+            kept.append((t, pls))
+            pl = pls[name]
+            setattr(t, tp._ATTR, {**pls, name: tp.Placement(
+                wrap(pl.axis), pl.dim, pl.shape)})
+    return kept
+
+
+def restore_axes(kept):
+    from repro_torch.sharding import tensor_parallel as tp
+    for t, pls in kept:
+        setattr(t, tp._ATTR, pls)
+
+
+def local_norm(grads):
+    """The global norm counted on each rank's own slices (a planted
+    fault: no all-reduce of the partial sums)."""
+    import torch
+    from repro_torch.optim.optimizers import tree_leaves
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree_leaves(grads)))
+
+
+# the planted faults, each made alike on every rank, and the layouts
+# (data, model) that can show them
+TRAIN_FAULTS = {
+    "copy_to backward left out (last layer's wq, wk, wv)":
+        lambda d, m: m > 1,
+    "data mean's all-reduce left out (leaves not split over data)":
+        lambda d, m: d > 1,
+    "fsdp_gather backward keeps its own slice": lambda d, m: d > 1,
+    "global norm counted per rank": lambda d, m: True,
+}
+
+
+def plant_fault(fault, params, axis):
+    """Plant ``fault`` (of ``TRAIN_FAULTS``, or None) on the placed
+    ``params`` where it lives in their placements (the other faults live
+    in the step's calls); returns what ``restore_axes`` restores. ``axis``
+    is the batch's axis."""
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.sharding.collectives import JOINT
+    if fault is not None and fault.startswith("copy_to"):
+        mix = params["layers"][-1]["mixer"]
+        return replace_axis([mix[k]["w"] for k in ("wq", "wk", "wv")],
+                            "model", _NoBackwardSum)
+    if fault is not None and fault.startswith("fsdp"):
+        return replace_axis(tree_leaves(params),
+                            JOINT if axis.name == JOINT else "data",
+                            _OwnSlice)
+    return []
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def named_grads(g):
+    """The ``TRAIN_NAMED`` leaves of a placed gradient tree, gathered whole
+    (every rank calls it), as float32 numpy arrays."""
+    from repro_torch.sharding import tensor_parallel as tp
+    return {k: tp.whole(_leaf(g, p)).float().cpu().numpy()
+            for k, p in TRAIN_NAMED.items()}
+
+
+def mesh_step_grads(step, params, batch, axis, faults, gather=named_grads):
+    """Step 1's loss, global norm and ``gather`` of its gradient (the named
+    leaves whole, float32, on the host), sound (key None) and under each
+    of ``faults`` (``TRAIN_FAULTS``): the data mean's all-reduce left out
+    and the per-rank norm read the sound step's gradient (before
+    ``sync_grads``, the 1 / D loss scale kept; or its slices' norm);
+    the copy_to and FSDP faults take the step again, planted
+    (``plant_fault``). Returns them and the sound step's flash launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import train
+
+    def reading(loss, g, norm=train.global_norm):
+        with torch.no_grad():
+            got = gather(g)
+        return loss, float(norm(g)), got
+    kernels.reset_launches()
+    m, g = step.local_grads(params, batch)
+    launches = kernels.LAUNCHES["flash_attention"]
+    loss = float(train._mean_metrics(m, axis)["loss"])
+    synced = train.sync_grads(g, axis)
+    out = {None: reading(loss, synced)}
+    for f in faults:
+        if f.startswith("data mean's all-reduce"):
+            out[f] = reading(loss, g)
+        elif f == "global norm counted per rank":
+            out[f] = reading(loss, synced, local_norm)
+    del g, synced
+    for f in faults:
+        if f in out:
+            continue
+        kept = plant_fault(f, params, axis)
+        try:
+            m, g = step.local_grads(params, batch)
+        finally:
+            restore_axes(kept)
+        out[f] = reading(float(train._mean_metrics(m, axis)["loss"]),
+                         train.sync_grads(g, axis))
+        del g
+    return out, launches
+
+
+def mesh_gate(got, base):
+    """Each quantity of step 1 as |difference| over the single-device
+    value's: the loss, the norm, each named leaf (max-abs)."""
+    import numpy as np
+    loss, gn, named = got
+    out = {"loss": abs(loss - base["loss"]) / abs(base["loss"]),
+           "grad_norm": abs(gn - base["grad_norm"]) / base["grad_norm"]}
+    for k, v in named.items():
+        w = base["named"][k]
+        out[k] = float(np.abs(v - w).max() / np.abs(w).max())
+    return out
+
+
+def train_mesh_layout(cfg, axes, base, dev, spec):
+    """One layout of phase 24 on this rank: the model placed
+    (``place_train_params``), step 1's gate quantities sound and under each
+    fault the layout can show, then ``spec["steps"]`` AdamW steps timed,
+    the replicated leaves agreed bitwise after each; the collectives a
+    step by axis, peak memory, flash launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import ShardedTokenPipeline
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.sharding.collectives import JOINT
+    t0 = time.perf_counter()
+    full = TransformerLM.init(cfg, seed=0, device=dev)
+    params = tp.place_train_params(cfg, full, axes)
+    del full
+    torch.cuda.empty_cache()
+    d, m = axes["data"].size, axes["model"].size
+    out = {"data": d, "model": m, "setup_s": time.perf_counter() - t0,
+           "param_gb": torch.cuda.memory_allocated() / 1e9}
+    opt = train.make_optimizer(cfg, steps=spec["steps"])
+    state = opt.init(params)
+    step = train.shard_train_step(cfg, opt, axes, remat=True, no_tp=False)
+    axis = train.batch_axis(axes)
+    B, S = spec["B"], spec["S"]
+    pipe = ShardedTokenPipeline(token_batches(max(512, B * 8), B, S,
+                                              cfg.vocab), dev, axis,
+                                step.accum_steps)
+    batches = [next(pipe) for _ in range(spec["steps"])]
+    faults = [f for f, shows in TRAIN_FAULTS.items() if shows(d, m)]
+    got, out["grads_flash_launches"] = mesh_step_grads(
+        step, params, batches[0], axis, faults)
+    out["sound"] = mesh_gate(got.pop(None), base)
+    out["faults"] = {f: mesh_gate(v, base) for f, v in got.items()}
+    rows = []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        before = {k: tuple(v) for k, v in collectives.STATS.items()}
+        t1 = time.perf_counter()
+        params, state, mt = step(params, state, b)
+        loss = float(mt["loss"])            # reads the value: synchronizes
+        ms = (time.perf_counter() - t1) * 1e3
+        rows.append({"loss": loss, "grad_norm": float(mt["grad_norm"]),
+                     "ms": ms, "tokens_per_s": B * S / ms * 1e3,
+                     "peak_memory_gb": torch.cuda.max_memory_allocated()
+                                       / 1e9,
+                     "flash_launches": kernels.LAUNCHES["flash_attention"],
+                     "collectives": collectives.stats_by_axis(before)})
+        tp.agree_replicas(params, {JOINT: axes[JOINT]},
+                          f"phase 24 ({d}, {m}) step {i + 1}")
+    out["steps"] = rows
+    if m > 1:
+        # the logits gather alone: this rank's (B / D, S, V / M) slice
+        x = torch.zeros((B // d, S, cfg.vocab // m), dtype=cfg.param_dtype,
+                        device=dev)
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y = axes["model"].all_gather(x, dim=-1)
+            float(y[0, 0, 0])
+            ms.append((time.perf_counter() - t1) * 1e3)
+        out["logits_gather"] = {"bytes": y.numel() * y.element_size(),
+                                "ms": ms}
+        del x, y
+    out["seconds"] = time.perf_counter() - t0
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_check(cfg, axes, dev, spec):
+    """(c): the MoE layer of the dbrx-132b cut, placed at data 1 x model 2
+    (``place_train_params``: E / 2 experts a rank), one forward and
+    backward at capacity 1.25 and one Adafactor step, against the whole
+    layer's autograd and Adafactor step made on this rank from the same
+    seed (each rank's slice of the whole results compared, and the input's
+    and the router's gradients whole). The ranks take the whole layer's
+    turn one after the other: its float32 Adafactor transients (~20 GB)
+    would not fit twice beside the rest."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import optim
+    from repro_torch.models.moe import MoE
+    from repro_torch.optim.optimizers import tree_leaves, tree_map, \
+        tree_unflatten
+    from repro_torch.sharding import tensor_parallel as tp
+    model = axes["model"]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(24)
+    whole = MoE.init(gen, cfg, dtype=cfg.param_dtype, device=dev)
+    tree = {"layers": [{"ffn": whole}]}
+    # a leaf no axis splits comes back as itself: copied, so that the two
+    # steps below update two routers
+    placed = tree_map(lambda t: t if tp.placements_of(t) else t.clone(),
+                      tp.place_train_params(cfg, tree, axes)
+                      ["layers"][0]["ffn"])
+    x = torch.randn((spec["moe_B"], spec["moe_T"], cfg.d_model),
+                    generator=gen, device=dev).to(cfg.param_dtype)
+    r = torch.randn(x.shape, generator=gen, device=dev)
+
+    def grads_of(p):
+        p = tree_map(lambda t: tp.carry(t, t.detach().requires_grad_(True)),
+                     p)
+        xr = x.detach().requires_grad_(True)
+        y, aux = MoE.apply(p, xr, cfg, capacity_factor=1.25)
+        loss = (y.float() * r).sum() + MOE_TRAIN_AUX * aux
+        gl = torch.autograd.grad(loss, [xr] + tree_leaves(p))
+        return (y.detach(), float(aux.detach()), gl[0],
+                tree_map(tp.carry, p, tree_unflatten(p, list(gl[1:]))))
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = fn(*a)
+        torch.cuda.synchronize()
+        return got, (time.perf_counter() - t1) * 1e3
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+    (y, aux, gx, g), placed_ms = timed(grads_of, placed)
+    opt = optim.adafactor(1e-3)
+    state = opt.init(placed)
+    opt.step(g, state, placed)
+    e_loc = placed["experts"]["up"].shape[0]
+    sl = slice(model.rank * e_loc, (model.rank + 1) * e_loc)
+    errs = {}
+    for turn in range(model.size):
+        if turn == model.rank:
+            (wy, waux, wgx, wg), whole_ms = timed(grads_of, whole)
+            errs.update({"y": rel(y, wy), "grad x": rel(gx, wgx),
+                         "grad router": rel(g["router"]["w"],
+                                            wg["router"]["w"])})
+            for k in placed["experts"]:
+                errs[f"grad experts/{k}"] = rel(g["experts"][k],
+                                                wg["experts"][k][sl])
+            del g, wy, wgx
+            wstate = opt.init(whole)
+            opt.step(wg, wstate, whole)
+            del wg
+            for k in placed["experts"]:
+                errs[f"experts/{k} after the step"] = rel(
+                    placed["experts"][k], whole["experts"][k][sl])
+                for f in ("vr", "vc"):
+                    errs[f"{f} of experts/{k}"] = rel(
+                        state["v"]["experts"][k][f],
+                        wstate["v"]["experts"][k][f][sl])
+            errs["router after the step"] = rel(placed["router"]["w"],
+                                                whole["router"]["w"])
+            del wstate, whole
+            torch.cuda.empty_cache()
+        if model.size > 1:
+            dist.barrier(group=model.group)
+    out = {"experts_local": int(e_loc), "aux": aux, "aux_whole": waux,
+           "errs": errs, "fwd_bwd_ms": placed_ms,
+           "whole_fwd_bwd_ms": whole_ms,
+           "seconds": time.perf_counter() - t0}
+    del placed, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh_rank(rank, world, store_path, base):
+    """Phase 24's rank ``rank`` of 2 (a process of its own, started by
+    ``collectives.spawn``; on a card the kernels the parent built are
+    loaded). Both ranks share one device over gloo: (a) the qwen3-1.7b cut
+    at data 1 x model 2, (b) at data 2 x model 1 (a second layout's groups
+    in the same world), (c) the dbrx-132b cut's MoE layer at data 1 x
+    model 2, each sized by ``TRAIN_MESH``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.sharding import collectives
+    spec = TRAIN_MESH
+    dev = torch.device("cuda:0")
+    kernels.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(dev)
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              n_layers=spec["layers"])
+    axes = collectives.init_axes(rank, world, 2, store_path=store_path,
+                                 backend="gloo", device=dev)
+    out = {"rank": rank, "backend": axes["model"].backend}
+
+    def part(key, fn, *a):
+        out[key] = fn(*a)
+        # each part's readings as it ends, in case a later one fails
+        log(f"phase 24 rank {rank} ({key}): "
+            + json.dumps(out[key], default=str))
+    part("a", train_mesh_layout, cfg, axes, base, dev, spec)
+    part("b", train_mesh_layout, cfg,
+         collectives.layout_axes(1, "gloo", dev), base, dev, spec)
+    moe_cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=2)
+    part("c", moe_train_check, moe_cfg, axes, dev, spec)
+    return out
+
+
+def train_mesh_baseline(cfg, dev, spec):
+    """The single-device step from the same seed-0 parameters and batches:
+    step 1's loss, global norm and named gradients (on the host), then
+    ``spec["steps"]`` AdamW steps timed, their peak memory and flash
+    launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import TransformerLM
+    B, S = spec["B"], spec["S"]
+    params = TransformerLM.init(cfg, seed=0, device=dev)
+    opt = train.make_optimizer(cfg, steps=spec["steps"])
+    state = opt.init(params)
+    step = train.make_train_step(cfg, opt, remat=True)
+    pipe = TokenPipeline(token_batches(max(512, B * 8), B, S, cfg.vocab),
+                         dev)
+    batches = [next(pipe) for _ in range(spec["steps"])]
+    m, g = step.local_grads(params, batches[0])
+    base = {"loss": float(m["loss"]),
+            "grad_norm": float(train.global_norm(g)),
+            "named": {k: _leaf(g, p).float().cpu().numpy()
+                      for k, p in TRAIN_NAMED.items()}}
+    del g
+    rows = []
+    for b in batches:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        params, state, mt = step(params, state, b)
+        loss = float(mt["loss"])
+        ms = (time.perf_counter() - t1) * 1e3
+        rows.append({"loss": loss, "grad_norm": float(mt["grad_norm"]),
+                     "ms": ms, "tokens_per_s": B * S / ms * 1e3,
+                     "peak_memory_gb": torch.cuda.max_memory_allocated()
+                                       / 1e9,
+                     "flash_launches": kernels.LAUNCHES["flash_attention"]})
+    del params, state
+    torch.cuda.empty_cache()
+    return base, rows
+
+
+def gate_train_mesh(out, layers):
+    """Phase 24's gates over the ranks' readings (``out["ranks"]``): (a)
+    and (b) within ``TRAIN_MESH_TOL`` of the single-device step, which
+    every planted fault exceeds; flash on its kernel route, 2 x layers
+    launches a rank a step (the forward and the recompute); the ranks'
+    losses equal; (c) within ``MOE_TRAIN_TOL``. Returns the sound reading
+    and the least fault's."""
+    sound, least = 0.0, float("inf")
+    for r in out["ranks"]:
+        for lay in ("a", "b"):
+            x = r[lay]
+            sound = max(sound, max(x["sound"].values()))
+            for f, v in x["faults"].items():
+                least = min(least, max(v.values()))
+            want = 2 * layers
+            got = {x["grads_flash_launches"]} | {s["flash_launches"]
+                                                 for s in x["steps"]}
+            if got != {want}:
+                raise AssertionError(f"phase 24 ({lay}) rank {r['rank']}: "
+                                     f"flash launches {got}, want {want} "
+                                     "a step (forward and recompute)")
+        bad = {k: v for k, v in r["c"]["errs"].items()
+               if not v <= MOE_TRAIN_TOL}
+        if bad:
+            raise AssertionError(f"phase 24 (c) rank {r['rank']}: beyond "
+                                 f"{MOE_TRAIN_TOL}: {bad}")
+    r0, r1 = out["ranks"]
+    for lay in ("a", "b"):
+        if [s["loss"] for s in r0[lay]["steps"]] != \
+                [s["loss"] for s in r1[lay]["steps"]]:
+            raise AssertionError(f"phase 24 ({lay}): the ranks' logged "
+                                 "losses differ")
+    if not sound < TRAIN_MESH_TOL < least:
+        raise AssertionError(f"phase 24: tolerance {TRAIN_MESH_TOL} does "
+                             f"not part the sound reading {sound} from the "
+                             f"planted faults' least, {least}")
+    return sound, least
+
+
+def train_mesh_phase(dev):
+    """Phase 24: the model axis for training. The single-device baseline
+    (``train_mesh_baseline``: the qwen3-1.7b cut to 14 layers, B = 2, S = 2048, bf16, AdamW, ``remat=True``, phase 7's seed-0
+    parameters and ``token_batches``), then two ranks
+    (``collectives.spawn``, ``train_mesh_rank``) sharing this card over
+    gloo run it at data 1 x model 2 and data 2 x model 1, and the dbrx-132b
+    cut's MoE layer expert-parallel; ``gate_train_mesh`` gates them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.sharding import collectives
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              n_layers=TRAIN_MESH["layers"])
+    base, single = train_mesh_baseline(cfg, dev, TRAIN_MESH)
+    out = {"single": single, "base_loss": base["loss"],
+           "base_grad_norm": base["grad_norm"],
+           "baseline_s": time.perf_counter() - t0}
+    for i, row in enumerate(single):
+        log(f"phase 24 single device step {i + 1}: loss {row['loss']:.6g}, "
+            f"{row['ms']:.1f} ms, {row['tokens_per_s']:.1f} tokens/s, peak "
+            f"{row['peak_memory_gb']} GB, flash launches "
+            f"{row['flash_launches']}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out["ranks"] = collectives.spawn(train_mesh_rank, 2, base,
+                                     timeout=900)
+    out["ranks_s"] = time.perf_counter() - t1
+    for r in out["ranks"]:
+        for lay, name in (("a", "data 1 x model 2"),
+                          ("b", "data 2 x model 1")):
+            x = r[lay]
+            log(f"phase 24 ({lay}) {name}, rank {r['rank']}: step 1 sound "
+                + ", ".join(f"{k} {v:.4g}" for k, v in x["sound"].items()))
+            for f, v in x["faults"].items():
+                log(f"phase 24 ({lay}) rank {r['rank']}, planted {f}: "
+                    + ", ".join(f"{k} {w:.4g}" for k, w in v.items()))
+            for i, s in enumerate(x["steps"]):
+                log(f"phase 24 ({lay}) rank {r['rank']} step {i + 1}: loss "
+                    f"{s['loss']:.6g} (single device "
+                    f"{single[i]['loss']:.6g}), {s['ms']:.1f} ms, "
+                    f"{s['tokens_per_s']:.1f} tokens/s of the whole batch, "
+                    f"peak {s['peak_memory_gb']} GB, flash launches "
+                    f"{s['flash_launches']}, collectives "
+                    f"{json.dumps(s['collectives'])}")
+            if "logits_gather" in x:
+                g = x["logits_gather"]
+                log(f"phase 24 ({lay}) rank {r['rank']}: the logits gather "
+                    f"alone, {g['bytes']} bytes, ms {g['ms']}")
+        c = r["c"]
+        log(f"phase 24 (c) rank {r['rank']}: {c['experts_local']} experts a "
+            f"rank, aux {c['aux']:.6g} (whole {c['aux_whole']:.6g}), fwd+bwd "
+            f"{c['fwd_bwd_ms']:.1f} ms (whole {c['whole_fwd_bwd_ms']:.1f}), "
+            "rel errs " + ", ".join(f"{k} {v:.3g}"
+                                    for k, v in c["errs"].items()))
+    out["sound"], out["least_fault"] = gate_train_mesh(out, cfg.n_layers)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 24: step-1 gate within {out['sound']:.4g} of the single "
+        f"device (tolerance {TRAIN_MESH_TOL}; the least planted fault "
+        f"{out['least_fault']:.4g}); {out['ranks_s']:.1f} s in the ranks; "
+        f"phase 24 took {out['seconds']:.1f} s")
+    return out
+
+
 def recovery_child_main(mode, ddir, disk_tier) -> int:
     """``--recovery-child``: phase 20 (c)'s child on the card, (a)'s
     workload on a durable engine over ``ddir`` (two priority-5 requests,
@@ -6000,7 +6568,8 @@ def recovery_child_main(mode, ddir, disk_tier) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels.build()
     dev = torch.device("cuda")
-    cfg = get_config("qwen3-1.7b")
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              n_layers=DURABLE_LAYERS)
     params = TransformerLM.init(cfg, seed=0, device=dev)
     kernels.reset_launches()
     recovery_child(
@@ -6266,6 +6835,10 @@ def main(argv=None) -> int:
     # ---- phase 23: the model axis (tensor and expert parallelism) ---------
     report["model_axis"] = model_axis_phase(dev, tol)
     lap("23")
+
+    # ---- phase 24: the model axis for training ------------------------------
+    report["train_mesh"] = train_mesh_phase(dev)
+    lap("24")
     log("seconds by phase: " + json.dumps(
         {k: round(v, 1) for k, v in report["phase_seconds"].items()}))
 
@@ -6439,6 +7012,13 @@ def main(argv=None) -> int:
         entry = next(e for e in entries if e["name"] == name)
         entry["model_axis"] = {"launches": n, "path": path,
                                "ranks": 2}
+    # phase 24's path: flash on each of the two training ranks, layout (a)'s
+    # steps (rank 0's counts: every step's forward and recompute)
+    ta = report["train_mesh"]["ranks"][0]["a"]
+    entry = next(e for e in entries if e["name"] == "flash_attention")
+    entry["train_mesh"] = {
+        "launches": sum(s["flash_launches"] for s in ta["steps"]),
+        "path": "train_model_axis", "ranks": 2}
     report["kernels"] = entries
     if args.report:
         path = Path(args.report)

@@ -30,6 +30,8 @@ import re
 import numpy as np
 import torch
 
+from repro_torch.sharding import tensor_parallel as tp
+
 
 def _flatten(tree, prefix=""):
     out = {}
@@ -180,7 +182,12 @@ def reference_tree(params, cfg):
     leading ``n_blocks`` axis), tensors of the parameters' dtype. The
     stacked leaves are built on the host, so writing a checkpoint costs no
     device memory. ``save_pytree`` of it is a checkpoint either package
-    loads."""
+    loads. A placed tree (``sharding/tensor_parallel.py``, a rank's slices
+    on a training mesh) is gathered whole first, leaf by leaf: every rank
+    of the mesh calls this, and one writes."""
+    if tp.is_placed(params):
+        with torch.no_grad():
+            params = tp.whole_tree(params)
     layers = params["layers"]
     n_pre, n_suf = len(cfg.layer_prefix), len(cfg.layer_suffix)
     per = len(cfg.layer_block)

@@ -1,5 +1,5 @@
-"""Device meshes for the serving engine: the port of the reference's
-``launch/mesh.py``.
+"""Device meshes for the serving engine and the trainer: the port of the
+reference's ``launch/mesh.py``.
 
 A mesh here is a plain record, not a runtime object: the names of its
 axes, their sizes, and one ``torch.device`` for each data shard of this
@@ -12,8 +12,14 @@ size, the backend and the model axis (``sharding.collectives.Axis``, its
 process group and collectives). ``launch/serve.py --mesh D,M`` spawns the
 M ranks itself; a process that builds such a mesh otherwise joins the
 group through ``rank`` and ``store_path`` (a ``FileStore``), unless
-``sharding.collectives.init_axes`` has already made it. Importing this
-module touches no device.
+``sharding.collectives.init_axes`` has already made it.
+
+A training mesh (``make_train_mesh``) is one process per ``(data, model)``
+rank, ``data * model`` in all, each on one device: FSDP needs the data
+axis's collectives, so there every axis has a process group, and the
+record also carries this process's ``axes`` (``{"data", "model",
+collectives.JOINT}``). ``launch/train.py --mesh D,M`` spawns the ranks.
+Importing this module touches no device.
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ class Mesh:
     ``devices``, the device of each of this process's data shards in
     shard order; on a model axis of size > 1, this process's
     ``model_rank``, the ``world_size``, the ``backend`` and the model
-    ``group`` (a ``collectives.Axis``)."""
+    ``group`` (a ``collectives.Axis``); on a training mesh, this rank's
+    ``axes``."""
     axis_names: tuple
     shape: dict
     devices: tuple
@@ -36,6 +43,7 @@ class Mesh:
     world_size: int = 1
     backend: str = None
     group: object = None
+    axes: dict = None
 
 
 def _rank_devices(data: int, model: int, devices):
@@ -105,3 +113,39 @@ def make_host_mesh(data: int = 1, model: int = 1, devices=None,
                 devices=tuple(per_rank[axis.rank]), model_rank=axis.rank,
                 world_size=dist.get_world_size(), backend=axis.backend,
                 group=axis)
+
+
+def make_train_mesh(data: int, model: int, devices=None, *, rank: int,
+                    store_path: str) -> Mesh:
+    """This process's rank ``rank`` of a ``(data, model)`` training mesh of
+    ``data * model`` processes, joined through the ``FileStore`` at
+    ``store_path`` (``collectives.init_axes``: ranks model fastest).
+    ``devices=None`` puts rank ``r`` on ``cuda:{r}`` and raises when there
+    are fewer cards; an explicit list names one device every rank shares,
+    or one a rank. The backend is ``collectives.choose_backend``'s: NCCL
+    when each rank has a card of its own, gloo otherwise."""
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh ({data}, {model}): sizes must be >= 1")
+    world = data * model
+    if devices is None:
+        have = torch.cuda.device_count()
+        if have < world:
+            raise RuntimeError(
+                f"a ({data}, {model}) training mesh needs {world} CUDA "
+                f"devices, have {have}; name the ranks' devices "
+                "explicitly to share one")
+        devices = [f"cuda:{i}" for i in range(world)]
+    devices = [torch.device(d) for d in devices]
+    if len(devices) == 1:
+        devices = devices * world
+    if len(devices) != world:
+        raise ValueError(f"{len(devices)} devices for {world} ranks")
+    from repro_torch.sharding import collectives
+    backend = collectives.choose_backend([[d] for d in devices])
+    axes = collectives.init_axes(rank, world, model, store_path=store_path,
+                                 backend=backend, device=devices[rank])
+    return Mesh(axis_names=("data", "model"),
+                shape={"data": data, "model": model},
+                devices=(devices[rank],), model_rank=axes["model"].rank,
+                world_size=world, backend=backend, group=axes["model"],
+                axes=axes)

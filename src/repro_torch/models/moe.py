@@ -204,13 +204,14 @@ class MoE:
         expert at C slots, filled in token order; the entries past C are
         dropped (training's trade).
 
-        Experts placed over the model axis (``sharding/
-        tensor_parallel.py``) take the expert-parallel path of
-        ``sharding/moe_shard.py``, as the reference dispatches there under
-        an active mesh: tokens whole on every rank, each rank running its
-        own experts, one ``all_reduce``; with the experts also split over
-        data (FSDP), the training layout ``moe_apply_sharded``."""
-        if tp.placement_of(p["experts"]["up"]) is not None:
+        Placed experts (``sharding/tensor_parallel.py``) take the
+        expert-parallel path of ``sharding/moe_shard.py``, as the
+        reference dispatches there under an active mesh: each rank routing
+        its data rank's tokens and running its own experts, one
+        all-reduce over the model axis; split over data alone (data D x
+        model 1), each data rank on its own tokens at their local
+        capacity, the load-balancing loss averaged over data."""
+        if tp.placements_of(p["experts"]["up"]):
             from repro_torch.sharding.moe_shard import moe_apply_placed
             return moe_apply_placed(p, x, cfg, capacity_factor)
         B, T, D = x.shape

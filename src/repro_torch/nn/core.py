@@ -57,12 +57,13 @@ class Dense:
 
     @staticmethod
     def apply(params, x, keep_sharded: bool = False):
-        """``x @ w + b``. A weight placed over the model axis
-        (``sharding/tensor_parallel.py``) runs row- or column-parallel;
-        ``keep_sharded`` leaves a column-parallel output on the rank's
-        columns for a row-parallel product on the same dim to take (the
-        MLP), and is nothing to any other weight."""
-        if tp.placement_of(params["w"]) is not None:
+        """``x @ w + b``. A placed weight (``sharding/
+        tensor_parallel.py``) is gathered over "data" where FSDP split it,
+        then runs row- or column-parallel over the model axis (or whole,
+        split over data alone); ``keep_sharded`` leaves a column-parallel
+        output on the rank's columns for a row-parallel product on the
+        same dim to take (the MLP), and is nothing to any other weight."""
+        if tp.placements_of(params["w"]):
             return tp.dense(params, x, keep_sharded)
         y = x @ params["w"]
         if "b" in params:
@@ -78,15 +79,15 @@ class Embedding:
 
     @staticmethod
     def apply(params, ids):
-        if tp.placement_of(params["table"]) is not None:
+        if tp.placements_of(params["table"]):
             return tp.embed(params, ids)
         return params["table"][ids]
 
     @staticmethod
     def attend(params, x):
         """Tied-readout logits: x @ table.T (over the whole vocabulary on
-        every rank where the table is placed over the model axis)."""
-        if tp.placement_of(params["table"]) is not None:
+        every rank where the table is placed)."""
+        if tp.placements_of(params["table"]):
             return tp.attend(params, x)
         return x @ params["table"].T
 
@@ -102,7 +103,7 @@ class RMSNorm:
         x32 = x.float()
         var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(var + eps)
-        # a scale split over the model axis is gathered whole first
+        # a placed scale is gathered whole first
         return (y * tp.whole(params["scale"]).float()).to(dtype)
 
 

@@ -14,12 +14,27 @@ held (on DeepSeek-V3's 5.46 B parameters that copy alone is 21.8 GB).
 what ``clip_by_global_norm`` returns, without materialising the clipped
 tree. Leaves are visited in the reference's order (dict keys sorted).
 ``torch.optim`` is not used: its AdamW decays and rounds differently.
+
+**Placed leaves** (``sharding/tensor_parallel.py``: a rank's slice of a
+leaf split over "model", "data" or both). The state of a leaf is its
+slice and carries its placement: AdamW's ``mu`` and ``nu`` are the slice's,
+Adafactor's ``vr`` and ``vc`` follow the slice on the dims that survive the
+mean; each mean of a factored moment over a split dim, the row mean of
+``vr`` and the update's RMS are all-reduced over the axis that splits
+them, and ``global_norm`` sums each slice's squares and all-reduces the
+partial sums over the axes they are split on. So a rank's update of its
+slice is the single-device update's slice, to the order of float sums.
+The reference places its state with ``param_shardings(opt_shape)``, whose
+paths start with the optimizer's own keys, so a state leaf there may be
+split otherwise than its parameter; the values are the same.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
+
+from repro_torch.sharding import tensor_parallel as tp
 
 
 class Optimizer(NamedTuple):
@@ -93,9 +108,23 @@ def zero_frozen(tree):
 
 
 def global_norm(tree):
-    """sqrt(sum of squares) of all leaves, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(tree)))
+    """sqrt(sum of squares) of all leaves, in float32. The squares of
+    placed leaves are summed on each slice, in one partial sum per set of
+    axes the leaves are split on (none, model, data, both, or the joint
+    axis), and each partial sum is all-reduced over its axes: every
+    element counts once, a replicated leaf's once. The groups' order is
+    the leaves', the same on every rank."""
+    groups: dict = {}
+    for g in tree_leaves(tree):
+        key = tuple(pl.axis for _, pl in sorted(tp.placements_of(g).items()))
+        sq = torch.sum(torch.square(g.float()))
+        groups[key] = sq if key not in groups else groups[key] + sq
+    total = 0
+    for axes, sq in groups.items():
+        for axis in axes:
+            sq = axis.all_reduce(sq)
+        total = total + sq
+    return torch.sqrt(total)
 
 
 def clip_scale(gn, max_norm: float):
@@ -181,7 +210,7 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     def init(params):
         def zeros(p):
-            return torch.zeros_like(p, dtype=moment_dtype)
+            return tp.carry(p, torch.zeros_like(p, dtype=moment_dtype))
         return {"step": _step0(params), "mu": tree_map(zeros, params),
                 "nu": tree_map(zeros, params)}
 
@@ -198,9 +227,25 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         v_hat = nu.float() / bc2
         u = -step_size * (m_hat / (torch.sqrt(v_hat) + eps)
                           + weight_decay * p.float())
-        return u.float(), {"mu": mu, "nu": nu}
+        return u.float(), {"mu": tp.carry(p, mu), "nu": tp.carry(p, nu)}
 
     return _optimizer(init, hyper, leaf, ("mu", "nu"))
+
+
+def _split_axis(p, dim: int):
+    """The axis that splits the placed leaf ``p``'s dim ``dim``, or None."""
+    dim %= p.ndim
+    return next((pl.axis for pl in tp.placements_of(p).values()
+                 if pl.dim == dim), None)
+
+
+def _mean(x, dim: int, axis, keepdim: bool = False):
+    """The mean of ``x`` over ``dim``, which ``axis`` (or None) splits in
+    equal slices: the slices' means averaged over the axis."""
+    m = torch.mean(x, dim=dim, keepdim=keepdim)
+    if axis is None or axis.size == 1:
+        return m
+    return axis.all_reduce(m) / axis.size
 
 
 def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
@@ -208,18 +253,22 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
               weight_decay: float = 0.0) -> Optimizer:
     """Adafactor (Shazeer & Stern 2018): factored second moments for
     leaves of 2 or more dimensions, a plain one for vectors, no first
-    moment, update clipping to RMS <= ``clip_threshold``."""
+    moment, update clipping to RMS <= ``clip_threshold``. On a placed leaf
+    the means over a split dim are taken over the axis (module
+    docstring)."""
     lr_fn = _schedule(lr)
 
     def init(params):
         def per_leaf(p):
             if p.ndim >= 2:
-                return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32,
-                                          device=p.device),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
-                                          dtype=torch.float32,
-                                          device=p.device)}
-            return {"v": torch.zeros_like(p, dtype=torch.float32)}
+                return {"vr": tp.reduced_placement(torch.zeros(
+                            p.shape[:-1], dtype=torch.float32,
+                            device=p.device), p, -1),
+                        "vc": tp.reduced_placement(torch.zeros(
+                            p.shape[:-2] + p.shape[-1:], dtype=torch.float32,
+                            device=p.device), p, -2)}
+            return {"v": tp.carry(p, torch.zeros_like(p,
+                                                      dtype=torch.float32))}
         return {"step": _step0(params), "v": tree_map(per_leaf, params)}
 
     def hyper(step):
@@ -231,22 +280,26 @@ def adafactor(lr, decay: float = 0.8, eps: float = 1e-30,
         g32 = g.float()
         g2 = g32 * g32 + eps
         if p.ndim >= 2:
-            vr = beta2 * v["vr"] + (1 - beta2) * torch.mean(g2, dim=-1)
-            vc = beta2 * v["vc"] + (1 - beta2) * torch.mean(g2, dim=-2)
+            rows, cols = _split_axis(p, -2), _split_axis(p, -1)
+            vr = beta2 * v["vr"] + (1 - beta2) * _mean(g2, -1, cols)
+            vc = beta2 * v["vc"] + (1 - beta2) * _mean(g2, -2, rows)
             del g2
-            rfac = torch.rsqrt(vr / torch.mean(vr, dim=-1, keepdim=True)
+            rfac = torch.rsqrt(vr / _mean(vr, -1, rows, keepdim=True)
                                + eps)
             cfac = torch.rsqrt(vc + eps)
             u = g32 * rfac[..., None] * cfac[..., None, :]
-            new_v = {"vr": vr, "vc": vc}
+            new_v = {"vr": tp.reduced_placement(vr, p, -1),
+                     "vc": tp.reduced_placement(vc, p, -2)}
         else:
             vv = beta2 * v["v"] + (1 - beta2) * g2
             u = g32 * torch.rsqrt(vv + eps)
-            new_v = {"v": vv}
-        rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+            new_v = {"v": tp.carry(p, vv)}
+        ms = torch.mean(u * u)
+        for pl in tp.placements_of(p).values():
+            ms = pl.axis.all_reduce(ms) / pl.axis.size
+        rms = torch.sqrt(ms + 1e-30)
         u = u / torch.clamp(rms / clip_threshold, min=1.0)
         u = -step_size * (u + weight_decay * p.float())
         return u, {"v": new_v}
 
     return _optimizer(init, hyper, leaf, ("v",))
-

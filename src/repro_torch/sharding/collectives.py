@@ -3,19 +3,38 @@ collectives GSPMD inserts in the reference, written out, and the spawner
 that runs one process per rank.
 
 * ``Axis`` — one mesh axis of this process: its name, this process's rank
-  on it, its size and its process group. ``all_reduce`` (a sum) and
-  ``all_gather`` (along a dim) are the only collectives the port issues;
-  each is counted in ``STATS`` (``{(axis, kind): [count, bytes]}``, the
-  bytes of the result on this rank), and while it runs ``current_axis()``
-  names its axis, so the op census (``analysis/census.py``) files the c10d
-  op under it. ``agree`` compares a host value across the axis (the
-  serving engine's digest of the accepted tokens) and raises on a
+  on it, its size and its process group. ``all_reduce`` (a sum),
+  ``all_gather`` (along a dim) and ``reduce_scatter`` (a sum, then this
+  rank's slice along a dim) are the collectives the port issues; each is
+  counted in ``STATS`` (``{(axis, kind): [count, bytes]}``, the bytes of
+  the result on this rank), and while it runs ``current_axis()`` names
+  its axis, so the op census (``analysis/census.py``) files the c10d op
+  under it. Gloo has no reduce-scatter: there it is an all-reduce and a
+  slice, and it is counted as the all-reduce it is. ``agree`` compares a
+  host value across the axis (the serving engine's digest of the accepted
+  tokens, the trainer's of its replicated leaves) and raises on a
   mismatch.
+* The differentiable forms, ``torch.autograd.Function``s whose backward
+  issues the transposed collective on the same axis (counted alike):
+  ``reduce_from`` (Megatron's g: forward all-reduce, backward the
+  identity, the incoming gradient being whole and equal on every rank),
+  ``copy_to`` (f: forward the identity, backward all-reduce; it goes where
+  a whole activation enters a rank-local product), ``gather_from``
+  (forward all-gather, backward this rank's slice) and ``fsdp_gather``
+  (forward all-gather of a leaf split over data, backward reduce-scatter:
+  each data rank's gradient of the whole leaf summed, this rank's slice
+  kept). Where no gradient is wanted they run the plain collective (in
+  place for ``reduce_from``, as the serving path always has).
 * The backend is chosen once and printed: NCCL when every rank has a card
   of its own, gloo otherwise. NCCL refuses two ranks on one device; gloo
   stages CUDA tensors through the host (which synchronizes), and is the
   backend of the CPU. A collective that fails fails the run: nothing falls
   back.
+* ``init_axes`` joins the world and builds a ``(data, model)`` layout's
+  axes, ``layout_axes`` another layout's over the same world; besides
+  "data" and "model", each layout has the joint axis ``JOINT`` over both,
+  the world in rank order ``d * model + m``, on which ``no_tp`` splits a
+  leaf (the reference's ``("data", "model")`` spec entry).
 * ``spawn(fn, world, *args)`` runs ``fn(rank, world, store_path, *args)``
   in ``world`` processes (the ``spawn`` start method, a ``FileStore`` in a
   temporary directory) and returns their results in rank order.
@@ -36,6 +55,8 @@ import torch
 import torch.distributed as dist
 
 STATS: dict = {}
+# the joint axis over ("data", "model"): ``no_tp``'s split of a leaf
+JOINT = "data+model"
 _CUR = threading.local()
 # the axes this process holds, by name, while their groups live
 AXES: dict = {}
@@ -83,7 +104,10 @@ def choose_backend(rank_devices) -> str:
 
 class Axis:
     """One mesh axis of this process (see the module docstring). A size-1
-    axis has no group and its collectives are the identity."""
+    axis has no group and its collectives are the identity. The joint axis
+    holds its ``parts``, the (data, model) axes it joins."""
+
+    parts = None
 
     def __init__(self, name: str, rank: int, size: int, group=None,
                  backend: str = "gloo", host_group=None, device=None):
@@ -128,6 +152,22 @@ class Axis:
             dist.all_gather(parts, t, group=self.group)
         return torch.cat(parts, dim=dim)
 
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum of ``t`` (the same shape on every rank) over the axis,
+        this rank's slice of it along ``dim``: NCCL's reduce-scatter; over
+        gloo, which has none, an all-reduce of a copy, then the slice."""
+        if self.size == 1:
+            return t
+        n = t.shape[dim] // self.size
+        if self.backend != "nccl":
+            return self.all_reduce(t.clone()).narrow(
+                dim, self.rank * n, n).contiguous()
+        src = t.movedim(dim, 0).contiguous()
+        out = src.new_empty((n,) + tuple(src.shape[1:]))
+        with self._issuing("reduce-scatter", out.numel() * t.element_size()):
+            dist.reduce_scatter_tensor(out, src, group=self.group)
+        return out.movedim(0, dim).contiguous()
+
     def agree(self, data: bytes, what: str) -> int:
         """Compare a digest of ``data`` across the axis on the host; raise
         ``RankDivergence`` if any rank's differs. Returns the digest."""
@@ -151,15 +191,97 @@ class RankDivergence(RuntimeError):
     match."""
 
 
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        return axis.all_reduce(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_reduce(g.clone(
+            memory_format=torch.contiguous_format)), None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.all_gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // ctx.axis.size
+        return g.narrow(ctx.dim, ctx.axis.rank * n, n), None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.all_gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.reduce_scatter(g, ctx.dim), None, None
+
+
+def _wants_grad(t) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def reduce_from(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The sum of ``t`` over ``axis`` (a rank-local product's partial
+    sums); its gradient passes unchanged. Without a gradient, in place."""
+    if axis.size == 1:
+        return t
+    return _ReduceFrom.apply(t, axis) if _wants_grad(t) else \
+        axis.all_reduce(t)
+
+
+def copy_to(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``t`` (whole and equal on every rank) as it enters a rank-local
+    product; its gradient, each rank's partial, is summed over ``axis``."""
+    if axis.size == 1 or not _wants_grad(t):
+        return t
+    return _CopyTo.apply(t, axis)
+
+
+def gather_from(t: torch.Tensor, axis: Axis, dim: int = -1) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along ``dim``; its gradient (whole and
+    equal on every rank) is cut back to this rank's slice."""
+    if axis.size == 1:
+        return t
+    return _GatherFrom.apply(t, axis, dim) if _wants_grad(t) else \
+        axis.all_gather(t, dim)
+
+
+def fsdp_gather(t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """A leaf split over ``axis`` on ``dim`` (FSDP) gathered whole for use;
+    its gradient, each rank's from its own rows of the batch, is
+    reduce-scattered: summed over ``axis``, this rank's slice kept."""
+    if axis.size == 1:
+        return t
+    return _FsdpGather.apply(t, axis, dim) if _wants_grad(t) else \
+        axis.all_gather(t, dim)
+
+
 def init_axes(rank: int, world: int, model: int, *, store_path: str,
               backend: str, device=None) -> dict:
     """Join the world's process group (a ``FileStore`` at ``store_path``)
-    and build this rank's axes: ranks are laid out ``(data, model)``,
-    model fastest, so rank ``r`` is data ``r // model``, model ``r %
-    model``. Returns ``{"data": Axis, "model": Axis}`` (the data axis of
-    size ``world // model``; the serving engine runs its data shards in one
-    process, so there it has size 1). Every process calls this in the same
-    order: the groups are made collectively."""
+    and build this rank's axes of the ``(world // model, model)`` layout
+    (``layout_axes``). Every process calls this in the same order: the
+    groups are made collectively."""
     if world % model:
         raise ValueError(f"world {world} is not a multiple of model {model}")
     device = torch.device(device or "cpu")
@@ -168,6 +290,21 @@ def init_axes(rank: int, world: int, model: int, *, store_path: str,
     store = dist.FileStore(store_path, world)
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=world)
+    return layout_axes(model, backend, device)
+
+
+def layout_axes(model: int, backend: str, device=None) -> dict:
+    """This rank's axes of a ``(data, model)`` layout over the world
+    already joined: ranks laid out model fastest, so rank ``r`` is data
+    ``r // model``, model ``r % model``. Returns ``{"data": Axis, "model":
+    Axis, JOINT: Axis}`` (the joint axis the world, rank ``r``; the serving
+    engine runs its data shards in one process, so there "data" has size
+    1). Every rank calls it in the same order (the groups are made
+    collectively); the axes become ``AXES``."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if world % model:
+        raise ValueError(f"world {world} is not a multiple of model {model}")
+    device = torch.device(device or "cpu")
     data = world // model
     d, m = divmod(rank, model)
     groups = {}
@@ -175,19 +312,19 @@ def init_axes(rank: int, world: int, model: int, *, store_path: str,
             ("model", [[dd * model + mm for mm in range(model)]
                        for dd in range(data)]),
             ("data", [[dd * model + mm for dd in range(data)]
-                      for mm in range(model)])):
+                      for mm in range(model)]),
+            (JOINT, [list(range(world))])):
         for ranks in members:
             g = dist.new_group(ranks, backend=backend)
             h = (dist.new_group(ranks, backend="gloo") if backend != "gloo"
                  else g)
             if rank in ranks:
                 groups[name] = (g, h)
-    axes = {"model": Axis("model", m, model, groups["model"][0],
-                          backend=backend, host_group=groups["model"][1],
-                          device=device),
-            "data": Axis("data", d, data, groups["data"][0],
-                         backend=backend, host_group=groups["data"][1],
-                         device=device)}
+    axes = {name: Axis(name, r, n, groups[name][0], backend=backend,
+                       host_group=groups[name][1], device=device)
+            for name, r, n in (("model", m, model), ("data", d, data),
+                               (JOINT, rank, world))}
+    axes[JOINT].parts = (axes["data"], axes["model"])
     AXES.clear()
     AXES.update(axes)
     print(f"rank {rank} of {world}: {backend} process group, "

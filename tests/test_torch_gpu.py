@@ -75,6 +75,14 @@ the same tokens on the kernel path (paged_decode and spec_verify
 launched) and window logits within 1e-4 of model 1's; over NCCL, a card a
 rank, every checked dispatch also runs under sync-debug "error", which
 gloo's host staging rules out (skipped with fewer than two cards).
+The model axis for training (``tests/torch_train_mesh_driver.py gpu``,
+two spawned ranks of reduced qwen3-1.7b in float32, TF32 off, at data 1 x
+model 2): step 1's loss, global norm and named gradients within 1e-4 of the
+single-device step on this card (max |difference| over max |value|), every
+planted fault past it, two AdamW steps with the same losses on both ranks
+within 1e-4 of the single device's, flash on its kernel route (2 x layers
+launches a step: the forward and the recompute); over gloo on one card,
+and over NCCL a card a rank (skipped with fewer than two cards).
 """
 import numpy as np
 import pytest
@@ -1845,3 +1853,46 @@ def test_tensor_parallel_over_nccl_keeps_the_sync_check(cuda):
     assert r0["backend"] == "nccl" and r0["tokens"] == r1["tokens"]
     for r in (r0, r1):
         assert r["sync_check"] and r["checked"] > 0 and r["contracts_ok"]
+
+
+def _train_mesh_ranks(backend):
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, str(root / "tests" / "torch_train_mesh_driver.py"),
+         "gpu", backend], capture_output=True, text=True, cwd=root,
+        timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _check_train_mesh_ranks(ranks, backend):
+    tol = 1e-4
+    r0, r1 = ranks
+    assert [s["loss"] for s in r0["steps"]] == [s["loss"] for s in r1["steps"]]
+    for r in ranks:
+        assert r["backend"] == backend
+        assert max(r["sound"].values()) < tol, r["sound"]
+        for name, f in r["faults"].items():
+            assert max(f.values()) > tol, (name, f)
+        # reduced qwen's 2 layers, each forward once and again in the
+        # backward's recompute
+        assert r["grads_flash_launches"] == 4
+        assert [s["flash_launches"] for s in r["steps"]] == [4, 4]
+        for s, one in zip(r["steps"], r["single"]):
+            assert abs(s["loss"] - one["loss"]) < tol
+            assert one["flash_launches"] == 4
+
+
+def test_training_mesh_on_one_gpu_matches_the_single_device_step(cuda):
+    _check_train_mesh_ranks(_train_mesh_ranks("gloo"), "gloo")
+
+
+def test_training_mesh_over_nccl_matches_the_single_device_step(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL needs a card a rank; this machine has "
+                    f"{torch.cuda.device_count()}")
+    _check_train_mesh_ranks(_train_mesh_ranks("nccl"), "nccl")

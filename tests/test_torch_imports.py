@@ -162,3 +162,31 @@ def test_scan_covers_the_mesh_modules():
     assert {"launch/mesh.py", "serving/topology.py", "serving/blocks.py",
             "serving/engine.py", "serving/hostcache/tier.py",
             "analysis/contracts.py", "launch/serve.py"} <= names
+
+
+def test_scan_covers_the_training_mesh_modules():
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if PORT in p.parents}
+    assert {"sharding/collectives.py", "sharding/tensor_parallel.py",
+            "sharding/moe_shard.py", "sharding/rules.py",
+            "optim/optimizers.py", "data/pipeline.py", "launch/train.py",
+            "launch/mesh.py", "checkpoint/io.py", "nn/core.py",
+            "models/moe.py"} <= names
+
+
+def test_the_rank_drivers_import_no_jax():
+    """The spawned-rank drivers (``tests/torch_*_driver.py``) run on the
+    card for ``test_torch_gpu.py``: the port and ``chip_smoke`` only."""
+    drivers = sorted((ROOT / "tests").glob("torch_*_driver.py"))
+    assert {p.name for p in drivers} >= {"torch_tp_driver.py",
+                                         "torch_train_mesh_driver.py"}
+    for path in drivers:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            assert not [n for n in names if _top(n) in FORBIDDEN], path
