@@ -296,17 +296,24 @@ which fails the script when it fails:
    phase 18's qwen3-1.7b (its first ``MESH_LAYERS`` = 7 layers) on this
    card against one at batch 2 and 4, a cross-shard
    migration, a rebalancing admission.
-23. the model axis (``model_axis_phase``): two model ranks, processes of
-   their own over gloo on this card, serve qwen3-1.7b at full width (its
-   first ``TP_LAYERS`` = 14 layers) on tensor-parallel parameters (window logits within the
+23. the model axis (``model_axis_phases``, with phase 24 in one spawn of
+   the ranks): two model ranks, processes of their own over gloo on this
+   card, serve qwen3-1.7b at full width (its first ``TP_LAYERS`` = 14
+   layers) on tensor-parallel parameters (window logits within the
    tolerance of model 1's, the collectives of a verify pass, tokens
    bitwise across the ranks and under the margin rule against model 1,
-   ms per token and idle share of both), at data 2 x model 2 bitwise data
-   1 x model 2 at the same rows a call with a cross-shard migration, and
-   the dbrx-132b cut expert-parallel (the MoE layer against the whole
-   one, its time on each rank, served tokens against the solo sampler
-   with the routing judged as in phase 13).
-24. the model axis for training (``train_mesh_phase``): qwen3-1.7b at
+   ms per token and idle share of both), durably (rank 0's journal and
+   checkpoints, each rank's disk tier; ms of an fsync and of a
+   checkpoint), at data 2 x model 2 bitwise data 1 x model 2 at the same
+   rows a call with a cross-shard migration, and the dbrx-132b cut
+   expert-parallel (the MoE layer against the whole one, its time on
+   each rank, served tokens against the solo sampler with the routing
+   judged as in phase 13); (d) a fresh engine restores a copy of (a)'s
+   directory taken mid-run and ends with (a)'s tokens bitwise (the
+   restore's ms); (e) a deadline and ``max_request_seconds`` with rank
+   1's clock skewed: the same decisions and tokens on both ranks.
+24. the model axis for training (``train_mesh_before``,
+   ``train_mesh_rank``, ``train_mesh_after``): qwen3-1.7b at
    full width cut to 14 layers, B = 2, S = 2048, bf16, AdamW,
    ``remat=True``, phase 7's seed-0 parameters and batches, first on one
    device (step 1's loss, global norm and four named gradients kept on
@@ -3888,13 +3895,14 @@ def device_busy_s(prof):
     return total / 1e9
 
 
-def drive(cfg, params, dev, reqs, hooks=(), **kw):
+def drive(cfg, params, dev, reqs, hooks=(), before=None, **kw):
     """One engine run of ``reqs`` on the kernel path (``serve``'s engine;
     ``kw`` overrides), the launch counts reset just before it and read
-    just after. ``hooks`` are ``(steps, fn)``: after that many host syncs
-    ``fn(eng)`` runs (an arrival, a forced preemption, a cancel). Returns
-    the done requests by uid, the metrics, the wall time, the launches, the
-    engine and the park/resume log."""
+    just after. ``before(eng)`` runs as the engine is built, before the
+    submits (a restore). ``hooks`` are ``(steps, fn)``: after that many
+    host syncs ``fn(eng)`` runs (an arrival, a forced preemption, a
+    cancel). Returns the done requests by uid, the metrics, the wall
+    time, the launches, the engine and the park/resume log."""
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serving.engine import ServingEngine
@@ -3903,6 +3911,8 @@ def drive(cfg, params, dev, reqs, hooks=(), **kw):
     args.update(kw)
     events = {}
     eng = timed_engine(ServingEngine(cfg, params, **args), events)
+    if before is not None:
+        before(eng)
     for r in reqs:
         if not eng.submit(r):
             raise AssertionError(f"request {r.uid} rejected: {r.error}")
@@ -4754,12 +4764,12 @@ CHILD_KEYS = ("requests_finished", "prefill_calls", "preemptions",
 
 def recovery_child(make_engine, mode, first, later, keys, extra=dict):
     """One process of a crash-and-restart test: phase 20 (c)'s child on the
-    card, ``tests/torch_recovery_driver.py``'s on the CPU. ``serve`` builds
-    the engine with ``make_engine``, submits ``first``, steps once, submits
-    ``later`` and runs to the end; ``resume`` builds it, restores from its
-    durable directory and drains what is left. Prints one flushed JSON
-    event per submit ("submitted", once ``submit`` returned: the journal
-    holds it), per delivered result ("finish", with its tokens), the
+    card, ``tests/torch_tp_driver.py``'s kill matrix on the CPU. ``serve``
+    builds the engine with ``make_engine``, submits ``first``, steps once,
+    submits ``later`` and runs to the end; ``resume`` builds it, restores
+    from its durable directory and drains what is left. Prints one flushed
+    JSON event per submit ("submitted", once ``submit`` returned: the
+    journal holds it), per delivered result ("finish", with its tokens), the
     restore ("recovered": its count, the cold parks, ``recover_ms`` for the
     engine's construction and ``restore`` together, as a restarted process
     spends them, ``restore_ms`` for the ``restore`` call within it, then a
@@ -4785,12 +4795,14 @@ def recovery_child(make_engine, mode, first, later, keys, extra=dict):
         n = eng.restore()
         restore_ms = (time.perf_counter() - t) * 1e3
         recover_ms = (time.perf_counter() - t0) * 1e3
-        t = time.perf_counter()
-        RequestJournal.replay(eng.journal.path)
-        replay_ms = (time.perf_counter() - t) * 1e3
-        t = time.perf_counter()
-        eng._load_checkpoint()
-        load_ms = (time.perf_counter() - t) * 1e3
+        replay_ms = load_ms = None
+        if eng.journal is not None:          # a model rank but 0 has none
+            t = time.perf_counter()
+            RequestJournal.replay(eng.journal.path)
+            replay_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            eng._load_checkpoint()
+            load_ms = (time.perf_counter() - t) * 1e3
         emit({"event": "recovered", "n": n,
               "cold": sorted(u for u, p in eng.parked.items() if p.cold),
               "recover_ms": recover_ms, "restore_ms": restore_ms,
@@ -5524,6 +5536,14 @@ TP_LOGITS_TOL = 0.2
 TP_LAYERS = 14
 # the layers whose collectives are planted: the first, middle and last
 TP_FAULT_LAYERS = (0, TP_LAYERS // 2, TP_LAYERS - 1)
+# (a)'s durable run is copied for (d) right after the first host sync at
+# which this many of its 8 requests are done (a crash there would leave
+# the copy); (e): a long request past ``CLOCK_MAX_S`` seconds, a short one
+# with a deadline of ``CLOCK_DEADLINE_S``, and rank 1's clock 1000 + 7 t
+DURABLE_SNAP_DONE = 5
+CLOCK_MAX_S = 1.5
+CLOCK_DEADLINE_S = 0.05
+CLOCK_SKEW = (1000.0, 7.0)
 
 
 class _OtherRank:
@@ -5624,13 +5644,42 @@ def served(done):
             for r in sorted(done.values(), key=lambda r: r.uid)]
 
 
-def model_axis_rank(rank, world, store_path):
+def clock_requests(cfg):
+    """(e)'s traffic: a long request (cut by ``max_request_seconds``), a
+    short one with a deadline (which ranks it first in the queue, and
+    which it misses) and a short one without."""
+    long_, short, other = make_requests(cfg, (17, 17, 17), 4)
+    long_.new_tokens = 96
+    short.deadline = CLOCK_DEADLINE_S
+    return [long_, short, other]
+
+
+def copy_durable(src, dst, rank):
+    """Rank ``rank``'s files of durable directory ``src`` into ``dst``:
+    rank 0's journal, checkpoint and disk tier, rank r's ``rank{r}/``."""
+    import shutil
+    os.makedirs(dst, exist_ok=True)
+    names = (["journal.wal", "checkpoint.json", "disk"] if rank == 0
+             else [f"rank{rank}"])
+    for name in names:
+        a, b = os.path.join(src, name), os.path.join(dst, name)
+        if os.path.isdir(a):
+            shutil.copytree(a, b)
+        elif os.path.exists(a):
+            shutil.copy2(a, b)
+
+
+def model_axis_rank(rank, world, store_path, durable_root):
     """Phase 23's model rank ``rank`` of 2 (a process of its own, started
     by ``collectives.spawn``; the kernels the parent built are loaded).
     Both ranks share this card over gloo. Returns what it measured: (a)
     qwen3-1.7b at full width (its first ``TP_LAYERS`` layers), data 1 x
-    model 2; (b) data 2 x
-    model 2; (c) the dbrx-132b cut, expert-parallel."""
+    model 2, its served run durable under ``durable_root/a`` (rank 0's
+    journal and checkpoints, each rank's disk tier); (b) data 2 x model
+    2; (c) the dbrx-132b cut, expert-parallel; (d) a fresh engine over
+    the copy of (a)'s directory taken mid-run (``DURABLE_SNAP_DONE``)
+    restored and run to the end; (e) a deadline and
+    ``max_request_seconds`` with rank 1's clock skewed here."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -5673,14 +5722,32 @@ def model_axis_rank(rank, world, store_path):
     del got, ref
     serve_kw = dict(topology=topo, device=None, **fixed)
     drive(cfg, params, dev, make_requests(cfg, (17,), 2), **serve_kw)
+    # durable; right after the first host sync at which
+    # ``DURABLE_SNAP_DONE`` requests are done each rank copies its files
+    # for (d), as a crash after that sync's checkpoint would leave them
+    adir = os.path.join(durable_root, "a")
+    ddir = os.path.join(durable_root, "d")
+    timers, snap = {}, {}
+
+    def snapshot(e):
+        if not snap and len(e.done) >= DURABLE_SNAP_DONE:
+            copy_durable(adir, ddir, axis.rank)
+            snap.update(sync=e.metrics.host_syncs, done=len(e.done))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        got, m, wall, launches, _, _ = drive(
+        got, m, wall, launches, eng, _ = drive(
             cfg, params, dev, make_requests(cfg, PROMPT_LENS * 2,
-                                            NEW_TOKENS), **serve_kw)
+                                            NEW_TOKENS),
+            hooks=[(n, snapshot) for n in range(1, 4000)],
+            before=lambda e: timed_durable(e, timers), durable_dir=adir,
+            **serve_kw)
+    del eng
     busy = device_busy_s(prof)
     a.update(served=served(got), metrics=m, wall_s=wall, launches=launches,
              ms_per_token=wall / m["tokens_generated"] * 1e3,
-             device_busy_s=busy, idle_share=1 - busy / wall)
+             device_busy_s=busy, idle_share=1 - busy / wall,
+             fsync=ms_stats(timers.get("fsync", [])),
+             checkpoint=ms_stats(timers.get("checkpoint", [])),
+             snapshot=snap)
     # the gather fallback (the writeback kernel) at model 2
     got, m, _, launches, _, _ = drive(
         cfg, params, dev, make_requests(cfg, (17,), 4),
@@ -5689,6 +5756,42 @@ def model_axis_rank(rank, world, store_path):
              fallback_passes=m["verify_passes"] + m["prefill_calls"],
              seconds=time.perf_counter() - t0)
     out["a"] = a
+
+    # (d) a fresh engine over (a)'s mid-run copy: restore, run to the end
+    t0 = time.perf_counter()
+    rst = {}
+
+    def restore(e):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rst["recovered"] = e.restore()
+        rst["restore_ms"] = (time.perf_counter() - t) * 1e3
+        rst["redelivered"] = len(e.done)
+    got, m, wall, launches, _, _ = drive(cfg, params, dev, [],
+                                         before=restore, durable_dir=ddir,
+                                         **serve_kw)
+    out["d"] = dict(rst, served=served(got), metrics=m, wall_s=wall,
+                    launches=launches, seconds=time.perf_counter() - t0)
+
+    # (e) the engine's clock: rank 1's own reads 1000 + 7 t, here only
+    t0 = time.perf_counter()
+    real = time.monotonic
+    if axis.rank == 1:
+        time.monotonic = lambda: CLOCK_SKEW[0] + CLOCK_SKEW[1] * real()
+    try:
+        got, m, wall, launches, _, _ = drive(
+            cfg, params, dev, clock_requests(cfg),
+            max_request_seconds=CLOCK_MAX_S, **serve_kw)
+    finally:
+        time.monotonic = real
+    out["e"] = {"outcomes": {int(u): {
+        "error": r.error.code if r.error else None,
+        "missed_deadline": bool(r.missed_deadline),
+        "result": None if r.result is None else r.result.tolist()}
+        for u, r in got.items()},
+        "metrics": {k: m[k] for k in ("requests_failed", "requests_finished",
+                                      "host_syncs", "verify_passes")},
+        "launches": launches, "seconds": time.perf_counter() - t0}
 
     # (b) the reference's TP traffic (its prompts, 8 new tokens each so
     # that every request is live at the first sync) at data 2 x model 2,
@@ -5785,36 +5888,15 @@ class _KeptRoutes:
         return self.by_seq[seq]
 
 
-def model_axis_phase(dev, tol):
-    """Phase 23: the model axis. Two model ranks (``collectives.spawn``,
-    ``model_axis_rank``) share this card over gloo, which stages every
-    collective through the host. (a) qwen3-1.7b at full width, its first
-    ``TP_LAYERS`` layers,
-    bf16, data 1 x model 2: each rank's window logits against the whole
-    model's within ``TP_LOGITS_TOL`` (max-abs), which every planted fault
-    (``planted_faults``) must exceed, the collectives of one verify pass
-    (layers x (4 + 1) all-reduces + 1 for the embedding, 1 logits gather),
-    phase 18's 8 requests at W = 8 with tokens bitwise across the ranks
-    and under the margin rule (``TP_LOGITS_TOL``) against model 1 (this
-    process, alone on the card before the ranks start), ms per token and
-    idle share of both;
-    (b) data 2 x model 2 on the reference's TP traffic bitwise data 1 x
-    model 2 at the same rows a call, and a preemption plus a cross-shard
-    migration bitwise the undisturbed run; (c) the dbrx-132b cut at 2
-    (attn, moe) layers, 8 experts a rank: ``_moe_ep_only`` against
-    ``MoE.apply`` on the whole layer, the layer's eager ms on each rank
-    against the whole layer's here, and two requests served with the
-    routing logged, held against the solo sampler as phase 13 holds
-    them (margin rule, ``tol``)."""
-    import numpy as np
+def model_axis_before(dev):
+    """Phase 23's part before its ranks start: model 1 on this process
+    alone (phase 18's 8 requests at W = 8, profiled) and the ranks'
+    durable directory, a temporary one under ``build/``."""
+    import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
-    from repro_torch.engine.agreement import check_token_agreement
-    from repro_torch.models.moe import MoE
     from repro_torch.models.transformer import TransformerLM
-    from repro_torch.serving.admission import Request
-    from repro_torch.sharding import collectives
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=TP_LAYERS)
     params = TransformerLM.init(cfg, seed=0, device=dev)
@@ -5829,12 +5911,54 @@ def model_axis_phase(dev, tol):
            "ms_per_token": wall1 / m1["tokens_generated"] * 1e3,
            "device_busy_s": busy1, "idle_share": 1 - busy1 / wall1}
     torch.cuda.synchronize()
-    t_spawn = time.perf_counter()
-    ranks = collectives.spawn(model_axis_rank, 2, timeout=900)
-    out = {"model1": one, "ranks_s": time.perf_counter() - t_spawn,
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="model-axis-durable-", dir=ROOT / "build")
+    return {"cfg": cfg, "params": params, "one": one, "got1": got1,
+            "durable_root": root, "before_s": time.perf_counter() - t0}
+
+
+def model_axis_after(dev, tol, pre, ranks):
+    """Phase 23: the model axis. Two model ranks (``collectives.spawn``,
+    ``model_axis_rank``) share this card over gloo, which stages every
+    collective through the host; ``ranks`` are their readings. (a)
+    qwen3-1.7b at full width, its first ``TP_LAYERS`` layers, bf16, data
+    1 x model 2: each rank's window logits against the whole
+    model's within ``TP_LOGITS_TOL`` (max-abs), which every planted fault
+    (``planted_faults``) must exceed, the collectives of one verify pass
+    (layers x (4 + 1) all-reduces + 1 for the embedding, 1 logits gather),
+    phase 18's 8 requests at W = 8 with tokens bitwise across the ranks
+    and under the margin rule (``TP_LOGITS_TOL``) against model 1 (this
+    process, alone on the card before the ranks start), ms per token and
+    idle share of both;
+    (b) data 2 x model 2 on the reference's TP traffic bitwise data 1 x
+    model 2 at the same rows a call, and a preemption plus a cross-shard
+    migration bitwise the undisturbed run; (c) the dbrx-132b cut at 2
+    (attn, moe) layers, 8 experts a rank: ``_moe_ep_only`` against
+    ``MoE.apply`` on the whole layer, the layer's eager ms on each rank
+    against the whole layer's here, and two requests served with the
+    routing logged, held against the solo sampler as phase 13 holds
+    them (margin rule, ``tol``). (a)'s served run is durable; (d) restores
+    a copy of its directory taken mid-run and must end with (a)'s tokens
+    bitwise; (e) decides a deadline and ``max_request_seconds`` alike on
+    both ranks, rank 1's clock skewed."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine.agreement import check_token_agreement
+    from repro_torch.models.moe import MoE
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving.admission import Request
+    cfg, params, one, got1 = (pre["cfg"], pre["params"], pre["one"],
+                              pre["got1"])
+    m1 = one["metrics"]
+    shutil.rmtree(pre["durable_root"], ignore_errors=True)
+    out = {"model1": one, "ranks_s": pre["ranks_s"],
            "backend": ranks[0]["backend"]}
     r0, r1 = ranks
-    out["rank_seconds"] = {k: r0[k]["seconds"] for k in ("a", "b", "c")}
+    out["rank_seconds"] = {k: r0[k]["seconds"]
+                           for k in ("a", "b", "c", "d", "e")}
     log(f"phase 23: 2 model ranks on one card over {out['backend']}, "
         f"{out['ranks_s']:.1f} s in the ranks (rank 0's parts: "
         + ", ".join(f"({k}) {v:.1f} s" for k, v in
@@ -5920,6 +6044,76 @@ def model_axis_phase(dev, tol):
                              f"not part the sound reading "
                              f"{max(a['logits_err_by_rank'])} from the "
                              f"planted faults' least, {caught}")
+    # (a) durable: rank 0 journals and checkpoints at every host sync
+    syncs = a0["metrics"]["host_syncs"]
+    if not (a0["metrics"].get("journal_appends", 0) > 0
+            and "journal_appends" not in a1["metrics"]
+            and a0["metrics"]["checkpoints_written"] == syncs
+            and a1["metrics"]["checkpoints_written"] == 0
+            and a0["fsync"]["n"] == a0["metrics"]["journal_syncs"]
+            and a0["checkpoint"]["n"] == syncs):
+        raise AssertionError(f"phase 23 (a): durability's counters: "
+                             f"rank 0 {a0['metrics']}, rank 1 "
+                             f"{a1['metrics']}, fsync {a0['fsync']}, "
+                             f"checkpoint {a0['checkpoint']}")
+    a.update(fsync=a0["fsync"], checkpoint=a0["checkpoint"],
+             snapshot=a0["snapshot"])
+    log(f"phase 23 (a) durable: rank 0 journal "
+        f"{a0['metrics']['journal_appends']} records; {a0['fsync']['n']} "
+        f"fsyncs {a0['fsync']['mean_ms']:.3f} ms mean "
+        f"({a0['fsync']['max_ms']:.3f} max), {syncs} checkpoints "
+        f"{a0['checkpoint']['mean_ms']:.3f} ms mean "
+        f"({a0['checkpoint']['max_ms']:.3f} max, the ranks' agreement "
+        f"included); copied for (d) after host sync "
+        f"{a0['snapshot'].get('sync')} with {a0['snapshot'].get('done')} of 8 "
+        "done")
+
+    # (d)
+    d0, d1 = r0["d"], r1["d"]
+    snap = a0["snapshot"]
+    if not (snap and snap == a1["snapshot"] and snap["done"] < 8):
+        raise AssertionError(f"phase 23 (d): no mid-run copy: {snap}, "
+                             f"{a1['snapshot']}")
+    for r in (d0, d1):
+        if r["served"] != a0["served"]:
+            raise AssertionError("phase 23 (d): the restored run's tokens "
+                                 "differ from (a)'s")
+        if not (r["recovered"] >= 1 and r["recovered"] + r["redelivered"]
+                == 8):
+            raise AssertionError(f"phase 23 (d): recovered "
+                                 f"{r['recovered']}, re-delivered "
+                                 f"{r['redelivered']}")
+        need_path(r["launches"], "phase 23 (d)")
+    out["d"] = {k: [d0[k], d1[k]] for k in ("restore_ms", "recovered",
+                                             "redelivered", "wall_s",
+                                             "seconds")}
+    out["d"]["metrics"] = d0["metrics"]
+    log(f"phase 23 (d) restore over (a)'s copy: {d0['recovered']} requests "
+        f"recovered, {d0['redelivered']} finishes re-delivered; restore "
+        f"{d0['restore_ms']:.3f} / {d1['restore_ms']:.3f} ms on ranks 0 / 1 "
+        f"(the journal's replay, the checkpoint and their broadcast, the "
+        f"disk names' exchange, the agreement); the drain "
+        f"{d0['wall_s']:.2f} s; all 8 requests bitwise (a)'s on both ranks")
+
+    # (e)
+    e0, e1 = r0["e"], r1["e"]
+    if e0["outcomes"] != e1["outcomes"]:
+        raise AssertionError(f"phase 23 (e): the ranks decided otherwise: "
+                             f"{e0['outcomes']} / {e1['outcomes']}")
+    oc = e0["outcomes"]
+    if not (oc[0]["error"] == "timeout" and oc[1]["missed_deadline"]
+            and oc[1]["error"] is None):
+        raise AssertionError(f"phase 23 (e): want request 0 cut by "
+                             f"max_request_seconds and request 1 past its "
+                             f"deadline: {oc}")
+    need_path(e0["launches"], "phase 23 (e)")
+    out["e"] = {"outcomes": {u: {k: v for k, v in o.items() if k != "result"}
+                             for u, o in oc.items()},
+                "metrics": e0["metrics"], "seconds": e0["seconds"]}
+    log(f"phase 23 (e) rank 1's clock 1000 + 7 t: both ranks cut request 0 "
+        f"at {CLOCK_MAX_S} s (max_request_seconds), request 1 missed its "
+        f"{CLOCK_DEADLINE_S} s deadline, the same tokens, no divergence; "
+        + json.dumps(out["e"]["outcomes"]))
 
     # (b)
     b0, b1 = r0["b"], r1["b"]
@@ -6014,10 +6208,9 @@ def model_axis_phase(dev, tol):
         f"{single_ms:.3f} ms whole; served {c0['ms_per_token']:.3f} ms per "
         f"token, ranks' tokens bitwise; launches {c0['launches']}")
     del params, p, x
+    pre.pop("params", None)
     gc.collect()
     torch.cuda.empty_cache()
-    out["seconds"] = time.perf_counter() - t0
-    log(f"phase 23 took {out['seconds']:.1f} s")
     return out
 
 
@@ -6374,26 +6567,20 @@ def moe_train_check(cfg, axes, dev, spec):
     return out
 
 
-def train_mesh_rank(rank, world, store_path, base):
-    """Phase 24's rank ``rank`` of 2 (a process of its own, started by
-    ``collectives.spawn``; on a card the kernels the parent built are
-    loaded). Both ranks share one device over gloo: (a) the qwen3-1.7b cut
-    at data 1 x model 2, (b) at data 2 x model 1 (a second layout's groups
-    in the same world), (c) the dbrx-132b cut's MoE layer at data 1 x
-    model 2, each sized by ``TRAIN_MESH``."""
+def train_mesh_rank(rank, base):
+    """Phase 24's rank ``rank`` of 2, run by ``axis_ranks`` after phase
+    23's part, in the same process group on the same card (gloo): (a) the
+    qwen3-1.7b cut at data 1 x model 2, (b) at data 2 x model 1 (a second
+    layout's groups in the same world), (c) the dbrx-132b cut's MoE layer
+    at data 1 x model 2, each sized by ``TRAIN_MESH``."""
     import torch
-    from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.sharding import collectives
     spec = TRAIN_MESH
     dev = torch.device("cuda:0")
-    kernels.build()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.cuda.set_device(dev)
     cfg = dataclasses.replace(get_config("qwen3-1.7b"),
                               n_layers=spec["layers"])
-    axes = collectives.init_axes(rank, world, 2, store_path=store_path,
-                                 backend="gloo", device=dev)
+    axes = collectives.layout_axes(2, "gloo", dev)
     out = {"rank": rank, "backend": axes["model"].backend}
 
     def part(key, fn, *a):
@@ -6492,23 +6679,20 @@ def gate_train_mesh(out, layers):
     return sound, least
 
 
-def train_mesh_phase(dev):
-    """Phase 24: the model axis for training. The single-device baseline
-    (``train_mesh_baseline``: the qwen3-1.7b cut to 14 layers, B = 2, S = 2048, bf16, AdamW, ``remat=True``, phase 7's seed-0
-    parameters and ``token_batches``), then two ranks
-    (``collectives.spawn``, ``train_mesh_rank``) sharing this card over
-    gloo run it at data 1 x model 2 and data 2 x model 1, and the dbrx-132b
-    cut's MoE layer expert-parallel; ``gate_train_mesh`` gates them."""
+def train_mesh_before(dev):
+    """Phase 24's part before its ranks start: the single-device baseline
+    (``train_mesh_baseline``: the qwen3-1.7b cut to 14 layers, B = 2, S =
+    2048, bf16, AdamW, ``remat=True``, phase 7's seed-0 parameters and
+    ``token_batches``); the ranks' reference rides under ``base``."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.sharding import collectives
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config("qwen3-1.7b"),
                               n_layers=TRAIN_MESH["layers"])
     base, single = train_mesh_baseline(cfg, dev, TRAIN_MESH)
     out = {"single": single, "base_loss": base["loss"],
-           "base_grad_norm": base["grad_norm"],
-           "baseline_s": time.perf_counter() - t0}
+           "base_grad_norm": base["grad_norm"], "base": base,
+           "layers": cfg.n_layers, "baseline_s": time.perf_counter() - t0}
     for i, row in enumerate(single):
         log(f"phase 24 single device step {i + 1}: loss {row['loss']:.6g}, "
             f"{row['ms']:.1f} ms, {row['tokens_per_s']:.1f} tokens/s, peak "
@@ -6516,10 +6700,17 @@ def train_mesh_phase(dev):
             f"{row['flash_launches']}")
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    out["ranks"] = collectives.spawn(train_mesh_rank, 2, base,
-                                     timeout=900)
-    out["ranks_s"] = time.perf_counter() - t1
+    return out
+
+
+def train_mesh_after(out, ranks):
+    """Phase 24: the model axis for training. Two ranks
+    (``train_mesh_rank``) sharing the card over gloo ran the baseline's
+    step at data 1 x model 2 and data 2 x model 1, and the dbrx-132b cut's
+    MoE layer expert-parallel; ``gate_train_mesh`` gates ``ranks``, their
+    readings, here."""
+    single = out["single"]
+    out["ranks"] = ranks
     for r in out["ranks"]:
         for lay, name in (("a", "data 1 x model 2"),
                           ("b", "data 2 x model 1")):
@@ -6547,13 +6738,54 @@ def train_mesh_phase(dev):
             f"{c['fwd_bwd_ms']:.1f} ms (whole {c['whole_fwd_bwd_ms']:.1f}), "
             "rel errs " + ", ".join(f"{k} {v:.3g}"
                                     for k, v in c["errs"].items()))
-    out["sound"], out["least_fault"] = gate_train_mesh(out, cfg.n_layers)
-    out["seconds"] = time.perf_counter() - t0
+    out["sound"], out["least_fault"] = gate_train_mesh(out, out["layers"])
     log(f"phase 24: step-1 gate within {out['sound']:.4g} of the single "
         f"device (tolerance {TRAIN_MESH_TOL}; the least planted fault "
-        f"{out['least_fault']:.4g}); {out['ranks_s']:.1f} s in the ranks; "
-        f"phase 24 took {out['seconds']:.1f} s")
+        f"{out['least_fault']:.4g})")
     return out
+
+
+def axis_ranks(rank, world, store_path, durable_root, base):
+    """Model rank ``rank`` of 2 for phases 23 and 24 in one process group:
+    ``model_axis_rank``'s parts, then ``train_mesh_rank``'s over the same
+    world (its layouts' groups made anew). Returns both readings."""
+    import torch
+    out = {"p23": model_axis_rank(rank, world, store_path, durable_root)}
+    torch.cuda.empty_cache()
+    out["p24"] = train_mesh_rank(rank, base)
+    return out
+
+
+def model_axis_phases(dev, tol):
+    """Phases 23 and 24 with one spawn of two ranks (``axis_ranks``),
+    which saves one start of the ranks (their imports, the kernels' load,
+    CUDA's context): each phase's part before its ranks, the ranks, then
+    each phase's gates. Returns both phases' readings, the ranks' start
+    and each phase's seconds (its own parts, and its ranks' part as rank 0
+    timed it)."""
+    from repro_torch.sharding import collectives
+    t0 = time.perf_counter()
+    pre23 = model_axis_before(dev)
+    pre24 = train_mesh_before(dev)
+    base = pre24.pop("base")
+    t1 = time.perf_counter()
+    ranks = collectives.spawn(axis_ranks, 2, pre23["durable_root"], base,
+                              timeout=1500)
+    ranks_s = time.perf_counter() - t1
+    pre23["ranks_s"] = pre24["ranks_s"] = ranks_s
+    t2 = time.perf_counter()
+    p23 = model_axis_after(dev, tol, pre23, [r["p23"] for r in ranks])
+    t3 = time.perf_counter()
+    p24 = train_mesh_after(pre24, [r["p24"] for r in ranks])
+    t4 = time.perf_counter()
+    log(f"phases 23-24: {t4 - t0:.1f} s in all, {ranks_s:.1f} s in one "
+        f"spawn of the ranks; before them 23 {pre23['before_s']:.1f} s, 24 "
+        f"{pre24['baseline_s']:.1f} s; after them 23 {t3 - t2:.1f} s, 24 "
+        f"{t4 - t3:.1f} s")
+    return p23, p24, {"seconds": t4 - t0, "ranks_s": ranks_s,
+                      "before_23_s": pre23["before_s"],
+                      "before_24_s": pre24["baseline_s"],
+                      "after_23_s": t3 - t2, "after_24_s": t4 - t3}
 
 
 def recovery_child_main(mode, ddir, disk_tier) -> int:
@@ -6832,13 +7064,11 @@ def main(argv=None) -> int:
     report["mesh"] = mesh_phase(dev)
     lap("22")
 
-    # ---- phase 23: the model axis (tensor and expert parallelism) ---------
-    report["model_axis"] = model_axis_phase(dev, tol)
-    lap("23")
-
-    # ---- phase 24: the model axis for training ------------------------------
-    report["train_mesh"] = train_mesh_phase(dev)
-    lap("24")
+    # ---- phases 23-24: the model axis, serving (tensor and expert
+    # parallelism, durable, one clock) and training, in one spawn ----------
+    (report["model_axis"], report["train_mesh"],
+     report["model_axis_phases"]) = model_axis_phases(dev, tol)
+    lap("23-24")
     log("seconds by phase: " + json.dumps(
         {k: round(v, 1) for k, v in report["phase_seconds"].items()}))
 

@@ -17,6 +17,9 @@ a disk tier below the host arena, all under DIR; a run over a DIR a killed
 run left recovers every request it had accepted (``restore``) before it
 submits its own. ``--journal-fsync-every`` batches the journal's fsync;
 ``--no-disk-tier`` keeps the journal and checkpoint without the disk tier.
+On a model axis (``--mesh D,M``) rank 0 writes the journal and the
+checkpoints under DIR and each rank r > 0 keeps its disk tier under
+``DIR/rank{r}``; a second run over DIR restores on every rank.
 ``--no-donate`` copies the paged cache out of place at every dispatch, as
 the reference's undonated round writes a fresh pool (an A/B of what the
 in-place update saves; the tokens do not change). ``--mesh DATA`` serves
@@ -233,12 +236,9 @@ def main(argv=None):
 def _spawn_ranks(args):
     """``--mesh D,M``, M > 1: the kernels built here (on a card) so the
     ranks load one build, then M processes, each ``_serve`` as one model
-    rank."""
+    rank, with every option (``--durable-dir``, ``--max-request-seconds``)
+    passed to each."""
     from repro_torch.sharding import collectives
-    if args.durable_dir:
-        raise SystemExit("--durable-dir with a model axis: which rank owns "
-                         "the journal and the checkpoints is ROADMAP item "
-                         "20c")
     if args.device != "cpu" and torch.cuda.is_available():
         from repro_torch import kernels
         kernels.build()
@@ -294,7 +294,7 @@ def _serve(args, rank=None, store_path=None):
     first_uid = 0
     if args.durable_dir:
         recovered = engine.restore()
-        if recovered:
+        if recovered and not (topo is not None and topo.model_rank):
             print(f"recovered {recovered} journaled requests from "
                   f"{args.durable_dir}")
         # this run's requests after every uid the journal knows

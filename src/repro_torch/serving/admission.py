@@ -197,8 +197,10 @@ class AdmissionQueue:
             req._seq = next(self._seq)
         return (req.priority, req.deadline_time, req._seq, req)
 
-    def push(self, req: Request):
-        req.submit_time = time.monotonic()
+    def push(self, req: Request, now: float):
+        """Enqueue ``req``, stamped submitted at ``now`` (the engine's
+        clock)."""
+        req.submit_time = now
         heapq.heappush(self._heap, self._entry(req))
 
     def requeue(self, req: Request):

@@ -163,16 +163,28 @@ agree under the margin rule.
   ``sharding/moe_shard.py``) joining them. The host's decisions follow
   the tokens, so at every host sync the ranks compare a digest of the
   stats and of the accepted tokens and fail on a mismatch
-  (``collectives.RankDivergence``). Wall-clock decisions differ between
-  processes, so a request ``deadline`` and ``max_request_seconds`` are
-  refused there, as is ``durable_dir`` (which rank owns the journal is
-  ROADMAP item 20c); so are MLA and the recurrent mixers (item 20c).
+  (``collectives.RankDivergence``). The engine reads one clock
+  (``_now``): rank 0's ``time.monotonic()``, broadcast (8 bytes over the
+  host group) as the engine is built, at each ``submit``, ``cancel``,
+  ``restore`` and ``close``, and at the top of every ``step`` and again
+  after its host sync; every rank decides deadlines,
+  ``max_request_seconds`` and the checkpoint's clocks by it. Under ``durable_dir`` rank 0 alone owns ``journal.wal``
+  and ``checkpoint.json``; each rank keeps its own disk tier
+  (``durable_dir/disk`` on rank 0, ``durable_dir/rank{r}/disk`` on rank
+  r), since each holds its own slice of the pool, and flushes its parks'
+  prompt blocks there before the ranks agree on the snapshot and rank 0
+  writes it. ``restore`` replays the journal and reads the checkpoint on
+  rank 0 and broadcasts both; every rank rebuilds the same scheduler
+  state from them, keeps only the disk entries every rank holds, and the
+  ranks agree on a digest of that state. MLA and the recurrent mixers are
+  refused there (ROADMAP item 20c).
 """
 from __future__ import annotations
 
 import functools
 import json
 import os
+import struct
 import time
 from dataclasses import dataclass, field
 from types import SimpleNamespace
@@ -363,7 +375,7 @@ class ServingEngine:
         # this process's rank of the model axis, None without one
         self.model_axis = self.topo.model_axis
         if self.model_axis is not None:
-            self._check_model_axis(cfg, durable_dir, max_request_seconds)
+            self._check_model_axis(cfg)
             if not tp.is_placed(params):
                 raise ValueError("a model axis serves this rank's slice of "
                                  "the parameters: pass topology."
@@ -462,24 +474,37 @@ class ServingEngine:
         self.tables = np.zeros((batch, self.nb), np.int32)
         self.owned: list[list[int]] = [[] for _ in range(batch)]
 
+        # ---- the clock --------------------------------------------------
+        # on a model axis rank 0's reading, broadcast now and at every entry
+        # point that reads it (``_tick``); ``time.monotonic()`` itself
+        # without one
+        self._clock = None
+        self._tick()
+
         # ---- durability -------------------------------------------------
         # under ``durable_dir``: ``disk/`` (the tier below the arena),
         # ``journal.wal`` and ``checkpoint.json``; ``disk_tier=False`` keeps
-        # the journal and the checkpoint but drops the spill to disk
+        # the journal and the checkpoint but drops the spill to disk. On a
+        # model axis the journal and the checkpoint are rank 0's, and rank
+        # r > 0 keeps its disk tier under ``rank{r}/``
         self.durable_dir = durable_dir
         self.journal = None
         self._ckpt_path = None
         self.disk = None
         if durable_dir is not None:
+            rank = self.topo.model_rank
             if disk_tier:
                 dmb = 1024.0 if disk_cache_mb is None else float(disk_cache_mb)
-                self.disk = DiskTier(os.path.join(durable_dir, "disk"),
-                                     int(dmb * 2 ** 20), faults=self.faults,
-                                     breaker=CircuitBreaker())
-            self.journal = RequestJournal(
-                os.path.join(durable_dir, "journal.wal"),
-                fsync_every=journal_fsync_every, faults=self.faults)
-            self._ckpt_path = os.path.join(durable_dir, "checkpoint.json")
+                self.disk = DiskTier(
+                    os.path.join(durable_dir, f"rank{rank}" if rank else "",
+                                 "disk"),
+                    int(dmb * 2 ** 20), faults=self.faults,
+                    breaker=CircuitBreaker())
+            if rank == 0:
+                self.journal = RequestJournal(
+                    os.path.join(durable_dir, "journal.wal"),
+                    fsync_every=journal_fsync_every, faults=self.faults)
+                self._ckpt_path = os.path.join(durable_dir, "checkpoint.json")
 
         # ---- host cache tier --------------------------------------------
         if host_tier is not None:
@@ -561,7 +586,7 @@ class ServingEngine:
         self.plen = np.zeros(batch, np.int64)
 
     @staticmethod
-    def _check_model_axis(cfg, durable_dir, max_request_seconds):
+    def _check_model_axis(cfg):
         """What the model axis does not serve yet raises here."""
         other = sorted({m for m, f in cfg.layer_specs()
                         if m not in ("attn", "local")}
@@ -570,13 +595,27 @@ class ServingEngine:
         if other:
             raise NotImplementedError(
                 f"{cfg.name}: {other} on a model axis is ROADMAP item 20c")
-        if durable_dir is not None:
-            raise NotImplementedError(
-                "durable_dir with a model axis: which rank owns the journal "
-                "and the checkpoints is ROADMAP item 20c")
-        if max_request_seconds is not None:
-            raise ValueError("max_request_seconds with a model axis: each "
-                             "rank's clock would decide alone")
+
+    # -- the clock ------------------------------------------------------------
+    def _tick(self):
+        """On a model axis, rank 0's ``time.monotonic()`` broadcast to every
+        rank (one 8-byte host broadcast): the reading ``_now`` returns
+        until the next tick. Nothing without one. Every rank calls the
+        engine's entry points in lockstep, so each entry point that reads
+        the clock ticks first: ``submit``, ``cancel``, ``restore``,
+        ``close``, and ``step`` at its top and after its host sync."""
+        if self.model_axis is None:
+            return
+        axis = self.model_axis
+        mine = struct.pack("<d", time.monotonic()) if axis.rank == 0 else None
+        self._clock = struct.unpack("<d", axis.broadcast_bytes(
+            mine, src=0, size=8))[0]
+
+    def _now(self) -> float:
+        """The engine's clock: ``time.monotonic()``, or on a model axis the
+        reading of the last ``_tick``, so that every rank makes each
+        wall-clock decision alike."""
+        return time.monotonic() if self.model_axis is None else self._clock
 
     # -- shards -----------------------------------------------------------
     def _shard_of(self, b: int) -> _Shard:
@@ -656,10 +695,6 @@ class ServingEngine:
             return RequestError(
                 "too_long", f"{prompt.size} prompt + {req.new_tokens} new "
                 f"> max_len={self.max_len}")
-        if req.deadline is not None and self.model_axis is not None:
-            return RequestError(
-                "deadline_on_model_axis", "a deadline orders the queue by "
-                "each rank's clock; the model ranks would part")
         lo, hi = int(prompt.min()), int(prompt.max())
         if lo < 0 or hi >= self.cfg.vocab:
             return RequestError(
@@ -675,15 +710,16 @@ class ServingEngine:
     def submit(self, req: Request) -> bool:
         """Validate and enqueue. Returns False — with ``req.error`` set and
         the request delivered through ``done`` — on rejection."""
+        self._tick()
         err = self._validate(req)
         if err is not None:
             req.error = err
-            req.submit_time = time.monotonic()
+            req.submit_time = self._now()
             req.finish_time = req.submit_time
             self.metrics.requests_rejected += 1
             self.done.append(req)
             return False
-        self.queue.push(req)
+        self.queue.push(req, self._now())
         # journaled after the push, which pinned the arrival rank; with
         # ``journal_fsync_every=1`` the submit is on media before this
         # returns, so an accepted request survives any later crash
@@ -1393,7 +1429,7 @@ class ServingEngine:
         """Re-admit a parked request into slot ``b`` where it left off; a
         cold park (restored from a checkpoint) by prefill, over what the
         device cache, the arena and the disk still hold."""
-        req.admit_time = time.monotonic()
+        req.admit_time = self._now()
         if parked.cold:
             self.metrics.resume_recomputes += 1
             return self._resume_cold(req, b, parked)
@@ -1683,7 +1719,7 @@ class ServingEngine:
         """Count the SLO expiries of requests still queued or parked (once
         per request): without this, a request that blows its deadline
         before it runs is not seen until it finishes."""
-        now = time.monotonic()
+        now = self._now()
         for req in self.queue.requests():
             if (req.deadline is not None and not req.queue_deadline_missed
                     and now > req.deadline_time):
@@ -1982,7 +2018,7 @@ class ServingEngine:
             self._journal("admit", uid=int(req.uid))
             kill_point("post_admit")
             return
-        req.admit_time = time.monotonic()
+        req.admit_time = self._now()
         prompt = np.asarray(req.prompt, np.int64)
         L_p = len(prompt)
         (sh, r), mgr = self._local(b), self._mgr(b)
@@ -2125,7 +2161,7 @@ class ServingEngine:
         req.error = RequestError(code, detail, retryable=retryable,
                                  attempts=req.retries + 1)
         req.result = None
-        req.finish_time = time.monotonic()
+        req.finish_time = self._now()
         self.metrics.requests_failed += 1
         self.done.append(req)
         self._journal("fail", uid=int(req.uid), code=code)
@@ -2149,6 +2185,7 @@ class ServingEngine:
         leaves the other rows exactly as they were). It finishes through
         ``done`` with ``error.code == "cancelled"``. Returns False for an
         unknown ``uid`` (finished, or never submitted)."""
+        self._tick()
         for req in self.queue.requests():
             if req.uid == uid:
                 self.queue.remove(req)
@@ -2180,7 +2217,7 @@ class ServingEngine:
         req.error = RequestError("cancelled", retryable=False,
                                  attempts=req.retries + 1)
         req.result = None
-        req.finish_time = time.monotonic()
+        req.finish_time = self._now()
         self.metrics.requests_cancelled += 1
         self.done.append(req)
         self._journal("cancel", uid=int(req.uid), code="cancelled")
@@ -2204,7 +2241,10 @@ class ServingEngine:
         ``rounds_per_sync`` while the backlog is staged. Every shard's loop
         is dispatched before the host reads any shard's stats, so shards on
         several devices overlap; the host pulls one small array per shard.
-        Returns True while there is work."""
+        Returns True while there is work. On a model axis the clock is
+        broadcast at the step's top and again after its host sync
+        (``_tick``), as model 1 reads it at both."""
+        self._tick()
         self._poll_queue_deadlines()
         self._reconcile_staging()
         self._admit_pending()
@@ -2273,7 +2313,8 @@ class ServingEngine:
         self.n_host[:] = n_host
         self._last_rounds_exec = rounds_exec
 
-        now = time.monotonic()
+        self._tick()
+        now = self._now()
         acc_extra = act_extra = gen_extra = 0
         for s, (ad, out_tok) in adopt.items():
             if bool((ad[:, 0] >= 0).any()):
@@ -2336,8 +2377,9 @@ class ServingEngine:
                     f"> {self.max_request_seconds}s wall time")
         # the durability boundary: the journal on media and the scheduler
         # snapshotted, so a crash from here on recovers this sync's state
-        if self.journal is not None:
-            self.journal.sync()
+        if self.durable_dir is not None:
+            if self.journal is not None:
+                self.journal.sync()
             self._checkpoint(now)
             kill_point("post_sync")
         return True
@@ -2359,10 +2401,13 @@ class ServingEngine:
     def close(self) -> None:
         """The durability layer's orderly shutdown: a last checkpoint, the
         journal fsynced and closed. A no-op for a volatile engine, and
-        never required: an engine that just dies recovers the same."""
-        if self.journal is not None:
+        never required: an engine that just dies recovers the same. On a
+        model axis every rank calls it (the checkpoint is agreed)."""
+        if self.durable_dir is not None:
+            self._tick()
             self._checkpoint()
-            self.journal.close()
+            if self.journal is not None:
+                self.journal.close()
 
     # -- checkpoint and restore -----------------------------------------------
     def _checkpoint(self, now: Optional[float] = None) -> None:
@@ -2374,11 +2419,16 @@ class ServingEngine:
         row and window and the chain keys of its shared prompt blocks,
         which are first made durable on the disk tier. Parks' private
         payloads and running rows are not in it: a restore recomputes them
-        from the journaled identity, so the snapshot stays small."""
-        if self._ckpt_path is None:
+        from the journaled identity, so the snapshot stays small.
+
+        On a model axis every rank flushes its own parks' blocks to its own
+        disk tier, then the ranks agree on the snapshot (a barrier too: no
+        rank's blocks are missing from a snapshot that names them), and
+        rank 0 writes it."""
+        if self.durable_dir is None:
             return
         if now is None:
-            now = time.monotonic()
+            now = self._now()
         live = (list(self.queue.requests()) + [e.req for e in self.staged]
                 + [r for r in self.slots if r is not None])
         reqs = [{"uid": int(r.uid),
@@ -2399,6 +2449,11 @@ class ServingEngine:
                 "kv_keys": [int(k) for k in p.kv_keys],
                 "shard": int(p.shard)}
         snap = {"version": 1, "requests": reqs, "parked": parked}
+        if self.model_axis is not None:
+            self.model_axis.agree(json.dumps(snap, sort_keys=True).encode(),
+                                  f"checkpoint {self.metrics.host_syncs}")
+        if self._ckpt_path is None:          # a model rank but 0
+            return
         tmp = self._ckpt_path + ".tmp"
         try:
             with open(tmp, "w") as f:
@@ -2453,15 +2508,31 @@ class ServingEngine:
         reading it, so every journaled finish (its tokens are in the
         record) and failure or cancel (its code) comes back, at least once
         and bitwise the same. Returns the number of requests re-enqueued
-        (re-deliveries not counted)."""
-        if self.journal is None:
+        (re-deliveries not counted).
+
+        On a model axis every rank calls it: rank 0 replays the journal and
+        reads the checkpoint, and broadcasts both; every rank rebuilds the
+        same state from them, the ranks' disk tiers keep only the entries
+        all of them hold (a rank killed later than another may have
+        spilled more), and the ranks agree on a digest of the rebuilt
+        queue, parks and slots."""
+        if self.durable_dir is None:
             raise RuntimeError("restore() needs a durable_dir")
-        records = RequestJournal.replay(self.journal.path, faults=self.faults)
+        records = ckpt = None
+        if self.journal is not None:
+            records = RequestJournal.replay(self.journal.path,
+                                            faults=self.faults)
+            ckpt = self._load_checkpoint()
+        if self.model_axis is not None:
+            records, ckpt = json.loads(self.model_axis.broadcast_bytes(
+                None if records is None else
+                json.dumps([records, ckpt]).encode(), src=0))
+            self._reconcile_disk()
         pending, _, delivered = RequestJournal.pending(records)
-        ckpt = self._load_checkpoint()
         by_uid = {int(r["uid"]): r for r in ckpt.get("requests", [])}
         snaps = {int(u): p for u, p in ckpt.get("parked", {}).items()}
-        now = time.monotonic()
+        self._tick()
+        now = self._now()
         max_rank = -1
         recovered = 0
         # the original queue order: ranked submits first, by rank
@@ -2507,7 +2578,41 @@ class ServingEngine:
                 req.error = RequestError(rec.get("code", rec["terminal"]),
                                          "delivered again after a restore")
             self.done.append(req)
+        if self.model_axis is not None:
+            self.model_axis.agree(json.dumps(self._scheduler_state()).encode(),
+                                  "restore")
         return recovered
+
+    def _scheduler_state(self) -> dict:
+        """The host scheduler's state as plain data: the queue in order
+        (uid, rank, retries, stream), the parks (uid, n, shard, chain
+        keys), the slots' uids and the delivered uids."""
+        order = sorted(self.queue.requests(),
+                       key=lambda r: (r.priority, r.deadline_time, r._seq))
+        return {"queue": [[int(r.uid), r._seq, int(r.retries), r.noise_seed]
+                          for r in order],
+                "parked": [[int(u), int(p.n), int(p.shard),
+                            [int(k) for k in p.kv_keys]]
+                           for u, p in sorted(self.parked.items())],
+                "slots": [None if r is None else int(r.uid)
+                          for r in self.slots],
+                "done": [int(r.uid) for r in self.done]}
+
+    def _reconcile_disk(self):
+        """Keep on this rank's disk tier only the entries every model rank
+        holds: each rank's names broadcast in turn, the rest dropped. The
+        ranks' tiers then answer every later lookup alike."""
+        axis = self.model_axis
+        mine = sorted(self.disk.names()) if self.disk is not None else []
+        common = None
+        for src in range(axis.size):
+            names = set(json.loads(axis.broadcast_bytes(
+                json.dumps(mine).encode() if src == axis.rank else None,
+                src=src)))
+            common = names if common is None else common & names
+        for name in mine:
+            if name not in common:
+                self.disk.drop(name)
 
     # -- telemetry -----------------------------------------------------------
     def export_metrics(self) -> dict:

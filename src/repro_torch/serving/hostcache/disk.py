@@ -310,6 +310,10 @@ class DiskTier:
         self._forget(name)
         return True
 
+    def names(self) -> list:
+        """Every entry's name, oldest touch first."""
+        return list(self._index)
+
     def __len__(self) -> int:
         return len(self._index)
 

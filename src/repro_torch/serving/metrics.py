@@ -77,7 +77,8 @@ class EngineMetrics:
     #                                      snapshot in the checkpoint (the
     #                                      rest prefill from their prompt)
     checkpoints_written: int = 0         # scheduler snapshots fsynced at
-    #                                      host syncs
+    #                                      host syncs (by rank 0 alone on a
+    #                                      model axis: 0 on the others)
     resume_recomputes: int = 0           # parked resumes rebuilt by prefill
     #                                      (a piece of the payload was gone)
     prefetch_hits: int = 0               # blocks merged from a queued

@@ -13,7 +13,11 @@ that runs one process per rank.
   slice, and it is counted as the all-reduce it is. ``agree`` compares a
   host value across the axis (the serving engine's digest of the accepted
   tokens, the trainer's of its replicated leaves) and raises on a
-  mismatch.
+  mismatch; ``broadcast_bytes`` sends one rank's host bytes to the others
+  (the serving engine's clock reading, its replayed journal). Both run on
+  the axis's gloo ``host_group``; the broadcast is counted in ``STATS``
+  as ``host-broadcast`` (the ``host-`` kinds move host bytes, not device
+  tensors), and never runs inside a checked dispatch.
 * The differentiable forms, ``torch.autograd.Function``s whose backward
   issues the transposed collective on the same axis (counted alike):
   ``reduce_from`` (Megatron's g: forward all-reduce, backward the
@@ -167,6 +171,28 @@ class Axis:
         with self._issuing("reduce-scatter", out.numel() * t.element_size()):
             dist.reduce_scatter_tensor(out, src, group=self.group)
         return out.movedim(0, dim).contiguous()
+
+    def broadcast_bytes(self, data, src: int = 0, size: int = None) -> bytes:
+        """Rank ``src``'s ``data`` (the others pass None) on every rank of
+        the axis, over the host group. ``size``, where every rank knows it,
+        spares the broadcast of the length: then one operation."""
+        if self.size == 1:
+            return data
+        root = dist.get_global_rank(self.host_group, src)
+        if size is None:
+            n = torch.tensor([len(data) if self.rank == src else 0],
+                             dtype=torch.int64)
+            dist.broadcast(n, src=root, group=self.host_group)
+            size = int(n)
+        if self.rank == src and len(data) != size:
+            raise ValueError(f"{len(data)} bytes to broadcast, size {size}")
+        if not size:
+            return b""
+        buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8)
+               if self.rank == src else torch.empty(size, dtype=torch.uint8))
+        with self._issuing("host-broadcast", size):
+            dist.broadcast(buf, src=root, group=self.host_group)
+        return bytes(data) if self.rank == src else buf.numpy().tobytes()
 
     def agree(self, data: bytes, what: str) -> int:
         """Compare a digest of ``data`` across the axis on the host; raise

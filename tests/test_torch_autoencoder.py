@@ -30,6 +30,14 @@ CFG = AutoencoderConfig(height=16, width=16, channels=3, width_filters=16,
                         latent_channels=2, latent_categories=8)
 CONFIGS = {"test": CFG, "reduced": paper.AE_REDUCED}
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 def _setup(cfg, seed=0, B=2):
     jp = JAE.init(jax.random.PRNGKey(seed), JConfig(**vars(cfg)))

@@ -63,6 +63,14 @@ from repro_torch.kernels.split import ROWS, split_plan
 CPU = torch.device("cpu")
 EPS_KEY = jax.random.PRNGKey(9)
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

@@ -74,10 +74,27 @@ def test_window_cache_bytes_equal_the_reference(arch, shape):
     assert got == _jax_bytes(new, FLOAT32_STATES)
 
 
-def test_reduced_qwen_flops_equal_a_hand_count(tmp_path):
+@pytest.fixture(scope="module")
+def all_pairs(tmp_path_factory):
+    """``--all --reduced``'s records by tag, written once for the file:
+    the sweep's own test and the hand count read them."""
+    out = tmp_path_factory.mktemp("dryrun")
+    assert dryrun.main(["--all", "--reduced", "--out", str(out)]) == 0
+    return out, {p.stem: json.loads(p.read_text())
+                 for p in out.glob("*.json")}
+
+
+def _record(recs, arch, shape):
+    (rec,) = [r for r in recs.values()
+              if r["arch"] == arch and r["shape"] == shape]
+    return rec
+
+
+def test_reduced_qwen_flops_equal_a_hand_count(all_pairs):
     """Per layer the q, k, v, o projections, the swiglu MLP's three
     products and attention's two over the full square (the plain
-    versions'), then the tied head: 2 flops a multiply-add."""
+    versions'), then the tied head: 2 flops a multiply-add. The records
+    are the reduced sweep's (``all_pairs``), as ``run_pair`` wrote them."""
     cfg = get_config("qwen3-1.7b", reduced=True)
     L, D, H, KV, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                        cfg.n_kv_heads, cfg.head_dim)
@@ -90,20 +107,18 @@ def test_reduced_qwen_flops_equal_a_hand_count(tmp_path):
     s = SHAPES["decode_32k"]
     W = dryrun.DECODE_WINDOW
     S = -(-(s.seq_len + W) // 256) * 256
-    rec = dryrun.run_pair("qwen3-1.7b", "decode_32k", tmp_path, reduced=True)
+    _, recs = all_pairs
+    rec = _record(recs, "qwen3-1.7b", "decode_32k")
     assert rec["flops"] == count(s.global_batch * W, s.global_batch, W, S)
     assert rec["kernel_calls"] == {"decode_attention": L}
     s = SHAPES["prefill_32k"]
-    rec = dryrun.run_pair("qwen3-1.7b", "prefill_32k", tmp_path,
-                          reduced=True)
+    rec = _record(recs, "qwen3-1.7b", "prefill_32k")
     N = s.global_batch * s.seq_len
     assert rec["flops"] == count(N, s.global_batch, s.seq_len, s.seq_len)
 
 
-def test_all_pairs_at_reduced_configs_write_one_record_each(tmp_path):
-    assert dryrun.main(["--all", "--reduced", "--out", str(tmp_path)]) == 0
-    recs = {p.stem: json.loads(p.read_text())
-            for p in tmp_path.glob("*.json")}
+def test_all_pairs_at_reduced_configs_write_one_record_each(all_pairs):
+    tmp_path, recs = all_pairs
     assert len(recs) == len(ARCHS) * len(SHAPES)
     for tag, rec in recs.items():
         ok, _ = shape_applicable(rec["arch"], rec["shape"])

@@ -34,6 +34,14 @@ from repro_torch.kernels.flash_attention.ref import (causal_mask,
 
 B, H, KV, D = 2, 4, 2, 32
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 def _inputs(T, seed, d=D):
     rng = np.random.default_rng(seed)

@@ -32,6 +32,14 @@ CPU = torch.device("cpu")
 EPS_KEY = jax.random.PRNGKey(7)
 _CUT = dict(n_layers=2, layer_prefix=(("mla", "dense"),) * 2)
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 @pytest.fixture(scope="module")
 def deepseek():

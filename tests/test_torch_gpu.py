@@ -84,6 +84,8 @@ within 1e-4 of the single device's, flash on its kernel route (2 x layers
 launches a step: the forward and the recompute); over gloo on one card,
 and over NCCL a card a rank (skipped with fewer than two cards).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1815,6 +1817,7 @@ def test_data2_engine_equals_data1_at_half_batch_on_gpu(cuda, no_tf32):
         assert got[uid].calls_used == r.calls_used
 
 
+@functools.lru_cache(maxsize=None)
 def _tp_ranks(backend, **env):
     import json
     import os
@@ -1843,6 +1846,24 @@ def test_tensor_parallel_ranks_agree_on_one_gpu(cuda):
         assert r["launches"]["spec_verify"] > 0
         assert r["logits_err_vs_model1"] < 1e-4
         assert not r["sync_check"]
+
+
+def test_model_axis_clock_is_rank_0s_on_one_gpu(cuda):
+    """The engine's clock on the card at model 2 (gloo): a stepped clock,
+    rank 1's running 7x from 1000; rank 0's reading, broadcast as the
+    engine is built, at each submit, at each step's top and after its
+    host sync, makes every decision on both ranks (the same cut, missed
+    deadlines, tokens), and each rank deciding by its own clock is caught
+    at the next host sync."""
+    r0, r1 = _tp_ranks("gloo")
+    assert r0["clock"] == r1["clock"]
+    c = r0["clock"]
+    assert c["broadcasts"] == {"model": 1 + c["submits"] + c["steps"]
+                               + c["metrics"]["host_syncs"]}
+    assert c["outcomes"]["0"]["error"] == "timeout"
+    assert c["metrics"]["deadline_missed_in_queue"] == 1
+    for r in (r0, r1):
+        assert r["own_clock"].startswith("RankDivergence"), r["own_clock"]
 
 
 def test_tensor_parallel_over_nccl_keeps_the_sync_check(cuda):

@@ -50,6 +50,14 @@ from repro_torch.kernels.paged_attention.ops import (paged_attention,
 from repro_torch.kernels.spec_verify.ops import spec_verify
 from repro_torch.kernels.split import ROWS, split_plan
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

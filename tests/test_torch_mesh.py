@@ -24,6 +24,9 @@ margin rule (tolerance 1e-4, as the serving parity test). The bound on how
 far a CPU matmul's rows move with the row count is here too."""
 import dataclasses
 import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +51,8 @@ from repro_torch.serving.admission import Request
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.topology import ServingTopology
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -431,7 +436,7 @@ def test_scripted_faults_keep_healthy_rows_exact(models):
     clean(eng)
 
 
-def test_serve_cli_on_a_cpu_mesh(capsys):
+def test_serve_cli_on_a_cpu_mesh(capsys, tmp_path):
     serve_cli.main(["--arch", "qwen3-1.7b", "--reduced", "--mesh", "2",
                     "--mesh-devices", "cpu,cpu", "--device", "cpu",
                     "--batch", "4",
@@ -444,12 +449,22 @@ def test_serve_cli_on_a_cpu_mesh(capsys):
         with pytest.raises(SystemExit, match="CUDA devices"):
             serve_cli.main(["--arch", "qwen3-1.7b", "--reduced", "--mesh",
                             "2", "--batch", "4"])
-    # a model axis serves (tests/test_torch_tensor_parallel.py), but not
-    # durably: which rank owns the journal is ROADMAP item 20c
-    with pytest.raises(SystemExit, match="20c"):
-        serve_cli.main(["--arch", "qwen3-1.7b", "--reduced", "--mesh",
-                        "2,2", "--mesh-devices", "cpu,cpu", "--durable-dir",
-                        "unused"])
+    # a model axis serves durably too: two model ranks, each with two data
+    # shards, rank 0 owning the journal and the checkpoint
+    ddir = tmp_path / "durable"
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen3-1.7b", "--reduced", "--device", "cpu", "--mesh", "2,2",
+         "--mesh-devices", "cpu,cpu", "--batch", "4", "--requests", "4",
+         "--new-tokens", "6", "--durable-dir", str(ddir)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 OMP_NUM_THREADS="1"))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "served 4 requests / 24 tokens" in out.stdout
+    assert "2 model ranks (gloo)" in out.stdout
+    assert {"journal.wal", "checkpoint.json", "disk", "rank1"} <= set(
+        os.listdir(ddir))
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,14 @@ EPS_KEY = jax.random.PRNGKey(9)
 EPS_SEED = 9
 _CUT = dict(n_layers=2, layer_prefix=(("mla", "dense"),) * 2)
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 @pytest.fixture(scope="module")
 def deepseek(tmp_path_factory):

@@ -36,6 +36,14 @@ from repro_torch.nn.rope import apply_rope
 CPU = torch.device("cpu")
 EPS_KEY = jax.random.PRNGKey(9)
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 @pytest.fixture(scope="module")
 def qwen():

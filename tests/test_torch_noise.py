@@ -13,6 +13,14 @@ from repro_torch.engine.spec_decode import make_eps_fn
 
 TINY = float(np.finfo(np.float32).tiny)
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 def _ulps(a, b):
     a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)

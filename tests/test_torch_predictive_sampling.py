@@ -29,6 +29,14 @@ METHODS = ["ancestral", "fpi", "zeros", "last", "learned_g1",
            "learned_group", "alg2"]
 HD = 4          # width of the toy's h
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 def _dyadic(rng, shape, lim):
     """Multiples of 1/8 in [-lim, lim], float32."""

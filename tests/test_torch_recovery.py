@@ -1,7 +1,8 @@
 """Crash and restore of the port's serving engine on the CPU.
 
 The kill-point matrix of the reference's ``tests/serving/test_recovery.py``
-through the port: a child engine (``torch_recovery_driver.py serve``) is
+through the port: a child engine (``torch_recovery_driver.py``'s workload
+and settings, a process forked by ``torch_tp_driver.py durable``) is
 SIGKILLed at a named site, a second child restores from the same durable
 directory and drains the work; every request whose submit returned before
 the kill is delivered by the two, and every delivered token row equals the
@@ -11,7 +12,20 @@ engine's on the same workload and weights; a restart in process restores
 what the JAX engine's restart restores, with equal counters. Reduced
 rwkv6-7b restarted in process: its recurrent snapshots demoted to disk by
 a tiny arena bring a new engine's admission back from disk. The serving
-CLI's ``--durable-dir`` across a kill and a restart."""
+CLI's ``--durable-dir`` across a kill and a restart.
+
+On the model axis (data 1 x model 2 over gloo, ``tests/torch_tp_driver.py
+durable``, which also runs the model-1 kill matrix, every run a process
+forked from the driver): a kill at each point of the matrix and a
+restart deliver tokens bitwise across the ranks and equal to an
+uninterrupted model-2 durable run, with the model-1 restart's counters; a
+durable run at model 2 is bitwise the volatile one, and no rank but 0
+writes the journal or the checkpoint; a deadline and
+``max_request_seconds`` on a stepped clock, rank 1's skewed, take the
+model-1 engine's decisions, and a planted fault (each rank deciding by its
+own clock) raises ``RankDivergence``. Against model 1 the tokens hold
+under the margin rule at 1e-4 (float32 logits, as in
+``test_torch_tensor_parallel.py``)."""
 import json
 import os
 import signal
@@ -30,7 +44,8 @@ from repro.serving import Request as JaxRequest
 from repro.serving import ServingEngine as JaxEngine
 from repro_torch.checkpoint.io import load_pytree, params_from_numpy
 from repro_torch.configs import get_config
-from repro_torch.engine.spec_decode import PredictiveSampler
+from repro_torch.engine.agreement import check_token_agreement, top2_margin
+from repro_torch.engine.spec_decode import PredictiveSampler, make_eps_fn
 from repro_torch.launch import serve
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serving.admission import Request
@@ -38,16 +53,15 @@ from repro_torch.serving.engine import ServingEngine
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_recovery_driver import (ENGINE_KW, EPS_SEED,  # noqa: E402
-                                   make_requests)
+                                   METRIC_KEYS, make_requests)
+from torch_tp_driver import MATRIX, PLANTED_BLOCK  # noqa: E402
 
-DRIVER = os.path.join(os.path.dirname(__file__), "torch_recovery_driver.py")
+TP_DRIVER = os.path.join(os.path.dirname(__file__), "torch_tp_driver.py")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
-
-# (kill point, firing index), the reference's: each lands mid-run, after
-# the first admission and before the queue drains
-MATRIX = [("post_admit", 2), ("mid_spill", 1),
-          ("pre_fsync", 5), ("post_sync", 3)]
+# the margin rule's tolerance against model 1: float32 logits, row-parallel
+# sums (test_torch_tensor_parallel.py's)
+TP_TOL = 1e-4
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -75,10 +89,21 @@ def _child(args, kill: str = "", timeout: int = 600):
     return proc.stdout
 
 
-def _driver(phase: str, ddir: str = "", kill: str = "") -> list:
-    out = _child([DRIVER, phase] + ([ddir] if ddir else []), kill)
-    return [json.loads(line) for line in out.splitlines()
-            if line.startswith("{")]
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """``torch_tp_driver.py durable``: the kill matrix (the reference's
+    points, each landing mid-run, after the first admission and before
+    the queue drains) at model 1 and at data 1 x model 2, the
+    uninterrupted runs and the clock runs at both; one driver process,
+    each run forked from it."""
+    out = _child([TP_DRIVER, "durable",
+                  str(tmp_path_factory.mktemp("durable"))])
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _finishes(events) -> dict:
+    return {e["uid"]: np.asarray(e["tokens"]) for e in events
+            if e["event"] == "finish"}
 
 
 def _solo(cfg, params, req, window=4, max_len=64):
@@ -105,10 +130,11 @@ def reference(qwen):
 
 
 @pytest.mark.parametrize("point,index", MATRIX, ids=[p for p, _ in MATRIX])
-def test_kill_point_recovery_bitwise(tmp_path, reference, point, index):
-    ddir = str(tmp_path / "durable")
-    served = _driver("serve", ddir, kill=f"{point}:{index}")
-    resumed = _driver("resume", ddir)
+def test_kill_point_recovery_bitwise(runs, reference, point, index):
+    run = runs["model1_matrix"][point]
+    assert run["serve_codes"] == [-signal.SIGKILL], (
+        f"kill point {point}:{index} never fired: {run['serve_codes']}")
+    (served,), (resumed,) = run["served"], run["resumed"]
     submitted = {e["uid"] for e in served if e["event"] == "submitted"}
     merged = {}
     for e in served + resumed:
@@ -280,3 +306,159 @@ def test_serve_cli_restores_after_a_kill(tmp_path, capsys):
     with pytest.raises(SystemExit):
         serve.main(["--help"])
     assert "--no-disk-tier" in capsys.readouterr().out
+
+
+def _margin_fn(cfg, params, toks, sid):
+    """The model-1 margin at position ``p`` of ``toks``: its logits (the
+    dense solo path) plus stream ``sid``'s noise, top-2 gap."""
+    eps = make_eps_fn(EPS_SEED, cfg.vocab)
+
+    def margin_at(p):
+        logits, _, _ = TransformerLM.decode_window(
+            params, cfg, torch.as_tensor(toks[None, :p]),
+            TransformerLM.init_cache(cfg, 1, p),
+            torch.zeros(1, dtype=torch.int64))
+        e = eps(torch.tensor([sid]), torch.tensor([[p]]))
+        return top2_margin((logits[0, -1] + e[0, 0]).numpy())
+    return margin_at
+
+
+@pytest.mark.parametrize("point", [p for p, _ in MATRIX])
+def test_kill_point_recovery_on_a_model_axis(runs, point):
+    """Data 1 x model 2: both ranks carry the kill point; rank 0 (the one
+    the client reads) dies there, and the other dies there too or fails
+    on its dead peer. The restart on both ranks delivers every request
+    rank 0 accepted, bitwise across the ranks and bitwise the
+    uninterrupted model-2 durable run; rank 0's counters after the
+    restart equal the model-1 restart's at the same point, and rank 1's
+    do but for the journal's and the checkpoints', which only rank 0
+    writes (rank 1 counts no checkpoint)."""
+    run = runs["model2_matrix"][point]
+    assert run["serve_codes"][0] == -signal.SIGKILL, run["serve_codes"]
+    whole = {int(u): np.asarray(t)
+             for u, t in runs["model2"][0]["durable"].items()}
+    served, resumed = run["served"], run["resumed"]
+    submitted = {e["uid"] for e in served[0] if e["event"] == "submitted"}
+    assert submitted, "rank 0 died before accepting anything"
+    merged = {}
+    for events in (served[0], resumed[0]):
+        for uid, tokens in _finishes(events).items():
+            if uid in merged:
+                np.testing.assert_array_equal(merged[uid], tokens)
+            merged[uid] = tokens
+    assert not submitted - set(merged), (
+        f"accepted requests lost: {submitted - set(merged)}")
+    for uid, tokens in merged.items():
+        np.testing.assert_array_equal(
+            tokens, whole[uid], err_msg=f"request {uid} after {point}")
+    for phase in (served, resumed):
+        for uid, tokens in _finishes(phase[1]).items():
+            np.testing.assert_array_equal(tokens, merged[uid])
+    assert _finishes(resumed[0]).keys() == _finishes(resumed[1]).keys()
+    want = [e for e in runs["model1_matrix"][point]["resumed"][0]
+            if e["event"] == "metrics"][0]
+    for rank, events in enumerate(resumed):
+        (m,) = [e for e in events if e["event"] == "metrics"]
+        for k in METRIC_KEYS:
+            if rank == 0 or not k.startswith(("journal_", "checkpoints_")):
+                assert m[k] == want[k], (rank, k, m[k], want[k])
+        assert rank == 0 or m["checkpoints_written"] == 0
+    assert want["recovered_requests"] >= 1
+
+
+def test_durable_model_axis_is_the_volatile_one_and_rank_0_owns_the_files(
+        runs):
+    """Uninterrupted, data 1 x model 2: the durable run's tokens are
+    bitwise the volatile run's and the ranks', and its counters the
+    model-1 durable run's (rank 1 counts no checkpoint: it writes none);
+    rank 0 wrote ``journal.wal`` and ``checkpoint.json``, rank 1 neither,
+    only its own disk tier under ``rank1/``; a restore over the directory leaves both ranks' disk tiers
+    holding the same entries, the model-1 run's, though one was planted
+    on rank 1 alone."""
+    r0, r1 = runs["model2"]
+    (one,) = runs["model1"]
+    for r in (r0, r1):
+        assert r["durable"] == r["volatile"] == r0["durable"]
+    for k in ("checkpoints_written", "disk_spills", "disk_puts",
+              "preemptions", "prefill_calls", "resumes", "requests_finished"):
+        assert r0["durable_metrics"][k] == one["durable_metrics"][k], k
+        if k != "checkpoints_written":
+            assert r1["durable_metrics"][k] == one["durable_metrics"][k], k
+    assert one["durable_metrics"]["checkpoints_written"] >= 1
+    assert r1["durable_metrics"]["checkpoints_written"] == 0
+    for k in ("journal_appends", "journal_syncs"):
+        assert r0["durable_metrics"][k] == one["durable_metrics"][k], k
+        assert k not in r1["durable_metrics"]
+    assert r0["durable_metrics"]["disk_spills"] >= 1
+    assert {"journal.wal", "checkpoint.json"} <= set(r0["wrote"])
+    assert all(not w.startswith("rank1") for w in r0["wrote"])
+    assert r1["wrote"] and all(w.startswith(os.path.join("rank1", "disk"))
+                               for w in r1["wrote"])
+    # a restore keeps on each rank only the disk entries every rank holds:
+    # the one planted on rank 1 alone is dropped, the run's spills stay
+    assert r0["restored"] == r1["restored"] == 0
+    assert r0["disk_after_restore"] == r1["disk_after_restore"]
+    assert r0["disk_after_restore"] == one["disk_after_restore"] != []
+    assert PLANTED_BLOCK not in r1["disk_after_restore"]
+
+
+def test_a_skewed_rank_clock_changes_no_decision(runs):
+    """A deadline request, a priority-1 one submitted after the first step
+    that misses its deadline queued, and ``max_request_seconds`` cutting
+    a long one, on a stepped clock with rank 1's running 7x from 1000;
+    the clock moves while the engine idles before each batch of submits
+    and within each step, so a stale reading would move a decision: the
+    ranks take the model-1 engine's decisions (the queue order after the
+    first step, the cut, the missed deadlines, each request's latency and
+    queue wait, and the counters) and deliver the same tokens. The
+    planted fault, each rank deciding by its own clock, is caught by the
+    next host sync's digest on both ranks."""
+    r0, r1 = runs["model2"]
+    (one,) = runs["model1"]
+    want = one["clock"]
+    assert r0["clock"] == r1["clock"]
+    got = r0["clock"]
+    assert got["order_after_step_1"] == want["order_after_step_1"]
+    assert got["metrics"] == want["metrics"]
+    assert want["metrics"]["requests_failed"] == 1
+    assert want["metrics"]["deadline_missed_in_queue"] == 1
+    for uid, w in want["outcomes"].items():
+        g = got["outcomes"][uid]
+        for k in ("error", "missed_deadline", "queue_deadline_missed",
+                  "latency", "queue_wait"):
+            assert g[k] == w[k], (uid, k)
+        assert (g["result"] is None) == (w["result"] is None)
+    # rank 0's reading on the model axis: one host broadcast as the engine
+    # is built, one a submit, one at a step's top and one after its host
+    # sync; none at model 1
+    assert got["broadcasts"] == {"model": 1 + got["submits"] + got["steps"]
+                                 + got["metrics"]["host_syncs"]}
+    assert want["broadcasts"] == {} and want["steps"] == got["steps"]
+    assert want["outcomes"]["0"]["error"] == "timeout"
+    assert want["outcomes"]["3"]["missed_deadline"]
+    assert want["outcomes"]["4"]["queue_deadline_missed"]
+    for r in (r0, r1):
+        assert r["own_clock"].startswith("RankDivergence: host sync"), \
+            r["own_clock"]
+    assert one["own_clock"] == "no divergence"
+
+
+def test_model_axis_tokens_against_model1_under_the_margin_rule(runs, qwen):
+    """The model-2 runs' tokens (the durable recovery workload and the
+    clock run's) against the model-1 runs', under the margin rule at
+    ``TP_TOL`` (row-parallel sums round otherwise than one product)."""
+    cfg, params = qwen
+    (one,) = runs["model1"]
+    got = runs["model2"][0]
+    pairs = [(one["durable"], got["durable"])]
+    pairs.append(({u: o["result"] for u, o in one["clock"]["outcomes"]
+                   .items() if o["result"] is not None},
+                  {u: o["result"] for u, o in got["clock"]["outcomes"]
+                   .items() if o["result"] is not None}))
+    for ref, mine in pairs:
+        assert ref.keys() == mine.keys()
+        for uid, toks in ref.items():
+            toks = np.asarray(toks)
+            check_token_agreement(toks, np.asarray(mine[uid]),
+                                  _margin_fn(cfg, params, toks, int(uid)),
+                                  tol=TP_TOL)

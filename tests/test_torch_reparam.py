@@ -22,6 +22,14 @@ from repro_torch.core import reparam
 
 TINY = float(np.finfo(np.float32).tiny)
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 def _key_words(jkey):
     return np.asarray(jax.random.key_data(jkey)).astype(np.int64)

@@ -29,6 +29,14 @@ from repro_torch.serving.engine import ServingEngine
 EPS_SEED = 9
 CPU = torch.device("cpu")
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 @pytest.fixture(scope="module")
 def qwen():

@@ -31,6 +31,14 @@ from repro_torch.sharding.api import Rules
 MESHES = ((16, 16), (1, 2), (2, 4))
 BATCH, MAX_LEN = 16, 64
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 class FakeMesh:
     """Only .shape and .axis_names are consulted by the rules."""

@@ -15,7 +15,8 @@ model 2 gives tokens bitwise across the ranks and bitwise those of data 1 x
 model 2 at batch 2 (the same rows a call), and under the margin rule those
 of the port's and JAX's single-device engines at batch 4 (the reference's
 own test of this, which claims bitwise tokens, is one of the red ones).
-And ``launch/serve.py --mesh 2,2`` serves."""
+And ``launch/serve.py --mesh 2,2`` serves, and ``--mesh 1,2
+--durable-dir`` restores after a kill."""
 import json
 import os
 import subprocess
@@ -221,11 +222,30 @@ def test_serve_cli_spawns_the_model_ranks():
     assert out.stdout.count("served ") == 1          # rank 0 prints
 
 
-def test_durable_dir_on_a_model_axis_names_item_20c():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "qwen3-1.7b", "--reduced", "--device", "cpu", "--mesh", "1,2",
-         "--mesh-devices", "cpu", "--durable-dir", "unused"],
-        capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
-    assert out.returncode != 0 and "20c" in out.stderr
+def test_durable_dir_on_a_model_axis_restores_after_a_kill(tmp_path):
+    """``--mesh 1,2 --durable-dir``, once refused as ROADMAP item 20c, now
+    serves: a run killed at its first host sync (both ranks carry the kill
+    point) leaves rank 0's journal and checkpoint and each rank's disk
+    tier; the next run over the directory restores on both ranks, rank 0
+    reports what it recovered and serves its own requests after them."""
+    ddir = str(tmp_path / "durable")
+    args = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "qwen3-1.7b", "--reduced", "--device", "cpu", "--mesh", "1,2",
+            "--mesh-devices", "cpu", "--requests", "3", "--new-tokens", "8",
+            "--durable-dir", ddir]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    killed = subprocess.run(args, capture_output=True, text=True, cwd=ROOT,
+                            env=dict(env, REPRO_KILL_POINT="post_sync:0"),
+                            timeout=300)
+    assert killed.returncode != 0 and "a rank died" in killed.stderr, \
+        killed.stderr[-3000:]
+    assert "served" not in killed.stdout
+    assert {"journal.wal", "checkpoint.json", "disk", "rank1"} <= set(
+        os.listdir(ddir))
+    out = subprocess.run(args, capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count(f"recovered 3 journaled requests from {ddir}") \
+        == 1                                          # rank 0 prints
+    assert "served 6 requests / 48 tokens" in out.stdout
+    assert "2 model ranks (gloo)" in out.stdout

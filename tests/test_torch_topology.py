@@ -21,6 +21,14 @@ from repro_torch.serving.blocks import ShardedBlockPool, chain_hashes
 from repro_torch.serving.hostcache import HostTier
 from repro_torch.serving.topology import ServingTopology
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 
 class FakeMesh:
     """Only ``shape`` and ``axis_names`` are read by the partition math."""
